@@ -1,0 +1,206 @@
+"""Building-block layers for the PointNet family
+(``pointcloudprocessing_tpu/models/layers.py``), inference form.
+
+A 1x1 conv over (b, n, c) points is a per-point dense layer, so every block
+is a matmul over the last axis. Conventions of the JAX package (and the
+Keras reference) that parity needs: ``use_bias = not apply_bn``, BatchNorm
+epsilon 1e-3, Glorot-uniform kernels. Module and parameter names follow the
+Flax tree (``conv``/``dense``, ``bn``), so ``convert.py`` maps one onto the
+other by name.
+
+BatchNorm is written by hand over the last axis (``nn.BatchNorm1d`` wants
+channels at dim 1). Only running statistics are supported: a block asked
+for batch statistics (train mode, not frozen) raises NotImplementedError,
+as training is ROADMAP queue 1 item 4.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pointcloudprocessing_tpu.core.constants import KERAS_BN_EPSILON
+from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
+
+_TRAINING = (
+    "batch-statistics BatchNorm (training) is not ported yet: ROADMAP queue 1 "
+    "item 4, the training step"
+)
+
+
+def glorot_uniform(
+    shape: tuple[int, int],
+    fan_in: int,
+    fan_out: int,
+    generator: torch.Generator | None,
+    device: torch.device | str | None,
+) -> torch.Tensor:
+    """Glorot-uniform tensor drawn on the CPU from ``generator``, then moved."""
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    t = torch.empty(shape, dtype=torch.float32)
+    t.uniform_(-limit, limit, generator=generator)
+    return t.to(device)
+
+
+def apply_activation(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor:
+    if activation is None:
+        return x
+    if activation == "relu":
+        return torch.relu(x)
+    if activation == "softmax":
+        return torch.softmax(x, dim=-1)
+    raise ValueError(f"Unknown activation: {activation!r}")
+
+
+class Dense(nn.Module):
+    """Dense layer with ``weight`` (out, in) (Flax ``kernel`` transposed)."""
+
+    def __init__(self, in_features: int, features: int, bias: bool = True, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(glorot_uniform(
+            (features, in_features), in_features, features, generator, device
+        ))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(features, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis with running statistics:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, Flax's order."""
+
+    def __init__(self, features: int, *, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def forward(self, x: torch.Tensor, *, use_running: bool) -> torch.Tensor:
+        if not use_running:
+            raise NotImplementedError(_TRAINING)
+        mul = torch.rsqrt(self.running_var + KERAS_BN_EPSILON) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+class PointwiseBlock(nn.Module):
+    """Per-point dense + optional BN + activation (the reference's
+    ``ConvLayer``). A frozen block uses running statistics even in train
+    mode, as Keras ``trainable=False`` does."""
+
+    _dense_name = "conv"
+
+    def __init__(self, in_features: int, features: int, apply_bn: bool = True,
+                 activation: Optional[str] = "relu", *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.add_module(self._dense_name, Dense(
+            in_features, features, bias=not apply_bn, generator=generator,
+            device=device,
+        ))
+        self.bn = BatchNorm(features, device=device) if apply_bn else None
+        self.activation = activation
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                frozen: bool = False) -> torch.Tensor:
+        x = getattr(self, self._dense_name)(x)
+        if self.bn is not None:
+            x = self.bn(x, use_running=(not train) or frozen)
+        return apply_activation(x, self.activation)
+
+
+class DenseBlock(PointwiseBlock):
+    """Dense + optional BN + activation (the reference's ``DenseLayer``;
+    Flax names its matmul ``dense``)."""
+
+    _dense_name = "dense"
+
+    def __init__(self, in_features: int, features: int, apply_bn: bool = False,
+                 activation: Optional[str] = None, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__(in_features, features, apply_bn, activation,
+                         generator=generator, device=device)
+
+
+class _SplitKernelDense(nn.Module):
+    """Dense over a virtual concat [local ++ broadcast(global)] without
+    building the concat: ``local @ W[:, :d]^T + global @ W[:, d:]^T``. One
+    (features, d_local + d_global) weight, as Dense over the concat would
+    hold; the per-point matmul is only d_local wide."""
+
+    def __init__(self, d_local: int, d_global: int, features: int,
+                 bias: bool = True, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.d_local = d_local
+        d_in = d_local + d_global
+        self.weight = nn.Parameter(glorot_uniform(
+            (features, d_in), d_in, features, generator, device
+        ))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(features, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, local: torch.Tensor, global_feats: torch.Tensor) -> torch.Tensor:
+        per_point = F.linear(local, self.weight[:, : self.d_local])
+        per_cloud = F.linear(global_feats, self.weight[:, self.d_local:])
+        out = per_point + per_cloud[..., None, :]
+        if self.bias is not None:
+            out = out + self.bias
+        return out
+
+
+class ConcatPointwiseBlock(nn.Module):
+    """PointwiseBlock over [per-point features ++ tiled global vector],
+    through :class:`_SplitKernelDense`."""
+
+    def __init__(self, d_local: int, d_global: int, features: int,
+                 apply_bn: bool = True, activation: Optional[str] = "relu", *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.conv = _SplitKernelDense(
+            d_local, d_global, features, bias=not apply_bn,
+            generator=generator, device=device,
+        )
+        self.bn = BatchNorm(features, device=device) if apply_bn else None
+        self.activation = activation
+
+    def forward(self, local: torch.Tensor, global_feats: torch.Tensor, *,
+                train: bool = False, frozen: bool = False) -> torch.Tensor:
+        x = self.conv(local, global_feats)
+        if self.bn is not None:
+            x = self.bn(x, use_running=(not train) or frozen)
+        return apply_activation(x, self.activation)
+
+
+class PooledPointwiseBlock(nn.Module):
+    """``PointwiseBlock(features, BN, relu)`` + global max over points
+    (models/fused_pool.py). Same parameters as that block: ``conv.weight``
+    and ``bn``."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        self.conv = Dense(in_features, features, bias=False,
+                          generator=generator, device=device)
+        self.bn = BatchNorm(features, device=device)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                frozen: bool = False) -> torch.Tensor:
+        if train and not frozen:
+            raise NotImplementedError(_TRAINING)
+        bn = self.bn
+        return dense_bn_relu_max(
+            x, self.conv.weight, bn.weight, bn.bias, bn.running_mean,
+            bn.running_var, KERAS_BN_EPSILON,
+        )
