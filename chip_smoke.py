@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pointcloudprocessing_tpu_torch``) on one
-NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet.
+NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
+and the PointNet training step.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
 1. device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi`` reports them; TF32 off for matmul and cuDNN.
-2. build: builds both CUDA kernels from ``pointcloudprocessing_tpu_torch/csrc``.
+2. build: builds every CUDA kernel library from
+   ``pointcloudprocessing_tpu_torch/csrc`` (segment sum, FPS, pooled chain).
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (the segment sum on the ranks the slice builds
+   the main paths' shapes (the segment sum on the ranks the slice builds
    from uniform, zero-padded and LiDAR-like dense scans, and on synthetic
-   long runs), with its device time (torch.profiler) and its time per call
-   beside the plain version's.
+   long runs; the pooled-chain forward and backward at 8x8192 and 32x1024
+   points, 128 -> 1024 channels, with all-zero channels and with many
+   channels winning one point; the forward on NaN inputs; the backward's
+   winner-only form through the running-statistics chain's autograd
+   Function), with its device time (torch.profiler) and its time per call
+   beside the plain version's; the pooled forward's argmax flips against
+   the plain version are counted.
 4. slice: a full-width PointNet (23 classes, 12 parts, random seeded init)
    serves streamed 256x2048 scans through voxel 0.4 -> FPS -> 1024 points
    (clouds/s over three timed windows after a stream warm-up), then a
@@ -21,9 +28,23 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    stage's device time.
 5. serve: the serving CLI over a collect of written frames, its last batch
    zero-padded.
+6. train: the training step at full width through ``model_from_config
+   (training=True)``, ``init_train_state`` and ``make_train_step``, in two
+   cases: A, the kc46 config's ``final`` stage (vanilla 23/12, head
+   frozen, 8 x 8192 points, jitter 0.1 m, dropout 0.3; one pooled chain)
+   and B, the JAX bench's train row (full model, both regularizers,
+   32 x 1024 points, jitter 0.01; three chains). Each case: one step
+   through the kernels against one through the plain versions from the same
+   state, batch and generators; 30 steps on one batch (the loss must fall,
+   and each pooled kernel launches chains x steps times); train steps/s and
+   clouds/s over three timed windows, the device busy share, and device ms
+   per step by kind of kernel.
 
 The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+error and times: ``ms`` and ``plain_ms`` are device times from
+``torch.profiler``, or null with ``"ms_source": "not traced"`` if every
+trace came back without device rows (never another clock's time); the last
+line is ``{"ok": true, "device": {...}}``.
 
 Usage: python3 chip_smoke.py
 """
@@ -47,6 +68,10 @@ SEG_SUM_SRC = "pointcloudprocessing_tpu_torch/csrc/voxel_reduce.cu"
 FPS_SRC = "pointcloudprocessing_tpu_torch/csrc/fps.cu"
 SEG_SUM_TPU = "pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py:138"
 FPS_TPU = "pointcloudprocessing_tpu/ops/pallas/fps.py:110"
+POOLED_SRC = "pointcloudprocessing_tpu_torch/csrc/pooled_chain.cu"
+POOLED_FWD_TPU = "pointcloudprocessing_tpu/ops/pallas/pooled_chain.py:106"
+POOLED_BWD_TPU = "pointcloudprocessing_tpu/ops/pallas/pooled_chain.py:193"
+KC46_CONFIG = "configs/kc46_lidar_config.json"
 
 
 def log(msg: str) -> None:
@@ -72,44 +97,72 @@ def call_ms(torch, fn, reps: int, repeats: int = 5) -> float:
     return float(np.median(times))
 
 
-def device_trace(torch, fn) -> tuple[list, float]:
-    """Run ``fn`` once under ``torch.profiler`` with CUDA activity only.
-    Returns the device events it recorded (kernels, copies, memsets: the
-    rows whose device type is CUDA, so no host op that launched them is
-    counted a second time) and the host wall time of the call in us."""
+def device_trace(torch, fn) -> tuple[list, float] | None:
+    """Run ``fn`` once under ``torch.profiler``. Returns the device events it
+    recorded (kernels, copies, memsets: the rows whose device type is CUDA,
+    so no host op that launched them is counted a second time) and the host
+    wall time of the call in us; None if no trace recorded device rows.
+
+    On the H100 machine a trace has come back without device rows partway
+    through this script (once at its first trace), while 60 traces in a row
+    came back whole in a fresh process; so an empty trace is retried, once
+    with CUDA activity only and once with CPU activity too, and the caller
+    reports the metric as not traced (None) instead of failing the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    tries = ([ProfilerActivity.CUDA], [ProfilerActivity.CUDA],
+             [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    seen = []
+    for activities in tries:
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("torch.profiler recorded no device activity")
-    return events, wall_us
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = prof.events()
+        events = [e for e in rows if e.device_type == DeviceType.CUDA]
+        if events:
+            if seen:
+                log(f"    (torch.profiler: {len(seen)} trace(s) without device "
+                    f"rows before this one: {seen})")
+            return events, wall_us
+        seen.append(f"{len(rows)} rows")
+    log(f"    (torch.profiler recorded no device rows in {len(tries)} traces: "
+        f"{seen})")
+    return None
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int) -> float | None:
     """Device time per call of ``fn``: the summed durations of the kernels,
-    copies and memsets it runs, over ``reps`` calls after one warm-up."""
+    copies and memsets it runs, over ``reps`` calls after one warm-up; None
+    if the profiler recorded nothing."""
     fn()
 
     def calls():
         for _ in range(reps):
             fn()
 
-    events, _ = device_trace(torch, calls)
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    traced = device_trace(torch, calls)
+    if traced is None:
+        return None
+    return sum(e.time_range.elapsed_us() for e in traced[0]) / reps / 1e3
 
 
-def busy_share(torch, fn) -> tuple[float, float]:
-    """(busy share, wall ms) of one call of ``fn``: the time in which at
-    least one device activity ran (the union of their intervals, so work
-    overlapped on two streams counts once) over the host wall time."""
-    events, wall_us = device_trace(torch, fn)
+def fmt(ms: float | None) -> str:
+    return "not traced" if ms is None else f"{ms:.4f}"
+
+
+def busy_share(torch, fn) -> str:
+    """The busy share of one call of ``fn``, with its wall ms, as a log
+    phrase: the time in which at least one device activity ran (the union
+    of their intervals, so work overlapped on two streams counts once) over
+    the host wall time; "not traced" if the profiler recorded nothing."""
+    traced = device_trace(torch, fn)
+    if traced is None:
+        return "not traced"
+    events, wall_us = traced
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, (lo, hi) = 0.0, spans[0]
     for s, e in spans[1:]:
@@ -119,20 +172,27 @@ def busy_share(torch, fn) -> tuple[float, float]:
         else:
             hi = max(hi, e)
     busy += hi - lo
-    return busy / wall_us, wall_us / 1e3
+    return f"{busy / wall_us:.4f} of {wall_us / 1e3:.1f} ms wall"
 
 
-def kernel_breakdown(torch, fn) -> dict:
-    """Device ms of one call of ``fn`` by kind of kernel (kernel names as
-    CUPTI reports them)."""
-    events, _ = device_trace(torch, fn)
-    kinds = {"gemm": 0.0, "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
+def kernel_breakdown(torch, fn, calls: int = 1) -> dict:
+    """Device ms per call of ``fn`` (which makes ``calls`` calls) by kind of
+    kernel, from the kernel names as CUPTI reports them; empty if the
+    profiler recorded nothing."""
+    traced = device_trace(torch, fn)
+    if traced is None:
+        return {}
+    events = traced[0]
+    kinds = {"pooled_fwd": 0.0, "pooled_bwd": 0.0, "gemm": 0.0,
+             "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
     for e in events:
         name = e.name.lower()
-        kind = ("gemm" if "gemm" in name else
+        kind = ("pooled_fwd" if "pooled_forward" in name or "pooled_combine" in name
+                else "pooled_bwd" if "pooled_backward" in name else
+                "gemm" if "gemm" in name else
                 "elementwise" if "elementwise" in name else
                 "reduce" if "reduce" in name else "other")
-        kinds[kind] += e.time_range.elapsed_us() / 1e3
+        kinds[kind] += e.time_range.elapsed_us() / 1e3 / calls
     return kinds
 
 
@@ -297,7 +357,7 @@ def phase_kernels(torch, rng) -> dict:
         longest = max(int(np.bincount(r).max()) for r in rank.cpu().numpy())
         log(f"[3 kernels] segment sum {b}x{n}x{d} {label} (longest run "
             f"{longest}): max abs err {max_err:.3e}; device ms kernel "
-            f"{ms:.4f}, plain {plain_ms:.4f}; per call with launch "
+            f"{fmt(ms)}, plain {fmt(plain_ms)}; per call with launch "
             f"kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}")
         if label == "main-path uniform voxel":
             results["seg_ms"], results["seg_plain_ms"] = ms, plain_ms
@@ -330,11 +390,194 @@ def phase_kernels(torch, rng) -> dict:
         ms, plain_ms = device_ms(torch, kernel, 10), device_ms(torch, plain, 2)
         per_call = (call_ms(torch, kernel, 10), call_ms(torch, plain, 1, 3))
         log(f"[3 kernels] FPS {b}x{n}->{k} {layout}: indices identical, "
-            f"coordinates bit-identical; device ms kernel {ms:.4f}, plain "
-            f"{plain_ms:.4f}; per call with launch kernel {per_call[0]:.4f}, "
+            f"coordinates bit-identical; device ms kernel {fmt(ms)}, plain "
+            f"{fmt(plain_ms)}; per call with launch kernel {per_call[0]:.4f}, "
             f"plain {per_call[1]:.4f}")
         if (b, n, layout) == (256, 2048, "bcn"):
             results["fps_ms"], results["fps_plain_ms"] = ms, plain_ms
+    return results
+
+
+def phase_pooled_kernels(torch) -> dict:
+    """The pooled-chain kernels against their plain versions at the training
+    step's shapes (c_in 128 -> c 1024): case A's 8x8192 and case B's 32x1024
+    points, inputs drawn like the chain's (relu'd activations)."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward,
+        pooled_chain_backward_reference,
+        pooled_chain_forward,
+        pooled_chain_forward_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    c_in, c = 128, 1024
+    results = {"fwd_err": 0.0, "bwd_err": 0.0}
+    # the wrappers refuse what the kernels do not take, before any launch
+    x0 = torch.zeros(2, 64, c_in, device=dev)
+    w0, v0 = torch.zeros(c, c_in, device=dev), torch.zeros(c, device=dev)
+    refused = 0
+    for bad in ((x0.double(), w0, v0, v0), (x0.transpose(1, 2).contiguous()
+                .transpose(1, 2), w0, v0, v0), (x0, w0[:96], v0[:96], v0[:96])):
+        try:
+            pooled_chain_forward(*bad)
+        except (TypeError, ValueError):
+            refused += 1
+    if refused != 3 or pooled_chain_forward.launches:
+        raise AssertionError("pooled forward took an f64, strided or 96-wide call")
+    log("[3 kernels] pooled forward refuses f64, strided and 96-wide inputs "
+        "before any launch")
+    cases = [(8, 8192, "some dead channels"), (32, 1024, "some dead channels"),
+             (8, 8192, "all channels dead")]
+    for b, n, label in cases:
+        x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
+        w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+        a = torch.rand(c, device=dev, generator=gen) + 0.5
+        c_row = torch.randn(c, device=dev, generator=gen) * 0.5
+        c_row[:16] = -1e4  # 0 at every point after relu
+        if label == "all channels dead":
+            c_row[:] = -1e4
+        pooled, argmax = pooled_chain_forward(x, w, a, c_row)
+        want, want_arg = pooled_chain_forward_reference(x, w, a, c_row)
+        torch.cuda.synchronize()
+        # f32 GEMM rounding of each pre-activation: c_in ulps of the sum of
+        # |x_k w_k|, times the affine's |a|
+        bound = c_in * 2.0 ** -23 * torch.matmul(x.abs(), w.abs().t()) * a.abs()
+        r = torch.relu(torch.matmul(x, w.t()) * a + c_row)
+        got_r = r.gather(1, argmax.long()[:, None, :]).squeeze(1)
+        slack = (bound.gather(1, argmax.long()[:, None, :]).squeeze(1)
+                 + bound.gather(1, want_arg.long()[:, None, :]).squeeze(1))
+        err = (pooled - want).abs()
+        if not bool((err <= slack).all()) or not bool((want - got_r <= slack).all()):
+            raise AssertionError(
+                f"pooled forward {b}x{n} ({label}): max abs err {err.max().item():.3e}"
+                f" beyond the GEMM rounding bound, or a winner off the max")
+        if not bool(((argmax >= 0) & (argmax < n)).all()):
+            raise AssertionError("pooled forward: argmax outside [0, n)")
+        dead = c_row < -1e3
+        if not (bool((pooled[:, dead] == 0).all()) and bool((argmax[:, dead] == 0).all())):
+            raise AssertionError("pooled forward: a dead channel is not 0 at argmax 0")
+        flips = int((argmax != want_arg).sum())
+        results["fwd_err"] = max(results["fwd_err"], err.max().item())
+        fwd = functools.partial(pooled_chain_forward, x, w, a, c_row)
+        fwd_plain = functools.partial(pooled_chain_forward_reference, x, w, a, c_row)
+        ms, plain_ms = device_ms(torch, fwd, 10), device_ms(torch, fwd_plain, 10)
+        per_call = (call_ms(torch, fwd, 10), call_ms(torch, fwd_plain, 10))
+        log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs "
+            f"err {err.max().item():.3e}; argmax flips {flips} of {b * c} (each "
+            f"within GEMM rounding of the max); device ms kernel {fmt(ms)}, plain "
+            f"{fmt(plain_ms)}; per call with launch kernel {per_call[0]:.4f}, "
+            f"plain {per_call[1]:.4f}")
+        if (b, n, label) == (8, 8192, "some dead channels"):
+            results["fwd_ms"], results["fwd_plain_ms"] = ms, plain_ms
+
+        coef = torch.randn(b, c, device=dev, generator=gen)
+        m_small = torch.randn(c_in, c_in, device=dev, generator=gen) * 0.01
+        const_row = torch.randn(c_in, device=dev, generator=gen) * 0.01
+        crowded = argmax.clone()
+        crowded[:, ::2] = 5  # half the channels win point 5 of every cloud
+        for winners, am in (("forward's winners", argmax), ("512 channels on one point", crowded)):
+            dx, dk = pooled_chain_backward(x, w, coef, am, m_small, const_row)
+            want_dx, want_dk = pooled_chain_backward_reference(
+                x, w, coef, am, m_small, const_row)
+            dx2, dk2 = pooled_chain_backward(x, w, coef, am, m_small, const_row)
+            torch.cuda.synchronize()
+            if not (torch.equal(dx, dx2) and torch.equal(dk, dk2)):
+                raise AssertionError("pooled backward is not deterministic")
+            e_dx = (dx - want_dx).abs().max().item()
+            e_dk = (dk - want_dk).abs().max().item()
+            # f32 sums in another order: 1e-5 of the largest term's scale
+            bar_dx = 1e-5 * (1 + want_dx.abs().max().item())
+            bar_dk = 1e-5 * (1 + want_dk.abs().max().item())
+            if e_dx > bar_dx or e_dk > bar_dk:
+                raise AssertionError(
+                    f"pooled backward {b}x{n} ({winners}): dx err {e_dx:.3e} "
+                    f"(bar {bar_dx:.3e}), dk err {e_dk:.3e} (bar {bar_dk:.3e})")
+            results["bwd_err"] = max(results["bwd_err"], e_dx, e_dk)
+            if label == "all channels dead":
+                continue
+            bwd = functools.partial(pooled_chain_backward, x, w, coef, am,
+                                    m_small, const_row)
+            bwd_plain = functools.partial(pooled_chain_backward_reference, x, w,
+                                          coef, am, m_small, const_row)
+            ms, plain_ms = device_ms(torch, bwd, 10), device_ms(torch, bwd_plain, 5)
+            per_call = (call_ms(torch, bwd, 10), call_ms(torch, bwd_plain, 5))
+            log(f"[3 kernels] pooled backward {b}x{n}x{c_in}<-{c} ({winners}): "
+                f"max abs err dx {e_dx:.3e}, dk {e_dk:.3e} (bars {bar_dx:.1e}, "
+                f"{bar_dk:.1e}); bit-identical on a rerun; device ms kernel "
+                f"{fmt(ms)}, plain {fmt(plain_ms)}; per call with launch kernel "
+                f"{per_call[0]:.4f}, plain {per_call[1]:.4f}")
+            if (b, n, winners) == (8, 8192, "forward's winners"):
+                results["bwd_ms"], results["bwd_plain_ms"] = ms, plain_ms
+
+    # NaN propagates as in torch.relu / amax / argmax: one NaN value in a
+    # point (every channel of that cloud), and NaN BatchNorm factors (an
+    # unclamped variance below -eps) on four channels
+    b, n = 32, 1024
+    x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
+    w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+    a = torch.rand(c, device=dev, generator=gen) + 0.5
+    c_row = torch.randn(c, device=dev, generator=gen) * 0.5
+    x[1, 77, 3] = float("nan")
+    a[40:44] = float("nan")
+    pooled, argmax = pooled_chain_forward(x, w, a, c_row)
+    want, want_arg = pooled_chain_forward_reference(x, w, a, c_row)
+    torch.cuda.synchronize()
+    nan_want = torch.isnan(want)
+    finite = ~nan_want
+    bound = (c_in * 2.0 ** -23 * torch.matmul(x.abs(), w.abs().t()) * a.abs()).amax(1)
+    err = (pooled - want).abs()
+    if not (torch.equal(torch.isnan(pooled), nan_want)
+            and int(nan_want.sum()) == c + 4 * (b - 1)
+            and torch.equal(argmax[nan_want], want_arg[nan_want])
+            and bool((err[finite] <= 2 * bound[finite]).all())):
+        raise AssertionError("pooled forward on NaN inputs disagrees with its "
+                             "plain version")
+    results["fwd_err"] = max(results["fwd_err"], err[finite].max().item())
+    log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} with NaN inputs: NaN "
+        f"at the plain version's {int(nan_want.sum())} entries, at its argmax "
+        f"(the first NaN); finite entries max abs err "
+        f"{err[finite].max().item():.3e}")
+
+    # the winner-only backward (m = 0, row = 0) through the running-
+    # statistics chain's autograd Function, against the same Function
+    # routed to the plain versions
+    from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
+
+    b, n = 8, 8192
+    x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
+    w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+    scale = torch.rand(c, device=dev, generator=gen) + 0.5
+    bias = torch.randn(c, device=dev, generator=gen) * 0.5
+    r_mean = torch.randn(c, device=dev, generator=gen) * 0.5
+    r_var = torch.rand(c, device=dev, generator=gen) * 4 + 1
+    g_out = torch.randn(b, c, device=dev, generator=gen)
+
+    def running_chain():
+        leaves = [t.clone().requires_grad_() for t in (x, w, scale, bias)]
+        pooled, _, _ = dense_bn_relu_max(*leaves, r_mean, r_var, 1e-3,
+                                         use_running=True)
+        (pooled * g_out).sum().backward()
+        return pooled.detach(), [t.grad for t in leaves]
+
+    launched = pooled_chain_backward.launches
+    got_p, got_g = running_chain()
+    launched = pooled_chain_backward.launches - launched
+    with route_pooled(pooled_chain_forward_reference, pooled_chain_backward_reference):
+        want_p, want_g = running_chain()
+    torch.cuda.synchronize()
+    errs = [(gk - gp).abs().max().item() for gk, gp in zip(got_g, want_g)]
+    bars = [1e-5 * (1 + gp.abs().max().item()) for gp in want_g]
+    if launched != 1 or not torch.equal(got_p, want_p) or any(
+            e > bar for e, bar in zip(errs, bars)):
+        raise AssertionError(
+            f"running-statistics chain backward: {launched} kernel launches, "
+            f"grad errs {errs} (bars {bars})")
+    results["bwd_err"] = max(results["bwd_err"], *errs)
+    log(f"[3 kernels] pooled backward, winner-only form (running-statistics "
+        f"chain, {b}x{n}x{c_in}<-{c}): one kernel launch; max abs err dx "
+        f"{errs[0]:.3e}, dweight {errs[1]:.3e}, dscale {errs[2]:.3e}, dbias "
+        f"{errs[3]:.3e} (bars 1e-5 x (1 + max |grad|))")
     return results
 
 
@@ -450,10 +693,9 @@ def phase_slice(torch, rng, model) -> dict:
         + f"; median {rate:.1f}; padded, stride and 64x8192->{k} batches ok; "
         f"launches {launches}")
 
-    share, wall = busy_share(torch, lambda: list(fps_pipe.stream(feed(16))))
+    share = busy_share(torch, lambda: list(fps_pipe.stream(feed(16))))
     log(f"[4 slice] device busy share over a profiled 16-batch stream: "
-        f"{share:.4f} of {wall:.1f} ms wall (union of device activity "
-        f"intervals / host wall time)")
+        f"{share} (union of device activity intervals / host wall time)")
 
     # per-stage time of one fps batch
     x = torch.from_numpy(pool[0]).cuda()
@@ -472,10 +714,10 @@ def phase_slice(torch, rng, model) -> dict:
         kinds = kernel_breakdown(torch, stages["pointnet"])
     log(f"[4 slice] ms per {b}x{scan}->{k} batch, device time / per call with "
         "launch (CUDA events): " + ", ".join(
-            f"{name} {dev:.4f} / {call:.4f}"
+            f"{name} {fmt(dev)} / {call:.4f}"
             for name, (dev, call) in stage_ms.items()))
-    log("[4 slice] PointNet forward device ms by kernel kind: " + ", ".join(
-        f"{kind} {ms:.4f}" for kind, ms in kinds.items()))
+    log("[4 slice] PointNet forward device ms by kernel kind: " + (", ".join(
+        f"{kind} {ms:.4f}" for kind, ms in kinds.items()) or "not traced"))
 
     with route_kernels(sorted_segment_reduce_reference,
                        fps_with_points_reference):
@@ -541,6 +783,235 @@ def phase_serve(torch, rng, model) -> None:
         f"(voxel 0.4, 2048 -> 1024, batch 3: the last batch zero-padded, cuda)")
 
 
+# ------------------------------------------------------------------ phase 6
+
+@contextlib.contextmanager
+def route_pooled(forward, backward):
+    """Point the pooled chain's kernel wrappers at other functions (the
+    plain versions) while the block runs; for comparisons on the card
+    only. ``models/fused_pool.py`` looks them up at call time."""
+    from pointcloudprocessing_tpu_torch.models import fused_pool
+
+    saved = (fused_pool.pooled_chain_forward, fused_pool.pooled_chain_backward)
+    fused_pool.pooled_chain_forward = forward
+    fused_pool.pooled_chain_backward = backward
+    try:
+        yield
+    finally:
+        fused_pool.pooled_chain_forward, fused_pool.pooled_chain_backward = saved
+
+
+def train_batch(torch, rng, b: int, n: int, classes: int, parts: int):
+    """(b, n, 3) clouds in metres, each stretched along its own axes, with a
+    part label per point that follows from its position (the azimuth
+    sector), a random class per cloud and identity SE(3) targets."""
+    x = rng.normal(size=(b, n, 3)) * rng.uniform(1.0, 15.0, (b, 1, 3))
+    sector = (np.arctan2(x[..., 1], x[..., 0]) + np.pi) / (2 * np.pi) * parts
+    dev = torch.device("cuda")
+    targets = {
+        "classification_output": torch.from_numpy(
+            rng.integers(0, classes, b).astype(np.int64)).to(dev),
+        "segmentation_output": torch.from_numpy(
+            np.minimum(sector.astype(np.int64), parts - 1)).to(dev),
+        "se3": torch.eye(3, device=dev).expand(b, 3, 3).contiguous(),
+    }
+    return torch.from_numpy(x.astype(np.float32)).to(dev), targets
+
+
+def check_step_against_plain(torch, label, models, run_step, x, lr) -> dict:
+    """One step of ``models[0]`` through the kernels and one of
+    ``models[1]`` (a copy) through the plain versions, from the same state,
+    batch and seed; ``models[2]``, a third copy, takes the plain step on
+    the batch moved by one f32 ulp, which measures how far the step itself
+    moves under rounding. Bars: each loss, gradient leaf, parameter and
+    running statistic within 8x that one-ulp change plus a floor (a
+    parameter whose gradient sign the one-ulp step leaves uncertain may
+    differ by Adam's 2 lr)."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward_reference,
+        pooled_chain_forward_reference,
+    )
+
+    logs_k = run_step(0, x)
+    with route_pooled(pooled_chain_forward_reference,
+                      pooled_chain_backward_reference):
+        logs_p = run_step(1, x)
+        logs_u = run_step(2, torch.nextafter(x, torch.full_like(x, float("inf"))))
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "stat": 0.0}
+    for key in ("loss", "classification_output_loss", "segmentation_output_loss",
+                "se3_loss"):
+        k, p, u = (float(logs[key]) for logs in (logs_k, logs_p, logs_u))
+        bound = 8 * abs(p - u) + 1e-6 * abs(p) + 1e-7
+        if abs(k - p) > bound:
+            raise AssertionError(f"train {label}: {key} {k} through the kernels, "
+                                 f"{p} plain (bar {bound:.3e})")
+        worst["loss"] = max(worst["loss"], abs(k - p) / bound)
+    named = [dict(m.named_parameters()) for m in models]
+    for name, pk in named[0].items():
+        pp, pu = named[1][name], named[2][name]
+        gk, gp, gu = pk.grad, pp.grad, pu.grad
+        if gp is None:  # frozen: no gradient, no update
+            if gk is not None or gu is not None or not torch.equal(pk, pp):
+                raise AssertionError(f"train {label}: frozen {name} took a "
+                                     f"gradient or moved")
+            continue
+        sens = (gp - gu).abs().max()
+        bound = 8 * sens + 1e-5 * gp.abs().max() + 1e-12
+        err = (gk - gp).abs().max()
+        if err > bound:
+            raise AssertionError(f"train {label}: grad {name} differs by "
+                                 f"{err.item():.3e} (bar {bound.item():.3e})")
+        worst["grad"] = max(worst["grad"], (err / bound).item())
+        certain = gp.abs() > 10 * sens
+        perr = (pk - pp).abs()
+        certain_err = perr[certain].max().item() if bool(certain.any()) else 0.0
+        if certain_err > 1e-3 * lr or perr.max().item() > 2 * lr * (1 + 1e-3):
+            raise AssertionError(f"train {label}: new {name} differs by "
+                                 f"{perr.max().item():.3e}")
+        worst["param"] = max(worst["param"], perr.max().item() / lr)
+    buffers = [dict(m.named_buffers()) for m in models]
+    for name, sk in buffers[0].items():
+        sp, su = buffers[1][name], buffers[2][name]
+        bound = 8 * (sp - su).abs().max() + 1e-6 + 1e-5 * sp.abs()
+        if not bool(((sk - sp).abs() <= bound).all()):
+            raise AssertionError(f"train {label}: running statistic {name} differs")
+        worst["stat"] = max(worst["stat"], ((sk - sp).abs() / bound).max().item())
+    return worst
+
+
+def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
+               chains: int) -> dict:
+    import copy
+
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward,
+        pooled_chain_forward,
+    )
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    b, n = cfg.batch_size, cfg.input_width
+    seed = 0
+    model = model_from_config(cfg, training=True, dropout_rate=0.3,
+                              generator=torch.Generator().manual_seed(0),
+                              device="cuda")
+    models = [model, copy.deepcopy(model), copy.deepcopy(model)]
+    runs = []
+    for m in models:
+        state, optimizer = steps.init_train_state(m, cfg.learning, freeze)
+        runs.append((state, steps.make_train_step(
+            m, optimizer, loss_weights, freeze, jitter_m)))
+    lr = float(optimizer.learning_rate(0))
+    x, targets = train_batch(torch, rng, b, n, cfg.num_classes, cfg.num_parts)
+
+    def run_step(i, points):
+        state, step = runs[i]
+        _, logs = step(state, points, targets, seed)
+        torch.cuda.synchronize()
+        return logs
+
+    worst = check_step_against_plain(torch, label, models, run_step, x, lr)
+    log(f"[6 train] {label}: one step through the kernels vs the plain "
+        f"versions (same state, batch, generators): worst error over its "
+        f"bar: losses {worst['loss']:.3f}, grads {worst['grad']:.3f}, running "
+        f"statistics {worst['stat']:.3f}; largest param difference "
+        f"{worst['param']:.3f} lr (bars: 8x the plain step's own one-ulp "
+        f"change + floors; params 1e-3 lr where the gradient sign is certain, "
+        f"else 2 lr)")
+
+    state, step = runs[0]
+    num_steps = 30
+    pooled_chain_forward.launches = 0
+    pooled_chain_backward.launches = 0
+    # ---- the main path: counted launches start here
+    losses = []
+    for _ in range(num_steps):
+        state, logs = step(state, x, targets, seed)
+        losses.append(logs["loss"])
+    torch.cuda.synchronize()
+    launches = {"fwd": pooled_chain_forward.launches,
+                "bwd": pooled_chain_backward.launches}
+    # ---- the main path ends here
+    losses = [float(v) for v in losses]
+    if launches != {"fwd": chains * num_steps, "bwd": chains * num_steps}:
+        raise AssertionError(f"train {label}: pooled launches {launches}, want "
+                             f"{chains} x {num_steps} each")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"train {label}: loss {losses[0]} -> {losses[-1]}")
+    log(f"[6 train] {label}: {num_steps} steps on one batch: loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; pooled launches {launches} "
+        f"({chains} chains x {num_steps} steps)")
+
+    window, windows = 10, 3
+    rates = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(window):
+            state, logs = step(state, x, targets, seed)
+        torch.cuda.synchronize()
+        rates.append(window / (time.perf_counter() - t0))
+    rate = float(np.median(rates))
+
+    def steps_fn(count):
+        def run():
+            nonlocal state
+            for _ in range(count):
+                state, _ = step(state, x, targets, seed)
+        return run
+
+    share = busy_share(torch, steps_fn(5))
+    kinds = kernel_breakdown(torch, steps_fn(3), calls=3)
+    log(f"[6 train] {label}: train steps/s over {windows} windows of {window} "
+        f"steps: " + ", ".join(f"{r:.3f}" for r in rates)
+        + f"; median {rate:.3f} ({rate * b:.1f} clouds/s, spread "
+        f"{(max(rates) - min(rates)) / rate:.4f}); device busy share "
+        f"{share} over 5 steps")
+    log(f"[6 train] {label}: device ms per step by kind: " + (", ".join(
+        f"{kind} {ms:.4f}" for kind, ms in kinds.items())
+        + f"; total {sum(kinds.values()):.4f}" if kinds else "not traced"))
+    return {"launches": launches, "steps_per_s": rate, "kinds": kinds}
+
+
+def phase_train(torch, rng) -> dict:
+    from pointcloudprocessing_tpu.core.config import (
+        LearningConfig,
+        load_config,
+        parse_config,
+    )
+    from pointcloudprocessing_tpu_torch.models.pointnet import (
+        FreezeFlags,
+        freeze_flags_from_trainable,
+    )
+
+    # A: the users' configuration, kc46 `final` (seeded init, no checkpoint)
+    cfg = load_config(os.path.join(REPO, KC46_CONFIG))
+    stage = next(st for st in cfg.stages if st.name == "final")
+    lw = stage.loss_weights
+    a = train_case(
+        torch, rng, f"A kc46 final ({'vanilla' if cfg.vanilla else 'full'} "
+        f"{cfg.num_classes}/{cfg.num_parts}, {cfg.batch_size}x{cfg.input_width})",
+        cfg, freeze_flags_from_trainable(stage.trainable),
+        (lw.classification, lw.segmentation, lw.rotation), stage.noise.as_tuple(),
+        chains=1)
+    # B: the JAX bench's train-step row (bench.py:357-395)
+    config_b = {
+        "info": {"name": "bench_train",
+                 "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
+                 "part_labels": {str(i): f"p{i}" for i in range(NUM_PARTS)}},
+        "params": {"input_width": 1024, "epochs": 1, "patience": 1,
+                   "batch_size": 32, "regularize_input_transform": True,
+                   "regularize_feature_transform": True},
+    }
+    cfg_b = parse_config(config_b)
+    if cfg_b.learning != LearningConfig(rate=1e-4):
+        raise AssertionError(f"case B's learning config {cfg_b.learning}")
+    b = train_case(torch, rng, "B bench train (full 23/12, both regularizers, 32x1024)",
+                   cfg_b, FreezeFlags(), (1.0, 1.0, 0.1), (0.01, 0.01, 0.01),
+                   chains=3)
+    return {"A": a, "B": b}
+
+
 def main() -> int:
     import torch
 
@@ -562,21 +1033,40 @@ def main() -> int:
     phase_build()
     rng = np.random.default_rng(0)
     kernels = phase_kernels(torch, rng)
+    pooled = phase_pooled_kernels(torch)
     model = PointNet(NUM_CLASSES, NUM_PARTS,
                      generator=torch.Generator().manual_seed(0), device="cuda")
     model.eval()
     sliced = phase_slice(torch, rng, model)
     phase_serve(torch, rng, model)
+    trained = phase_train(torch, rng)
+    pooled_launches = {
+        k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
+        for k in ("fwd", "bwd")}
+
+    def times(ms, plain_ms) -> dict:
+        traced = ms is not None and plain_ms is not None
+        return {"ms": ms if traced else None,
+                "plain_ms": plain_ms if traced else None,
+                "ms_source": "torch.profiler device rows" if traced else "not traced"}
 
     log(json.dumps({"kernels": [
         {"name": "sorted_segment_sum", "route": "cuda", "source": SEG_SUM_SRC,
          "replaces": SEG_SUM_TPU, "launches": sliced["launches"]["seg"],
-         "max_abs_err": kernels["seg_err"], "ms": kernels["seg_ms"],
-         "plain_ms": kernels["seg_plain_ms"]},
+         "max_abs_err": kernels["seg_err"],
+         **times(kernels["seg_ms"], kernels["seg_plain_ms"])},
         {"name": "fps_with_points", "route": "cuda", "source": FPS_SRC,
          "replaces": FPS_TPU, "launches": sliced["launches"]["fps"],
-         "max_abs_err": kernels["fps_err"], "ms": kernels["fps_ms"],
-         "plain_ms": kernels["fps_plain_ms"]},
+         "max_abs_err": kernels["fps_err"],
+         **times(kernels["fps_ms"], kernels["fps_plain_ms"])},
+        {"name": "pooled_chain_forward", "route": "cuda", "source": POOLED_SRC,
+         "replaces": POOLED_FWD_TPU, "launches": pooled_launches["fwd"],
+         "max_abs_err": pooled["fwd_err"],
+         **times(pooled["fwd_ms"], pooled["fwd_plain_ms"])},
+        {"name": "pooled_chain_backward", "route": "cuda", "source": POOLED_SRC,
+         "replaces": POOLED_BWD_TPU, "launches": pooled_launches["bwd"],
+         "max_abs_err": pooled["bwd_err"],
+         **times(pooled["bwd_ms"], pooled["bwd_plain_ms"])},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,13 @@ _NOT_PORTED = {
 }
 
 
-def model_from_config(cfg, *, generator: torch.Generator | None = None,
+def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
+                      generator: torch.Generator | None = None,
                       device=None) -> PointNet:
     """Build the configured model family (``cfg`` is a
-    ``core.config.TrainConfig``); only the PointNet family is ported."""
+    ``core.config.TrainConfig``); only the PointNet family is ported.
+    ``training=True`` applies the config's T-Net regularizers; inference
+    consumers build without them."""
     opts = dict(getattr(cfg, "model_options", {}) or {})
     if cfg.model != "dgcnn" and opts:
         raise ValueError(
@@ -29,8 +32,15 @@ def model_from_config(cfg, *, generator: torch.Generator | None = None,
             f"params.model={cfg.model!r} is not ported yet: {_NOT_PORTED[cfg.model]}"
         )
     if cfg.model == "pointnet":
-        return PointNet(cfg.num_classes, cfg.num_parts, vanilla=cfg.vanilla,
-                        generator=generator, device=device)
+        return PointNet(
+            cfg.num_classes, cfg.num_parts, vanilla=cfg.vanilla,
+            dropout_rate=dropout_rate,
+            regularize_input_transform=(
+                cfg.regularize_input_transform if training else False),
+            regularize_feature_transform=(
+                cfg.regularize_feature_transform if training else False),
+            generator=generator, device=device,
+        )
     raise ValueError(
         f"Unknown params.model {cfg.model!r} (expected one of {MODEL_FAMILIES})"
     )

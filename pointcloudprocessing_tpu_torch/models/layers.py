@@ -1,5 +1,5 @@
 """Building-block layers for the PointNet family
-(``pointcloudprocessing_tpu/models/layers.py``), inference form.
+(``pointcloudprocessing_tpu/models/layers.py``).
 
 A 1x1 conv over (b, n, c) points is a per-point dense layer, so every block
 is a matmul over the last axis. Conventions of the JAX package (and the
@@ -9,9 +9,13 @@ Flax tree (``conv``/``dense``, ``bn``), so ``convert.py`` maps one onto the
 other by name.
 
 BatchNorm is written by hand over the last axis (``nn.BatchNorm1d`` wants
-channels at dim 1). Only running statistics are supported: a block asked
-for batch statistics (train mode, not frozen) raises NotImplementedError,
-as training is ROADMAP queue 1 item 4.
+channels at dim 1, and its running variance is the unbiased one) with
+Flax's conventions: in train mode a block that is not frozen normalizes by
+the batch's mean and biased variance ``E[x^2] - E[x]^2``, clamped at 0,
+over every axis but the last, and then updates its running statistics in
+place as ``m * old + (1 - m) * batch`` with m = 0.99. A frozen block uses
+its running statistics even in train mode and never updates them, as Keras
+``trainable=False`` does.
 """
 
 from __future__ import annotations
@@ -23,13 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointcloudprocessing_tpu.core.constants import KERAS_BN_EPSILON
-from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
-
-_TRAINING = (
-    "batch-statistics BatchNorm (training) is not ported yet: ROADMAP queue 1 "
-    "item 4, the training step"
+from pointcloudprocessing_tpu.core.constants import (
+    KERAS_BN_EPSILON,
+    KERAS_BN_MOMENTUM,
 )
+from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
 
 
 def glorot_uniform(
@@ -75,8 +77,9 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis with running statistics:
-    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, Flax's order."""
+    """BatchNorm over the last axis:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, Flax's order, with
+    the running statistics or (``use_running=False``) the batch's own."""
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
@@ -86,10 +89,23 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor, *, use_running: bool) -> torch.Tensor:
-        if not use_running:
-            raise NotImplementedError(_TRAINING)
-        mul = torch.rsqrt(self.running_var + KERAS_BN_EPSILON) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if use_running:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = torch.clamp(torch.square(x).mean(dim=axes) - torch.square(mean),
+                              min=0.0)
+            self.update_running(mean, var)
+        mul = torch.rsqrt(var + KERAS_BN_EPSILON) * self.weight
+        return (x - mean) * mul + self.bias
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """``running = m * running + (1 - m) * batch``, in place."""
+        m = KERAS_BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
 
 class PointwiseBlock(nn.Module):
@@ -197,10 +213,12 @@ class PooledPointwiseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 frozen: bool = False) -> torch.Tensor:
-        if train and not frozen:
-            raise NotImplementedError(_TRAINING)
         bn = self.bn
-        return dense_bn_relu_max(
+        use_running = (not train) or frozen
+        pooled, mean, var = dense_bn_relu_max(
             x, self.conv.weight, bn.weight, bn.bias, bn.running_mean,
-            bn.running_var, KERAS_BN_EPSILON,
+            bn.running_var, KERAS_BN_EPSILON, use_running,
         )
+        if not use_running:
+            bn.update_running(mean, var)
+        return pooled

@@ -1,12 +1,19 @@
 """Multi-head PointNet: classification + per-point segmentation + SE(3)
-(``pointcloudprocessing_tpu/models/pointnet.py``), inference form.
+(``pointcloudprocessing_tpu/models/pointnet.py``).
 
 Input unit-sphere normalization, input T-Net (3x3), shared MLP(64, 64),
 feature T-Net (64x64), MLP(64, 128, 1024) with a global max-pool, a
-classification head (512 -> 256 -> softmax) and a segmentation head on
-[per-point 64-d ++ global 1024-d] (512 -> 256 -> 128 -> 128 -> softmax).
-``vanilla`` drops both T-Nets. Dropout is the identity at inference, so
-the port holds no dropout modules.
+classification head (512 -> dropout -> 256 -> dropout -> softmax) and a
+segmentation head on [per-point 64-d ++ global 1024-d] (512 -> 256 -> 128 ->
+128 -> softmax). ``vanilla`` drops both T-Nets.
+
+Train mode (``train=True``) normalizes every BatchNorm that ``freeze`` does
+not freeze by batch statistics and updates its running statistics in
+place, and applies dropout with keep masks drawn from an explicit
+``torch.Generator`` (``rand < 1 - rate``, kept values scaled by
+``1 / (1 - rate)``, as Flax does). :meth:`PointNet.forward_with_reg` also
+returns the T-Net orthogonality regularizers the training step adds to its
+loss.
 """
 
 from __future__ import annotations
@@ -16,13 +23,14 @@ import dataclasses
 import torch
 from torch import nn
 
+from pointcloudprocessing_tpu.core.config import TrainableConfig
 from pointcloudprocessing_tpu_torch.models.layers import (
     ConcatPointwiseBlock,
     DenseBlock,
     PointwiseBlock,
     PooledPointwiseBlock,
 )
-from pointcloudprocessing_tpu_torch.models.tnet import TNet
+from pointcloudprocessing_tpu_torch.models.tnet import TNet, orthogonality_loss
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
 
 ALL_HEADS = ("classification_output", "segmentation_output", "se3")
@@ -39,6 +47,35 @@ class FreezeFlags:
     shared_network: bool = False
     classification_head: bool = False
     segmentation_head: bool = False
+
+
+NOTHING_FROZEN = FreezeFlags()
+
+
+# copied from pointcloudprocessing_tpu/models/pointnet.py::freeze_flags_from_trainable
+def freeze_flags_from_trainable(trainable: TrainableConfig) -> FreezeFlags:
+    return FreezeFlags(
+        input_transform=not trainable.input_transform,
+        shared_network=not trainable.shared_network,
+        classification_head=not trainable.classification_head,
+        segmentation_head=not trainable.segmentation_head,
+    )
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Flax ``nn.Dropout`` in train mode: keep each value with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``; rate 0 is the
+    identity. The keep mask comes from ``generator`` (``F.dropout`` takes
+    none)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            f"dropout at rate {rate} in train mode needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 # copied from pointcloudprocessing_tpu/models/pointnet.py::layer_trainability
@@ -75,16 +112,20 @@ class PointNet(nn.Module):
     """
 
     def __init__(self, num_classes: int, num_parts: int, vanilla: bool = False,
-                 *, generator: torch.Generator | None = None, device=None):
+                 *, dropout_rate: float = 0.3,
+                 regularize_input_transform: bool = False,
+                 regularize_feature_transform: bool = False,
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.vanilla = vanilla
+        self.dropout_rate = dropout_rate
         kw = dict(generator=generator, device=device)
         if not vanilla:
-            self.input_transform = TNet(3, **kw)
+            self.input_transform = TNet(3, regularize_input_transform, **kw)
         self.mlp_1_1 = PointwiseBlock(3, 64, **kw)
         self.mlp_1_2 = PointwiseBlock(64, 64, **kw)
         if not vanilla:
-            self.feature_transform = TNet(64, **kw)
+            self.feature_transform = TNet(64, regularize_feature_transform, **kw)
         self.mlp_2_1 = PointwiseBlock(64, 64, **kw)
         self.mlp_2_2 = PointwiseBlock(64, 128, **kw)
         self.mlp_2_3 = PooledPointwiseBlock(128, 1024, **kw)
@@ -104,45 +145,75 @@ class PointNet(nn.Module):
         points: torch.Tensor,
         *,
         train: bool = False,
+        freeze: FreezeFlags = NOTHING_FROZEN,
+        generator: torch.Generator | None = None,
         heads: tuple[str, ...] = ALL_HEADS,
     ) -> dict[str, torch.Tensor]:
         """points: (b, n, 3) -> dict of the requested heads' outputs.
 
         ``heads`` subsets the outputs and the compute: classification-only
-        serving skips the segmentation head, ~80% of the FLOPs.
+        serving skips the segmentation head, ~80% of the FLOPs. ``train``,
+        ``freeze`` and ``generator`` (the dropout masks' source) are as in
+        :meth:`forward_with_reg`.
         """
-        if train:
-            raise NotImplementedError(
-                "training mode (batch statistics, dropout) is not ported yet: "
-                "ROADMAP queue 1 item 4, the training step"
-            )
+        return self.forward_with_reg(points, train=train, freeze=freeze,
+                                     generator=generator, heads=heads)[0]
+
+    def forward_with_reg(
+        self,
+        points: torch.Tensor,
+        *,
+        train: bool = False,
+        freeze: FreezeFlags = NOTHING_FROZEN,
+        generator: torch.Generator | None = None,
+        heads: tuple[str, ...] = ALL_HEADS,
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """The forward pass and the sum of the T-Net regularizers that are
+        on (a 0-d tensor, 0 when none is), in train and eval mode alike,
+        as Keras adds ``model.losses`` in both."""
         pc, _ = normalize_unit_sphere(points)
+        reg = torch.zeros((), dtype=pc.dtype, device=pc.device)
         if not self.vanilla:
-            r = self.input_transform(pc)
+            r = self.input_transform(pc, train=train, frozen=freeze.input_transform)
+            if self.input_transform.add_regularization:
+                reg = reg + orthogonality_loss(r)
             x = pc @ r
         else:
             r = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(
                 pc.shape[0], 3, 3
             )
             x = pc
-        x = self.mlp_1_1(x)
-        x = self.mlp_1_2(x)
-        x_64 = x @ self.feature_transform(x) if not self.vanilla else x
-        x = self.mlp_2_1(x_64)
-        x = self.mlp_2_2(x)
-        global_features = self.mlp_2_3(x)  # (b, 1024)
+        shared = dict(train=train, frozen=freeze.shared_network)
+        x = self.mlp_1_1(x, **shared)
+        x = self.mlp_1_2(x, **shared)
+        if not self.vanilla:
+            r64 = self.feature_transform(x, **shared)
+            if self.feature_transform.add_regularization:
+                reg = reg + orthogonality_loss(r64)
+            x_64 = x @ r64
+        else:
+            x_64 = x
+        x = self.mlp_2_1(x_64, **shared)
+        x = self.mlp_2_2(x, **shared)
+        global_features = self.mlp_2_3(x, **shared)  # (b, 1024)
 
         outputs: dict[str, torch.Tensor] = {}
         if "se3" in heads:
             outputs["se3"] = r
         if "classification_output" in heads:
-            x_cls = self.mlp_cls_1(global_features)
-            x_cls = self.mlp_cls_2(x_cls)
-            outputs["classification_output"] = self.mlp_cls_3(x_cls)
+            cls = dict(train=train, frozen=freeze.classification_head)
+            x_cls = self.mlp_cls_1(global_features, **cls)
+            if train:
+                x_cls = dropout(x_cls, self.dropout_rate, generator)
+            x_cls = self.mlp_cls_2(x_cls, **cls)
+            if train:
+                x_cls = dropout(x_cls, self.dropout_rate, generator)
+            outputs["classification_output"] = self.mlp_cls_3(x_cls, **cls)
         if "segmentation_output" in heads:
-            x_seg = self.mlp_seg_1(x_64, global_features)
-            x_seg = self.mlp_seg_2(x_seg)
-            x_seg = self.mlp_seg_3(x_seg)
-            x_seg = self.mlp_seg_4(x_seg)
-            outputs["segmentation_output"] = self.mlp_seg_5(x_seg)
-        return outputs
+            seg = dict(train=train, frozen=freeze.segmentation_head)
+            x_seg = self.mlp_seg_1(x_64, global_features, **seg)
+            x_seg = self.mlp_seg_2(x_seg, **seg)
+            x_seg = self.mlp_seg_3(x_seg, **seg)
+            x_seg = self.mlp_seg_4(x_seg, **seg)
+            outputs["segmentation_output"] = self.mlp_seg_5(x_seg, **seg)
+        return outputs, reg

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("voxel_reduce", "fps")
+KERNELS = ("voxel_reduce", "fps", "pooled_chain")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -36,10 +36,16 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signature of each library's entry point: (name, argtypes)
+# C signatures of each library's entry points: {name: argtypes}
 _ENTRY = {
-    "voxel_reduce": ("pcp_sorted_segment_sum", [_P, _P, _P, _L, _L, _I, _P]),
-    "fps": ("pcp_fps", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "voxel_reduce": {"pcp_sorted_segment_sum": [_P, _P, _P, _L, _L, _I, _P]},
+    "fps": {"pcp_fps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    "pooled_chain": {
+        "pcp_pooled_chain_forward":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "pcp_pooled_chain_backward":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -91,10 +97,10 @@ def load(name: str) -> ctypes.CDLL:
         if not so.exists():
             _compile(name, so)
         lib = ctypes.CDLL(str(so))
-        entry, argtypes = _ENTRY[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in _ENTRY[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.pcp_error_string.argtypes = [ctypes.c_int]
         lib.pcp_error_string.restype = ctypes.c_char_p
         _libs[name] = lib

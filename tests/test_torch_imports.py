@@ -4,6 +4,7 @@ Checked in a subprocess: tests/conftest.py imports jax into the test
 process itself.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -11,13 +12,13 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CHECK = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import pointcloudprocessing_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
-print(len(names), bad)
+print(json.dumps({"names": names, "bad": bad}))
 """
 
 
@@ -27,6 +28,10 @@ def test_port_imports_no_jax():
         text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.strip().split(" ", 1)
-    assert bad == "[]", f"port modules pulled in {bad}"
-    assert int(count) >= 20  # every module of the port was imported
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["bad"] == [], f"port modules pulled in {report['bad']}"
+    assert len(report["names"]) >= 20  # every module of the port was imported
+    # the training slice's modules are among them
+    for name in ("ops.augment", "ops.cuda.pooled_chain", "models.fused_pool",
+                 "train.losses", "train.steps"):
+        assert f"pointcloudprocessing_tpu_torch.{name}" in report["names"], name

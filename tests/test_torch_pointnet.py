@@ -115,18 +115,21 @@ def test_tnet_matches_jax(legacy):
 
 
 def test_training_mode_raises():
+    """Train mode with dropout needs an explicit generator for its masks
+    and raises without one; with one it runs and updates the running
+    statistics, except in a frozen block, which keeps them (Keras
+    trainable=False), as in the JAX package."""
     model = PointNet(4, 3, vanilla=True)
-    pts = torch.zeros((1, 8, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pts = torch.randn((2, 8, 3), generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="Generator"):
         model(pts, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.mlp_1_1(pts, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.mlp_2_3(torch.zeros((1, 8, 128)), train=True)
-    # a frozen block keeps its running statistics in train mode (Keras
-    # trainable=False), as in the JAX package
+    before = model.mlp_1_1.bn.running_mean.clone()
     out = model.mlp_1_1(pts, train=True, frozen=True)
-    assert out.shape == (1, 8, 64)
+    assert out.shape == (2, 8, 64)
+    assert torch.equal(model.mlp_1_1.bn.running_mean, before)
+    out = model(pts, train=True, generator=torch.Generator().manual_seed(1))
+    assert out["classification_output"].shape == (2, 4)
+    assert not torch.equal(model.mlp_1_1.bn.running_mean, before)
 
 
 def test_layer_trainability_matches_jax():
