@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pointcloudprocessing_tpu_torch``) on one
 NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
-and the PointNet training step.
+the PointNet training step, the preprocess with windowed PCA normals, and
+DGCNN inference.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
 1. device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi`` reports them; TF32 off for matmul and cuDNN.
 2. build: builds every CUDA kernel library from
-   ``pointcloudprocessing_tpu_torch/csrc`` (segment sum, FPS, pooled chain).
+   ``pointcloudprocessing_tpu_torch/csrc`` (segment sum, FPS, pooled chain,
+   window moments, gather max/min), one ``nvcc`` a source, all at once.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (the segment sum on the ranks the slice builds
    from uniform, zero-padded and LiDAR-like dense scans, and on synthetic
-   long runs; the pooled-chain forward and backward at 8x8192 and 32x1024
-   points, 128 -> 1024 channels, with all-zero channels and with many
-   channels winning one point; the forward on NaN inputs; the backward's
-   winner-only form through the running-statistics chain's autograd
-   Function), with its device time (torch.profiler) and its time per call
-   beside the plain version's; the pooled forward's argmax flips against
-   the plain version are counted.
+   long runs, beside ``index_add_``; the pooled-chain forward and backward
+   at 8x8192 and 32x1024 points, 128 -> 1024 channels, with all-zero
+   channels and with many channels winning one point; the forward on NaN
+   inputs; the backward's winner-only form through the running-statistics
+   chain's autograd Function; the window moments on Morton-ordered voxel
+   output at the config-2 and config-5 shapes and on the JAX tests' edge
+   cases, counting count mismatches, the sums' error over their absolute
+   terms and the normals' angle; gather max/min at DGCNN's four widths,
+   at widths no multiple of 32 and with NaN, bit-identical), with its
+   device time (torch.profiler) and its time per call beside the plain
+   version's; the pooled forward's argmax flips are counted.
 4. slice: a full-width PointNet (23 classes, 12 parts, random seeded init)
    serves streamed 256x2048 scans through voxel 0.4 -> FPS -> 1024 points
    (clouds/s over three timed windows after a stream warm-up), then a
@@ -39,12 +45,29 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    and each pooled kernel launches chains x steps times); train steps/s and
    clouds/s over three timed windows, the device busy share, and device ms
    per step by kind of kernel.
+7. normals: the config-2 preprocess (8x8192 scans -> voxel 0.5 -> window
+   normals k 16, plane-major) in Mpts/s and the config-5 composition
+   (256x2048 -> voxel 0.4 -> window normals k 16, W 128 -> FPS 1024 ->
+   PointNet classification and se3) in clouds/s, three windows each, with
+   busy share and device ms by kind; kernel 6 launches once a batch; window
+   against exact normals on an offset surface (median < 1, p95 < 5 deg).
+8. dgcnn: DGCNN 23/12 at full width (k 20, f32, seeded) from a config with
+   ``"model": "dgcnn"``, 64x1024 normal(0, 1) clouds, dynamic and static
+   graph: the factored edge block through kernel 7 against the same
+   through its plain version (bit-identical) and against the literal edge
+   dataflow; clouds/s over three windows, busy share, device ms by kind
+   (distance GEMM, topk, kernel 7, the rest); kernel 7 launches four times
+   a forward; one ``PointCloudPipeline.stream()`` with the DGCNN model.
 
-The second-to-last line is a JSON object with each kernel's launches,
-error and times: ``ms`` and ``plain_ms`` are device times from
-``torch.profiler``, or null with ``"ms_source": "not traced"`` if every
-trace came back without device rows (never another clock's time); the last
-line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with each kernel's launches on
+its path, error against its plain version, times and bound: ``ms``,
+``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
+function, where there is one) are device times from ``torch.profiler``, or
+null with ``"ms_source": "not traced"`` if every trace came back without
+device rows (never another clock's time); ``bound_ms`` is the larger of
+the bytes the function must move over 3.35 TB/s and its operations over
+67 TFLOP/s f32 (``bound_by`` says which). The last line is ``{"ok": true,
+"device": {...}}``.
 
 Usage: python3 chip_smoke.py
 """
@@ -71,7 +94,15 @@ FPS_TPU = "pointcloudprocessing_tpu/ops/pallas/fps.py:110"
 POOLED_SRC = "pointcloudprocessing_tpu_torch/csrc/pooled_chain.cu"
 POOLED_FWD_TPU = "pointcloudprocessing_tpu/ops/pallas/pooled_chain.py:106"
 POOLED_BWD_TPU = "pointcloudprocessing_tpu/ops/pallas/pooled_chain.py:193"
+WINDOW_SRC = "pointcloudprocessing_tpu_torch/csrc/window_normals.cu"
+WINDOW_TPU = "pointcloudprocessing_tpu/ops/pallas/window_normals.py:387"
+GATHER_SRC = "pointcloudprocessing_tpu_torch/csrc/gather_maxmin.cu"
+GATHER_TPU = "pointcloudprocessing_tpu/ops/pallas/gather_maxmin.py:132"
 KC46_CONFIG = "configs/kc46_lidar_config.json"
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth and
+# f32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -175,25 +206,56 @@ def busy_share(torch, fn) -> str:
     return f"{busy / wall_us:.4f} of {wall_us / 1e3:.1f} ms wall"
 
 
-def kernel_breakdown(torch, fn, calls: int = 1) -> dict:
+#: kinds of kernel by name, first match wins: (kind, substrings of the
+#: kernel name as CUPTI reports it)
+TRAIN_KINDS = (("pooled_fwd", ("pooled_forward", "pooled_combine")),
+               ("pooled_bwd", ("pooled_backward",)), ("gemm", ("gemm",)),
+               ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+NORMALS_KINDS = (("window_moments", ("window_moments",)),
+                 ("segment_sum", ("sorted_segment_sum",)), ("fps", ("fps_kernel",)),
+                 ("sort", ("sort", "radix")), ("gemm", ("gemm",)),
+                 ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+DGCNN_KINDS = (("gather_maxmin", ("gather_maxmin",)), ("topk", ("topk", "sort")),
+               ("gemm", ("gemm",)), ("elementwise", ("elementwise",)),
+               ("reduce", ("reduce",)))
+
+
+def kernel_breakdown(torch, fn, calls: int = 1, kinds=TRAIN_KINDS) -> dict:
     """Device ms per call of ``fn`` (which makes ``calls`` calls) by kind of
     kernel, from the kernel names as CUPTI reports them; empty if the
     profiler recorded nothing."""
     traced = device_trace(torch, fn)
     if traced is None:
         return {}
-    events = traced[0]
-    kinds = {"pooled_fwd": 0.0, "pooled_bwd": 0.0, "gemm": 0.0,
-             "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
-    for e in events:
+    out = {kind: 0.0 for kind, _ in kinds}
+    out["other"] = 0.0
+    for e in traced[0]:
         name = e.name.lower()
-        kind = ("pooled_fwd" if "pooled_forward" in name or "pooled_combine" in name
-                else "pooled_bwd" if "pooled_backward" in name else
-                "gemm" if "gemm" in name else
-                "elementwise" if "elementwise" in name else
-                "reduce" if "reduce" in name else "other")
-        kinds[kind] += e.time_range.elapsed_us() / 1e3 / calls
-    return kinds
+        kind = next((k for k, keys in kinds if any(key in name for key in keys)),
+                    "other")
+        out[kind] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
+def kernels_per_call(torch, fn, calls: int) -> str:
+    """Device activities (kernels, copies, memsets) per call of ``fn``,
+    which makes ``calls`` calls, from one trace; "not traced" without one."""
+    traced = device_trace(torch, fn)
+    return "not traced" if traced is None else f"{len(traced[0]) / calls:.1f}"
+
+
+def roofline(bytes_moved: float, operations: float) -> tuple[float, str]:
+    """The least time in ms the H100 could take for a kernel's work: the
+    larger of its bytes (each input read once, each output written once)
+    over 3.35 TB/s and its operations over 67 TFLOP/s of f32, and which of
+    the two binds."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = operations / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ---------------------------------------------------------------- phase 3 data
@@ -361,6 +423,24 @@ def phase_kernels(torch, rng) -> dict:
             f"kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}")
         if label == "main-path uniform voxel":
             results["seg_ms"], results["seg_plain_ms"] = ms, plain_ms
+            # each row read once with its rank, each output row written once;
+            # one add a value
+            results["seg_bound"] = roofline(nbytes(data, rank, want), data.numel())
+            # the one PyTorch call for the same sums: index_add_ over the
+            # cloud-offset ranks (computed outside the timed call)
+            flat = (rank.long() + n * torch.arange(b, device=dev)[:, None]).reshape(-1)
+            rows = data.reshape(-1, d)
+
+            def library():
+                return torch.zeros_like(rows).index_add_(0, flat, rows)
+
+            lib_err = (library().reshape(b, n, d) - want).abs()
+            if not bool((lib_err <= bound).all()):
+                raise AssertionError("index_add_ disagrees with the plain segment sum")
+            results["seg_library_ms"] = device_ms(torch, library, 20)
+            log(f"[3 kernels] segment sum {b}x{n}x{d} {label}: index_add_ device ms "
+                f"{fmt(results['seg_library_ms'])}; bound "
+                f"{results['seg_bound'][0]:.4f} ms ({results['seg_bound'][1]})")
 
     for b, n, k, layout in ((256, 2048, 1024, "bcn"), (256, 2048, 1024, "bnc"),
                             (64, 8192, 1024, "bcn")):
@@ -395,6 +475,9 @@ def phase_kernels(torch, rng) -> dict:
             f"plain {per_call[1]:.4f}")
         if (b, n, layout) == (256, 2048, "bcn"):
             results["fps_ms"], results["fps_plain_ms"] = ms, plain_ms
+            # k - 1 steps over every point: 3 sub, 3 mul, 2 add, 1 min
+            results["fps_bound"] = roofline(
+                nbytes(pts, mask, start, idx, sampled), b * (k - 1) * n * 9)
     return results
 
 
@@ -470,6 +553,10 @@ def phase_pooled_kernels(torch) -> dict:
             f"plain {per_call[1]:.4f}")
         if (b, n, label) == (8, 8192, "some dead channels"):
             results["fwd_ms"], results["fwd_plain_ms"] = ms, plain_ms
+            # the GEMM, then affine, relu and max per pre-activation
+            results["fwd_bound"] = roofline(
+                nbytes(x, w, a, c_row, pooled, argmax),
+                2 * b * n * c_in * c + 3 * b * n * c)
 
         coef = torch.randn(b, c, device=dev, generator=gen)
         m_small = torch.randn(c_in, c_in, device=dev, generator=gen) * 0.01
@@ -509,6 +596,11 @@ def phase_pooled_kernels(torch) -> dict:
                 f"{per_call[0]:.4f}, plain {per_call[1]:.4f}")
             if (b, n, winners) == (8, 8192, "forward's winners"):
                 results["bwd_ms"], results["bwd_plain_ms"] = ms, plain_ms
+                # x@M and the row, plus one coef*W row into dx and one x row
+                # into dk per (cloud, channel) winner
+                results["bwd_bound"] = roofline(
+                    nbytes(x, w, coef, am, m_small, const_row, dx, dk),
+                    2 * b * n * c_in * c_in + b * n * c_in + 4 * b * c * c_in)
 
     # NaN propagates as in torch.relu / amax / argmax: one NaN value in a
     # point (every channel of that cloud), and NaN BatchNorm factors (an
@@ -974,7 +1066,7 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
 
 
 def phase_train(torch, rng) -> dict:
-    from pointcloudprocessing_tpu.core.config import (
+    from pointcloudprocessing_tpu_torch.core.config import (
         LearningConfig,
         load_config,
         parse_config,
@@ -1012,6 +1104,481 @@ def phase_train(torch, rng) -> dict:
     return {"A": a, "B": b}
 
 
+# ------------------------------------------------- phase 3: the slice's kernels
+
+def surface_scans(rng, b: int = 2, n: int = 2048) -> np.ndarray:
+    """The paraboloid of tests/test_preprocess_ops.py:364, offset to (50,
+    -30, 5) m (f32 cancellation), as (b, n, 3) scans."""
+    xy = rng.uniform(-10, 10, (b, n, 2)).astype(np.float32)
+    z = 0.05 * (xy[..., 0] ** 2 + xy[..., 1] ** 2)
+    pts = np.concatenate([xy, z[..., None]], axis=-1).astype(np.float32)
+    return pts + np.array([50.0, -30.0, 5.0], np.float32)
+
+
+def phase_window_kernel(torch, rng) -> dict:
+    """Kernel 6 against its plain version on Morton-ordered voxel output at
+    the two shapes the normals phase runs, and on the JAX tests' edge cases:
+    count mismatches, the sums' error over the sum of their absolute terms,
+    and the normals' angle between the two."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.window_normals import (
+        window_selection,
+        windowed_moment_sums,
+        windowed_moment_sums_reference,
+    )
+    from pointcloudprocessing_tpu_torch.ops.normals import (
+        _covariance_normals,
+        window_arguments,
+    )
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    dev = torch.device("cuda")
+    k = 16
+
+    def voxel_case(scans, voxel, window):
+        vox, mask = voxel_downsample_batch(torch.from_numpy(scans).to(dev), voxel,
+                                           layout="bcn")
+        return window_arguments(vox, mask, window)[1:]
+
+    few = np.zeros((4, 256, 3), np.float32)
+    few[:, :5, :2] = rng.uniform(-1, 1, (4, 5, 2))
+    few[:, 5:] = 1e6
+    few_mask = np.zeros((4, 256), bool)
+    few_mask[:, :5] = True
+    one = (rng.normal(size=(1, 512, 3)) * 50).astype(np.float32)
+    one_mask = np.zeros((1, 512), bool)
+    one_mask[0, 0] = True
+    odd = rng.normal(size=(4, 490, 3)).astype(np.float32)
+
+    def raw_case(pts, mask, window):
+        planes = torch.from_numpy(np.ascontiguousarray(pts.transpose(0, 2, 1))).to(dev)
+        return window_arguments(planes, torch.from_numpy(mask).to(dev), window)[1:]
+
+    cases = [
+        ("config 2: 8x8192 uniform(-30, 30), voxel 0.5, W 256",
+         voxel_case(rng.uniform(-30, 30, (8, 8192, 3)).astype(np.float32), 0.5, 256)),
+        ("config 5: 256x2048 uniform(-20, 20), voxel 0.4, W 128",
+         voxel_case(rng.uniform(-20, 20, (256, 2048, 3)).astype(np.float32), 0.4, 128)),
+        ("surface offset to (50, -30, 5), voxel 0.5, W 256",
+         voxel_case(surface_scans(rng), 0.5, 256)),
+        ("5 valid points (< k) among 1e6 rows", raw_case(few, few_mask, 256)),
+        ("one valid point", raw_case(one, one_mask, 128)),
+        ("n = 490, padded to 512", raw_case(odd, np.ones((4, 490), bool), 256)),
+    ]
+    results = {"err": 0.0}
+    for label, (centered, mask, window, q_block) in cases:
+        args = (centered, mask, k, window, q_block, "bcn")
+        got = torch.stack(windowed_moment_sums(*args))
+        want = torch.stack(windowed_moment_sums_reference(*args))
+        sel, feats = window_selection(centered, mask, k, window, q_block)
+        b, _, n = centered.shape
+        abs_sums = torch.matmul(sel, feats.abs()).reshape(b, n, 10).permute(2, 0, 1)
+        del sel
+        torch.cuda.synchronize()
+        mismatched = int((got[0] != want[0]).sum())
+        rel = ((got - want).abs() / (abs_sums + 1e-30)).max().item()
+        bad = int(((got - want).abs() > 2.0 ** -16 * abs_sums + 1e-6).sum())
+        ng = torch.stack(_covariance_normals(got.unbind(0)), dim=-1)
+        nw = torch.stack(_covariance_normals(want.unbind(0)), dim=-1)
+        chord = torch.minimum((ng - nw).norm(dim=-1), (ng + nw).norm(dim=-1))
+        ang = torch.rad2deg(2 * torch.asin(torch.clamp(chord.double() / 2, max=1.0)))
+        ang = ang[mask]
+        med, worst = ang.median().item(), ang.max().item()
+        if mismatched or bad or med > 0.01:
+            raise AssertionError(
+                f"window moments ({label}): {mismatched} counts differ, {bad} sums "
+                f"beyond 2^-16 of their absolute terms (worst {rel:.3e}), normals "
+                f"median angle {med:.4f} deg")
+        results["err"] = max(results["err"], (got - want).abs().max().item())
+        kernel = functools.partial(windowed_moment_sums, *args)
+        plain = functools.partial(windowed_moment_sums_reference, *args)
+        if b * n >= 65536:
+            ms, plain_ms = device_ms(torch, kernel, 10), device_ms(torch, plain, 3)
+            per_call = (call_ms(torch, kernel, 10), call_ms(torch, plain, 3, 3))
+            # what the function needs per query and candidate: the distance
+            # once (8 flops), a compare in each of the 8 passes and an add in
+            # each of the 6 counting passes; then 19 flops per selected
+            # candidate (shift, 6 products, 10 sums)
+            c = q_block + 2 * window
+            bound = roofline(nbytes(centered, mask, got),
+                             b * n * c * (8 + 8 + 6) + 19 * got[0].sum().item())
+            timing = (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per "
+                      f"call with launch kernel {per_call[0]:.4f}, plain "
+                      f"{per_call[1]:.4f}; bound {bound[0]:.4f} ms ({bound[1]})")
+        else:
+            timing = ""
+        log(f"[3 kernels] window moments {b}x{n} k{k} Q{q_block} W{window} "
+            f"({label}): counts identical ({int(mask.sum())} valid queries), sums "
+            f"within {rel:.3e} of their absolute terms (bar 2^-16), normals "
+            f"angle median {med:.2e} max {worst:.2e} deg" + timing)
+        if label.startswith("config 2"):
+            results["ms"], results["plain_ms"], results["bound"] = ms, plain_ms, bound
+    return results
+
+
+def check_bit_identical(torch, got, want) -> bool:
+    """Equal values, and NaN exactly where the plain version has NaN."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan], want[~nan]))
+
+
+def phase_gather_kernel(torch, rng) -> dict:
+    """Kernel 7 against its plain version at DGCNN's four edge widths (64x1024
+    clouds, k 20, the graph of normal(0, 1) clouds), at widths no multiple of
+    32, and with NaN in q: bit-identical."""
+    from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
+        gather_maxmin,
+        gather_maxmin_reference,
+    )
+
+    dev = torch.device("cuda")
+    b, n, k = 64, 1024, 20
+    pts = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
+    idx = knn_graph(pts, k)
+    results = {"err": 0.0}
+    for w, label in ((64, "layers 1-2"), (128, "layer 3"), (256, "layer 4"),
+                     (3, "w 3"), (96, "w 96"), (64, "NaN in q")):
+        q = torch.from_numpy(rng.normal(size=(b, n, w)).astype(np.float32)).to(dev)
+        if label == "NaN in q":
+            q[0, idx[0, :8, 3].long(), 7] = float("nan")
+        got = gather_maxmin(q, idx)
+        want = gather_maxmin_reference(q, idx)
+        torch.cuda.synchronize()
+        if not all(check_bit_identical(torch, g, wt) for g, wt in zip(got, want)):
+            raise AssertionError(f"gather_maxmin {b}x{n}x{w} k{k} ({label}) is not "
+                                 "bit-identical to its plain version")
+        for g, wt in zip(got, want):
+            finite = ~torch.isnan(wt)
+            results["err"] = max(results["err"],
+                                 (g[finite] - wt[finite]).abs().max().item())
+        kernel =functools.partial(gather_maxmin, q, idx)
+        plain = functools.partial(gather_maxmin_reference, q, idx)
+        ms, plain_ms = device_ms(torch, kernel, 20), device_ms(torch, plain, 10)
+        per_call = (call_ms(torch, kernel, 20), call_ms(torch, plain, 10))
+        # idx and q read once, both outputs written once; a compare per
+        # gathered value for the max and one for the min
+        bound = roofline(nbytes(q, idx, *got), 2 * b * n * k * w)
+        nans = int(torch.isnan(got[0]).sum())
+        log(f"[3 kernels] gather_maxmin {b}x{n}x{w} k{k} ({label}): bit-identical"
+            + (f", NaN at the plain version's {nans} entries" if nans else "")
+            + f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per call "
+            f"with launch kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}; "
+            f"bound {bound[0]:.4f} ms ({bound[1]})")
+        if label == "layer 4":
+            results["ms"], results["plain_ms"], results["bound"] = ms, plain_ms, bound
+    return results
+
+
+# ----------------------------------------------------------- phase 7: normals
+
+def phase_normals(torch, rng, model) -> dict:
+    """The port's preprocess with normals: the config-2 shape through
+    voxel_downsample_batch and the windowed normals (Mpts/s), the config-5
+    composition of bench.py:470-482 (clouds/s), the normals' quality on the
+    card, and kernel 6's launches (one a batch)."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.window_normals import (
+        windowed_moment_sums,
+    )
+    from pointcloudprocessing_tpu_torch.ops.fps import (
+        farthest_point_sample_and_gather,
+    )
+    from pointcloudprocessing_tpu_torch.ops.normals import estimate_normals_batch
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    dev = torch.device("cuda")
+    b2, n2 = 8, 8192
+    pool2 = [torch.from_numpy(rng.uniform(-30, 30, (b2, n2, 3)).astype(np.float32))
+             .to(dev) for _ in range(4)]
+    b5, n5, k5 = 256, 2048, 1024
+    pool5 = [torch.from_numpy(rng.uniform(-20, 20, (b5, n5, 3)).astype(np.float32))
+             .to(dev) for _ in range(2)]
+    heads = ("classification_output", "se3")
+
+    def preprocess(x):
+        vox, mask = voxel_downsample_batch(x, 0.5, layout="bcn")
+        return estimate_normals_batch(vox, k=16, valid_mask=mask, method="window",
+                                      layout="bcn")
+
+    def config5(x):
+        vox, mask = voxel_downsample_batch(x, 0.4, layout="bcn")
+        normals = estimate_normals_batch(vox, k=16, valid_mask=mask,
+                                         method="window", window=128, layout="bcn")
+        _, sampled = farthest_point_sample_and_gather(vox, k5, mask, layout="bcn")
+        return model(sampled, heads=heads), normals
+
+    def windows(fn, pool, count, size) -> list[float]:
+        """Per-second rates of ``size`` units over three windows of
+        ``count`` calls (host clock, ending in a synchronize)."""
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(count):
+                fn(pool[i % len(pool)])
+            torch.cuda.synchronize()
+            rates.append(size * count / (time.perf_counter() - t0))
+        return rates
+
+    def spread(rates):
+        return (max(rates) - min(rates)) / float(np.median(rates))
+
+    results = {}
+    with torch.inference_mode():
+        normals = preprocess(pool2[0])  # warm-up
+        out5, normals5 = config5(pool5[0])
+        torch.cuda.synchronize()
+        if normals.shape != (b2, 3, n2) or not bool(torch.isfinite(normals).all()):
+            raise AssertionError("config-2 normals: wrong shape or non-finite")
+        check_outputs_heads(torch, out5, b5, heads)
+        if normals5.shape != (b5, 3, n5) or not bool(torch.isfinite(normals5).all()):
+            raise AssertionError("config-5 normals: wrong shape or non-finite")
+
+        count2, count5 = 60, 8
+        windowed_moment_sums.launches = 0
+        # ---- the normals path: counted launches start here
+        rates2 = windows(preprocess, pool2, count2, b2 * n2 / 1e6)
+        rates5 = windows(config5, pool5, count5, b5)
+        torch.cuda.synchronize()
+        launches = windowed_moment_sums.launches
+        # ---- the normals path ends here
+        if launches != 3 * (count2 + count5):
+            raise AssertionError(f"kernel 6 launched {launches} times for "
+                                 f"{3 * (count2 + count5)} batches")
+        results["launches"] = launches
+        share2 = busy_share(torch, lambda: [preprocess(pool2[i % 4]) for i in range(20)])
+        kinds2 = kernel_breakdown(torch, lambda: [preprocess(pool2[i % 4])
+                                                  for i in range(10)],
+                                  calls=10, kinds=NORMALS_KINDS)
+        per_batch2 = kernels_per_call(
+            torch, lambda: [preprocess(pool2[i % 4]) for i in range(10)], 10)
+        share5 = busy_share(torch, lambda: [config5(pool5[i % 2]) for i in range(4)])
+        kinds5 = kernel_breakdown(torch, lambda: [config5(pool5[i % 2])
+                                                  for i in range(2)],
+                                  calls=2, kinds=NORMALS_KINDS)
+    med2, med5 = float(np.median(rates2)), float(np.median(rates5))
+    log(f"[7 normals] config 2, {b2}x{n2} uniform(-30, 30) -> voxel 0.5 -> window "
+        f"normals k16 W256 (bcn): Mpts/s over 3 windows of {count2} batches: "
+        + ", ".join(f"{r:.3f}" for r in rates2)
+        + f"; median {med2:.3f}, spread {spread(rates2):.4f}; busy share {share2}"
+        " over 20 batches")
+    log("[7 normals] config 2 device ms per batch by kind: " + (", ".join(
+        f"{kind} {ms:.4f}" for kind, ms in kinds2.items())
+        + f"; total {sum(kinds2.values()):.4f}" if kinds2 else "not traced")
+        + f"; device activities a batch: {per_batch2}")
+    log(f"[7 normals] config 5, {b5}x{n5} uniform(-20, 20) -> voxel 0.4 -> window "
+        f"normals k16 W128 -> FPS {k5} -> PointNet 23/12 (classification, se3): "
+        f"clouds/s over 3 windows of {count5} batches: "
+        + ", ".join(f"{r:.1f}" for r in rates5)
+        + f"; median {med5:.1f}, spread {spread(rates5):.4f}; busy share {share5}"
+        " over 4 batches")
+    log("[7 normals] config 5 device ms per batch by kind: " + (", ".join(
+        f"{kind} {ms:.4f}" for kind, ms in kinds5.items())
+        + f"; total {sum(kinds5.values()):.4f}" if kinds5 else "not traced"))
+    log(f"[7 normals] kernel 6 launches over the {3 * (count2 + count5)} timed "
+        f"batches: {launches} (one a batch)")
+
+    # quality on the card: window against exact normals on the offset surface
+    scans = torch.from_numpy(surface_scans(rng)).to(dev)
+    vox, mask = voxel_downsample_batch(scans, 0.5)
+    vp = torch.tensor([[50.0, -30.0, 500.0]] * 2, device=dev)
+    with torch.inference_mode():
+        nw = estimate_normals_batch(vox, 16, mask, vp, method="window")
+        ne = estimate_normals_batch(vox, 16, mask, vp, method="exact")
+    chord = torch.minimum((nw - ne).norm(dim=-1), (nw + ne).norm(dim=-1))
+    ang = torch.rad2deg(2 * torch.asin(torch.clamp(chord.double() / 2, max=1.0)))[mask]
+    med, p95 = ang.median().item(), torch.quantile(ang, 0.95).item()
+    if not (med < 1.0 and p95 < 5.0):
+        raise AssertionError(f"window vs exact normals: median {med:.3f}, p95 "
+                             f"{p95:.3f} deg (bars 1 and 5)")
+    log(f"[7 normals] window vs exact normals on the offset surface "
+        f"({int(mask.sum())} points): median {med:.4f} deg, p95 {p95:.4f} deg "
+        "(bars 1, 5)")
+    results.update(mpts_per_s=med2, clouds_per_s=med5)
+    return results
+
+
+def check_outputs_heads(torch, out: dict, b: int, heads) -> None:
+    if set(out) != set(heads):
+        raise AssertionError(f"heads {sorted(out)} != {sorted(heads)}")
+    for name, t in out.items():
+        if t.shape[0] != b or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: batch {t.shape[0]} or non-finite values")
+
+
+# ------------------------------------------------------------- phase 8: DGCNN
+
+@contextlib.contextmanager
+def route_gather(fn):
+    """Point the DGCNN edge block's gather_maxmin at another function (the
+    plain version) while the block runs; for comparisons on the card only."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+
+    saved = dgcnn_mod.gather_maxmin
+    dgcnn_mod.gather_maxmin = fn
+    try:
+        yield
+    finally:
+        dgcnn_mod.gather_maxmin = saved
+
+
+@contextlib.contextmanager
+def record_knn():
+    """Record (features, graph) of every DGCNN kNN graph built in the block."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+
+    real, met = dgcnn_mod.knn_graph, []
+
+    def recording(feats, k):
+        idx = real(feats, k)
+        met.append((feats, idx))
+        return idx
+
+    dgcnn_mod.knn_graph = recording
+    try:
+        yield met
+    finally:
+        dgcnn_mod.knn_graph = real
+
+
+def phase_dgcnn(torch, rng) -> dict:
+    """DGCNN 23/12 at full width (edge widths 64, 64, 128, 256, embedding
+    1024, k 20, f32, seeded init) built by model_from_config from a config
+    with "model": "dgcnn", at bench.py:135-165's shape (64x1024 normal(0, 1)
+    clouds), dynamic and static graph: kernel 7 against the plain version and
+    the literal edge dataflow, rates, busy share, device ms by kind, and one
+    PointCloudPipeline stream."""
+    from pointcloudprocessing_tpu_torch.core.config import parse_config
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
+        gather_maxmin,
+        gather_maxmin_reference,
+    )
+
+    dev = torch.device("cuda")
+    b, n = 64, 1024
+    x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
+    results = {"launches": 0}
+    for graph in ("dynamic", "static"):
+        cfg = parse_config({
+            "info": {"name": "smoke_dgcnn",
+                     "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
+                     "part_labels": {str(i): f"p{i}" for i in range(NUM_PARTS)}},
+            "params": {"input_width": n, "epochs": 1, "patience": 1,
+                       "batch_size": b, "model": "dgcnn",
+                       "model_options": {"graph": graph}},
+        })
+        # the same seed gives both graph modes the same weights
+        model = model_from_config(cfg, generator=torch.Generator().manual_seed(0))
+        model.eval()
+        edges = [m for m in model.modules() if isinstance(m, dgcnn_mod.EdgeConv)]
+        if next(model.parameters()).device.type != "cuda" or len(edges) != 4:
+            raise AssertionError("model_from_config did not build DGCNN on the card")
+        with torch.inference_mode():
+            model(x)  # warm-up
+            count = 10
+            gather_maxmin.launches = 0
+            # ---- the DGCNN path: counted launches start here
+            rates = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(count):
+                    out = model(x)
+                torch.cuda.synchronize()
+                rates.append(b * count / (time.perf_counter() - t0))
+            launches = gather_maxmin.launches
+            # ---- the DGCNN path ends here
+            if launches != 4 * 3 * count:
+                raise AssertionError(f"DGCNN {graph}: kernel 7 launched {launches} "
+                                     f"times in {3 * count} forwards (4 each)")
+            results["launches"] += launches
+            check_outputs(torch, out, b, n)
+            with route_gather(gather_maxmin_reference):
+                plain = model(x)
+            with record_knn() as met:
+                model(x)
+            for e in edges:
+                e.impl = "reference"
+            with record_knn() as met_literal:
+                literal = model(x)
+            for e in edges:
+                e.impl = "auto"
+            torch.cuda.synchronize()
+            same = all(torch.equal(out[key], plain[key]) for key in out)
+            diffs = {key: (out[key] - literal[key]).abs().max().item() for key in out}
+            seg_rows = ((out["segmentation_output"] - literal["segmentation_output"])
+                        .abs().amax(-1) > 1e-4).float().mean().item()
+            # rows whose neighbour set differs between the two dataflows' graphs
+            swaps = [int((a.sort(-1).values != c.sort(-1).values).any(-1).sum())
+                     for (_, a), (_, c) in zip(met, met_literal)]
+            if not same:
+                raise AssertionError(f"DGCNN {graph}: factored path through kernel 7 "
+                                     "differs from the one through its plain version")
+            # static: one graph, so every head within the parity bar. Dynamic:
+            # each layer's graph is rebuilt from features the two dataflows
+            # round differently, so a near-tie can swap a neighbour (counted
+            # in `swaps`), which moves that point's segmentation row; the
+            # pooled classification stays within the bar
+            if diffs["classification_output"] > 1e-4 or (
+                    graph == "static" and max(diffs.values()) > 1e-4) or (
+                    seg_rows > 1e-3):
+                raise AssertionError(f"DGCNN {graph}: factored vs literal edge "
+                                     f"dataflow differ by {diffs}, {seg_rows:.5f} "
+                                     "of the segmentation rows beyond 1e-4")
+            share = busy_share(torch, lambda: [model(x) for _ in range(3)])
+            kinds = kernel_breakdown(torch, lambda: [model(x) for _ in range(2)],
+                                     calls=2, kinds=DGCNN_KINDS)
+            per_forward = kernels_per_call(torch, lambda: [model(x) for _ in range(2)], 2)
+            # the distance GEMMs alone: each EdgeConv's kNN matmul on the
+            # features it met
+            feats = [f.float() for f, _ in met]
+            dist_ms = device_ms(torch, lambda: [torch.matmul(f, f.transpose(1, 2))
+                                                for f in feats], 3)
+        rate = float(np.median(rates))
+        log(f"[8 dgcnn] DGCNN 23/12 f32 k20 {graph} graph, {b}x{n} normal(0, 1): "
+            f"clouds/s over 3 windows of {count} forwards: "
+            + ", ".join(f"{r:.1f}" for r in rates)
+            + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
+            f"busy share {share} over 3 forwards; kernel 7 launches {launches} "
+            f"(4 a forward)")
+        log(f"[8 dgcnn] {graph}: through kernel 7 vs its plain version: "
+            f"bit-identical; vs the literal edge dataflow: max abs diff "
+            + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+            + f"; segmentation rows beyond 1e-4: {seg_rows:.5f}; kNN rows with "
+            f"another neighbour set, by layer: {swaps}")
+        if kinds:
+            gemm_rest = kinds["gemm"] - (dist_ms or 0.0)
+            log(f"[8 dgcnn] {graph}: device ms per forward by kind: distance GEMM "
+                f"{fmt(dist_ms)} ({len(feats)} kNN graphs), other GEMM "
+                f"{gemm_rest:.4f}, " + ", ".join(
+                    f"{kind} {ms:.4f}" for kind, ms in kinds.items() if kind != "gemm")
+                + f"; total {sum(kinds.values()):.4f}; device activities a "
+                f"forward: {per_forward}")
+        else:
+            log(f"[8 dgcnn] {graph}: device ms by kind: not traced")
+        results[graph] = rate
+
+    # one stream through the pipeline: voxel 0.4 -> FPS -> 1024 -> DGCNN
+    pipe = PointCloudPipeline(model, scan_width=2048, model_width=n, voxel_size=0.4)
+    batches = [rng.uniform(-20, 20, (b, 2048, 3)).astype(np.float32) for _ in range(3)]
+    before = gather_maxmin.launches
+    outs = list(pipe.stream(iter(batches)))
+    torch.cuda.synchronize()
+    streamed = gather_maxmin.launches - before
+    results["launches"] += streamed
+    if len(outs) != 3 or streamed != 12:
+        raise AssertionError(f"DGCNN stream: {len(outs)} batches, {streamed} launches")
+    for o in outs:
+        check_outputs(torch, o, b, n)
+    log(f"[8 dgcnn] PointCloudPipeline.stream over 3 batches of {b}x2048 "
+        f"(voxel 0.4 -> FPS -> {n} -> DGCNN, static graph): outputs ok, kernel 7 "
+        f"launches {streamed}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1034,39 +1601,49 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = phase_kernels(torch, rng)
     pooled = phase_pooled_kernels(torch)
+    window = phase_window_kernel(torch, rng)
+    gather = phase_gather_kernel(torch, rng)
     model = PointNet(NUM_CLASSES, NUM_PARTS,
                      generator=torch.Generator().manual_seed(0), device="cuda")
     model.eval()
     sliced = phase_slice(torch, rng, model)
     phase_serve(torch, rng, model)
     trained = phase_train(torch, rng)
+    normals = phase_normals(torch, rng, model)
+    dgcnn = phase_dgcnn(torch, rng)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
         for k in ("fwd", "bwd")}
 
-    def times(ms, plain_ms) -> dict:
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms=None) -> dict:
         traced = ms is not None and plain_ms is not None
-        return {"ms": ms if traced else None,
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms if traced else None,
                 "plain_ms": plain_ms if traced else None,
-                "ms_source": "torch.profiler device rows" if traced else "not traced"}
+                "ms_source": "torch.profiler device rows" if traced else "not traced",
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms}
 
     log(json.dumps({"kernels": [
-        {"name": "sorted_segment_sum", "route": "cuda", "source": SEG_SUM_SRC,
-         "replaces": SEG_SUM_TPU, "launches": sliced["launches"]["seg"],
-         "max_abs_err": kernels["seg_err"],
-         **times(kernels["seg_ms"], kernels["seg_plain_ms"])},
-        {"name": "fps_with_points", "route": "cuda", "source": FPS_SRC,
-         "replaces": FPS_TPU, "launches": sliced["launches"]["fps"],
-         "max_abs_err": kernels["fps_err"],
-         **times(kernels["fps_ms"], kernels["fps_plain_ms"])},
-        {"name": "pooled_chain_forward", "route": "cuda", "source": POOLED_SRC,
-         "replaces": POOLED_FWD_TPU, "launches": pooled_launches["fwd"],
-         "max_abs_err": pooled["fwd_err"],
-         **times(pooled["fwd_ms"], pooled["fwd_plain_ms"])},
-        {"name": "pooled_chain_backward", "route": "cuda", "source": POOLED_SRC,
-         "replaces": POOLED_BWD_TPU, "launches": pooled_launches["bwd"],
-         "max_abs_err": pooled["bwd_err"],
-         **times(pooled["bwd_ms"], pooled["bwd_plain_ms"])},
+        entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
+              sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],
+              kernels["seg_plain_ms"], kernels["seg_bound"],
+              kernels["seg_library_ms"]),
+        entry("fps_with_points", FPS_SRC, FPS_TPU, sliced["launches"]["fps"],
+              kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
+              kernels["fps_bound"]),
+        entry("pooled_chain_forward", POOLED_SRC, POOLED_FWD_TPU,
+              pooled_launches["fwd"], pooled["fwd_err"], pooled["fwd_ms"],
+              pooled["fwd_plain_ms"], pooled["fwd_bound"]),
+        entry("pooled_chain_backward", POOLED_SRC, POOLED_BWD_TPU,
+              pooled_launches["bwd"], pooled["bwd_err"], pooled["bwd_ms"],
+              pooled["bwd_plain_ms"], pooled["bwd_bound"]),
+        entry("windowed_moment_sums", WINDOW_SRC, WINDOW_TPU, normals["launches"],
+              window["err"], window["ms"], window["plain_ms"], window["bound"]),
+        entry("gather_maxmin", GATHER_SRC, GATHER_TPU, dgcnn["launches"],
+              gather["err"], gather["ms"], gather["plain_ms"], gather["bound"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,7 @@ from typing import Callable
 
 import numpy as np
 
-from pointcloudprocessing_tpu.utils.native import parse_aftr_frame_native
+from pointcloudprocessing_tpu_torch.utils.native import parse_aftr_frame_native
 
 
 # copied from pointcloudprocessing_tpu/data/frames.py::FrameError

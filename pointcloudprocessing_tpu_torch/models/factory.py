@@ -4,23 +4,26 @@
 from __future__ import annotations
 
 import torch
+from torch import nn
 
+from pointcloudprocessing_tpu_torch.models.dgcnn import dgcnn_for_width
+from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.models.pointnet import PointNet
 
 MODEL_FAMILIES = ("pointnet", "pointnet2", "dgcnn")
 _NOT_PORTED = {
     "pointnet2": "ROADMAP queue 1 item 8 (PointNet++)",
-    "dgcnn": "ROADMAP queue 1 item 9 (DGCNN)",
 }
 
 
 def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
                       generator: torch.Generator | None = None,
-                      device=None) -> PointNet:
+                      device="cuda") -> nn.Module:
     """Build the configured model family (``cfg`` is a
-    ``core.config.TrainConfig``); only the PointNet family is ported.
-    ``training=True`` applies the config's T-Net regularizers; inference
-    consumers build without them."""
+    ``core.config.TrainConfig``): PointNet or DGCNN, on ``device``, which is
+    CUDA unless the caller asks for the CPU (without CUDA the default
+    raises). ``training=True`` applies the config's T-Net regularizers
+    (PointNet only); inference consumers build without them."""
     opts = dict(getattr(cfg, "model_options", {}) or {})
     if cfg.model != "dgcnn" and opts:
         raise ValueError(
@@ -31,6 +34,23 @@ def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
         raise NotImplementedError(
             f"params.model={cfg.model!r} is not ported yet: {_NOT_PORTED[cfg.model]}"
         )
+    if cfg.model == "dgcnn":
+        unknown = set(opts) - {"k", "graph"}
+        if unknown:
+            raise ValueError(
+                f"Unknown params.model_options keys for dgcnn: "
+                f"{sorted(unknown)} (supported: 'k', 'graph')"
+            )
+        extra = {}
+        if "k" in opts:
+            extra["k"] = int(opts["k"])
+        if "graph" in opts:
+            extra["graph"] = str(opts["graph"])
+        return dgcnn_for_width(
+            cfg.num_classes, cfg.num_parts, cfg.input_width,
+            dropout_rate=dropout_rate, generator=generator, device=device,
+            **extra,
+        )
     if cfg.model == "pointnet":
         return PointNet(
             cfg.num_classes, cfg.num_parts, vanilla=cfg.vanilla,
@@ -39,7 +59,7 @@ def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
                 cfg.regularize_input_transform if training else False),
             regularize_feature_transform=(
                 cfg.regularize_feature_transform if training else False),
-            generator=generator, device=device,
+            generator=generator, device=require_device(device),
         )
     raise ValueError(
         f"Unknown params.model {cfg.model!r} (expected one of {MODEL_FAMILIES})"

@@ -27,11 +27,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointcloudprocessing_tpu.core.constants import (
+from pointcloudprocessing_tpu_torch.core.constants import (
     KERAS_BN_EPSILON,
     KERAS_BN_MOMENTUM,
 )
 from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
+
+
+def require_device(device: torch.device | str) -> torch.device:
+    """The device a model entry point builds on: ``device`` itself, and a
+    clear error, not a silent CPU build, when it is CUDA and CUDA is
+    absent. Callers that mean the CPU say ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for (the default of the model "
+            "entry points), but CUDA is not available; pass device='cpu' to "
+            "build on the CPU"
+        )
+    return device
 
 
 def glorot_uniform(

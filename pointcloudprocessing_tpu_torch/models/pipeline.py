@@ -1,9 +1,11 @@
-"""End-to-end serving pipeline: raw scans -> preprocess -> PointNet
+"""End-to-end serving pipeline: raw scans -> preprocess -> model
 (``pointcloudprocessing_tpu/models/pipeline.py::PointCloudPipeline``).
 
-Voxel downsample -> FPS, the stride sampler or head truncation -> PointNet
-inference, on the model's device. On a CUDA device the voxel segment sum
-and FPS run the hand-written kernels of ``csrc/``.
+Voxel downsample -> FPS, the stride sampler or head truncation -> model
+inference, on the model's device. The model is any family with the head
+contract (PointNet, DGCNN): ``model(points, heads=...)`` returns a dict of
+the requested heads. On a CUDA device the voxel segment sum and FPS run
+the hand-written kernels of ``csrc/``.
 
 Usage::
 
@@ -21,8 +23,9 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+from torch import nn
 
-from pointcloudprocessing_tpu_torch.models.pointnet import ALL_HEADS, PointNet
+from pointcloudprocessing_tpu_torch.models.pointnet import ALL_HEADS
 from pointcloudprocessing_tpu_torch.ops.fps import (
     farthest_point_sample_and_gather,
     stride_sample_and_gather,
@@ -33,7 +36,7 @@ from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
 class PointCloudPipeline:
     def __init__(
         self,
-        model: PointNet,
+        model: nn.Module,
         scan_width: int,
         model_width: int,
         voxel_size: float | None = None,
@@ -41,7 +44,8 @@ class PointCloudPipeline:
         heads: tuple[str, ...] = ALL_HEADS,
     ):
         """Args:
-        model: the PointNet, with its weights, on the device to serve from.
+        model: a model with the head contract (PointNet, DGCNN), with
+          its weights, on the device to serve from.
         scan_width: fixed input scan size (pad/truncate host-side).
         model_width: points fed to the network (<= scan_width).
         voxel_size: optional voxel downsample edge before sampling.

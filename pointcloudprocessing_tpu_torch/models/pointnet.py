@@ -23,7 +23,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from pointcloudprocessing_tpu.core.config import TrainableConfig
+from pointcloudprocessing_tpu_torch.core.config import TrainableConfig
 from pointcloudprocessing_tpu_torch.models.layers import (
     ConcatPointwiseBlock,
     DenseBlock,

@@ -17,11 +17,13 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-KERNELS = ("voxel_reduce", "fps", "pooled_chain")
+KERNELS = ("voxel_reduce", "fps", "pooled_chain", "window_normals",
+           "gather_maxmin")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -46,10 +48,12 @@ _ENTRY = {
         "pcp_pooled_chain_backward":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "window_normals": {"pcp_window_moments": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "gather_maxmin": {"pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks = {name: threading.Lock() for name in KERNELS}  # one build per library
 
 
 def _nvcc() -> str:
@@ -89,7 +93,7 @@ def _compile(name: str, so: Path) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    with _lock:
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is not None:
             return lib
@@ -108,9 +112,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Build and load every kernel of the port."""
-    for name in KERNELS:
-        load(name)
+    """Load every kernel of the port, building each missing one: one
+    ``nvcc`` per source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        list(pool.map(load, KERNELS))
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from pointcloudprocessing_tpu.core.constants import NORMALIZATION_EPSILON
+from pointcloudprocessing_tpu_torch.core.constants import NORMALIZATION_EPSILON
 
 
 def normalize_unit_sphere(points: torch.Tensor):

@@ -1,4 +1,5 @@
-"""Serving CLI: stream collect frames through a trained PointNet on the GPU
+"""Serving CLI: stream collect frames through a trained model (PointNet or
+DGCNN, as the stage's config says) on the GPU
 (``pointcloudprocessing_tpu/serve.py``, same arguments and JSONL records).
 
 Loads a trained stage directory (``*_config.json`` plus the PyTorch weights
@@ -130,7 +131,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"--device {args.device}: CUDA is not available", file=sys.stderr)
         return 1
 
-    from pointcloudprocessing_tpu.core.config import load_config
+    from pointcloudprocessing_tpu_torch.core.config import load_config
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from pointcloudprocessing_tpu.core.constants import KERAS_EPSILON
+from pointcloudprocessing_tpu_torch.core.constants import KERAS_EPSILON
 
 
 def sparse_categorical_crossentropy(

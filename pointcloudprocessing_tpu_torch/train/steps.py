@@ -34,7 +34,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from pointcloudprocessing_tpu.core.config import LearningConfig
+from pointcloudprocessing_tpu_torch.core.config import LearningConfig
 from pointcloudprocessing_tpu_torch.models.pointnet import (
     NOTHING_FROZEN,
     FreezeFlags,

@@ -107,7 +107,7 @@ def test_margins_are_decisive(stage):
 
     stage_dir, collect, _ = stage
     cfg = load_config(serve._find_config(stage_dir))
-    model = model_from_config(cfg)
+    model = model_from_config(cfg, device="cpu")
     model.load_state_dict(torch.load(os.path.join(stage_dir, serve.WEIGHTS)))
     pipe = PointCloudPipeline(model, WIDTH, MODEL_W, voxel_size=VOXEL)
     class_map = {c: i for i, c in enumerate(cfg.class_labels)}

@@ -544,8 +544,9 @@ def test_model_from_config_training_regularizers():
                    "regularize_feature_transform": True},
     }
     cfg = parse_config(config)
-    trained = model_from_config(cfg, training=True, dropout_rate=0.1)
-    served = model_from_config(cfg)
+    trained = model_from_config(cfg, training=True, dropout_rate=0.1,
+                                device="cpu")
+    served = model_from_config(cfg, device="cpu")
     assert trained.input_transform.add_regularization
     assert trained.feature_transform.add_regularization
     assert trained.dropout_rate == 0.1

@@ -27,7 +27,7 @@ def convert_stage(stage_dir: str) -> str:
     import numpy as np
     import torch
 
-    from pointcloudprocessing_tpu.core.config import load_config
+    from pointcloudprocessing_tpu_torch.core.config import load_config
     from pointcloudprocessing_tpu.train.callbacks import load_checkpoint
     from pointcloudprocessing_tpu_torch.convert import state_dict_from_flax
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
@@ -39,7 +39,7 @@ def convert_stage(stage_dir: str) -> str:
         {"params": payload["params"], "batch_stats": payload["batch_stats"]},
     )
     state = state_dict_from_flax(variables)
-    model = model_from_config(load_config(_find_config(stage_dir)))
+    model = model_from_config(load_config(_find_config(stage_dir)), device="cpu")
     model.load_state_dict(state)  # strict: every tensor named and shaped
     path = os.path.join(stage_dir, WEIGHTS)
     os.makedirs(os.path.dirname(path), exist_ok=True)
