@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``pointcloudprocessing_tpu_torch``) on one
 NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
-the PointNet training step, the preprocess with windowed PCA normals, and
-DGCNN inference.
+the PointNet training step, the preprocess with windowed PCA normals, DGCNN
+inference, and PointNet++ inference and serving at a scan width that takes
+the any-rank segment sum.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
 1. device: requires CUDA; prints the card's name and power limit as
    ``nvidia-smi`` reports them; TF32 off for matmul and cuDNN.
 2. build: builds every CUDA kernel library from
-   ``pointcloudprocessing_tpu_torch/csrc`` (segment sum, FPS, pooled chain,
-   window moments, gather max/min), one ``nvcc`` a source, all at once.
+   ``pointcloudprocessing_tpu_torch/csrc`` (the two segment sums, FPS,
+   pooled chain, window moments, gather max/min), one ``nvcc`` a source,
+   all at once.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (the segment sum on the ranks the slice builds
    from uniform, zero-padded and LiDAR-like dense scans, and on synthetic
@@ -58,9 +60,24 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    dataflow; clouds/s over three windows, busy share, device ms by kind
    (distance GEMM, topk, kernel 7, the rest); kernel 7 launches four times
    a forward; one ``PointCloudPipeline.stream()`` with the DGCNN model.
+9. pointnet2: (a) the any-rank segment sum (kernel 3) against its plain
+   version: bit-identical to it on a CPU copy and within a summation-order
+   bar of it on the card, on the path's voxel and stride ranks at 256x2000,
+   random ranks at 256x2000 (d 4, 5) and 8x8000, n 1, n 490 at d 1 and 8,
+   one segment, empty segments and a NaN row, timed beside scatter_add_;
+   a rank outside [0, n) traps (a child process). (b) the route: 256x2000
+   runs kernel 3, 256x2048 kernel 1. (c) PointNet++ 23/12 at full width
+   (``pointnet2_for_width(23, 12, 1024)``, f32, seeded) from a config with
+   ``"model": "pointnet2"`` on 256x1024 normal(0, 1) clouds: through the
+   FPS kernel against its plain version (picks identical), a CPU twin on 2
+   clouds, clouds/s over three windows, busy share, device ms by kind; FPS
+   launches twice a forward. (d) ``PointCloudPipeline`` at 256x2000 ->
+   voxel 0.4 -> FPS or stride -> 1024 -> PointNet++ through ``stream()``:
+   clouds/s, busy share, launches a batch. (e) ``serve.main`` over a
+   PointNet++ stage at scan width 2000.
 
-The second-to-last line is a JSON object with each kernel's launches on
-its path, error against its plain version, times and bound: ``ms``,
+The second-to-last line is a JSON object with each of the seven kernels'
+launches on its paths, error against its plain version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
 function, where there is one) are device times from ``torch.profiler``, or
 null with ``"ms_source": "not traced"`` if every trace came back without
@@ -98,6 +115,7 @@ WINDOW_SRC = "pointcloudprocessing_tpu_torch/csrc/window_normals.cu"
 WINDOW_TPU = "pointcloudprocessing_tpu/ops/pallas/window_normals.py:387"
 GATHER_SRC = "pointcloudprocessing_tpu_torch/csrc/gather_maxmin.cu"
 GATHER_TPU = "pointcloudprocessing_tpu/ops/pallas/gather_maxmin.py:132"
+SEG_ANY_TPU = "pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py:65"
 KC46_CONFIG = "configs/kc46_lidar_config.json"
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth and
 # f32 outside the tensor cores
@@ -675,21 +693,22 @@ def phase_pooled_kernels(torch) -> dict:
 
 @contextlib.contextmanager
 def route_kernels(segment_sum, fps_with_points):
-    """Point the slice's kernel wrappers at other functions (the plain
-    versions, or a recorder) while the block runs; for comparisons on the
-    card only. The ops modules look the wrappers up at call time."""
+    """Point the slice's segment sum (the route between kernels 1 and 3) and
+    FPS kernel wrapper at other functions (the plain versions, one kernel,
+    or a recorder) while the block runs; for comparisons on the card only.
+    The ops modules look them up at call time."""
     from pointcloudprocessing_tpu_torch.ops import fps as fps_mod
     from pointcloudprocessing_tpu_torch.ops import voxel as voxel_mod
 
-    saved = (voxel_mod.sorted_segment_reduce, fps_mod.sorted_segment_reduce,
+    saved = (voxel_mod.monotone_segment_sum, fps_mod.monotone_segment_sum,
              fps_mod.fps_with_points)
-    voxel_mod.sorted_segment_reduce = segment_sum
-    fps_mod.sorted_segment_reduce = segment_sum
+    voxel_mod.monotone_segment_sum = segment_sum
+    fps_mod.monotone_segment_sum = segment_sum
     fps_mod.fps_with_points = fps_with_points
     try:
         yield
     finally:
-        (voxel_mod.sorted_segment_reduce, fps_mod.sorted_segment_reduce,
+        (voxel_mod.monotone_segment_sum, fps_mod.monotone_segment_sum,
          fps_mod.fps_with_points) = saved
 
 
@@ -828,7 +847,10 @@ def phase_slice(torch, rng, model) -> dict:
     return {"launches": launches, "clouds_per_s": rate, "stage_ms": stage_ms}
 
 
-def phase_serve(torch, rng, model) -> None:
+def phase_serve(torch, rng, model, family: str = "pointnet",
+                scan_width: int = 2048) -> None:
+    """``serve.main`` over a stage of ``family`` holding ``model``'s weights:
+    frames of 1900-2200 points at ``scan_width``, voxel 0.4, 1024 points."""
     from pointcloudprocessing_tpu_torch import serve
     from pointcloudprocessing_tpu_torch.data.frames import write_aftr_frame
 
@@ -850,8 +872,8 @@ def phase_serve(torch, rng, model) -> None:
             "info": {"name": "smoke",
                      "class_labels": {str(i): c for i, c in enumerate(classes)},
                      "part_labels": {str(i): p for i, p in enumerate(parts)}},
-            "params": {"input_width": 2048, "epochs": 1, "patience": 1,
-                       "batch_size": 4},
+            "params": {"input_width": 1024, "epochs": 1, "patience": 1,
+                       "batch_size": 4, "model": family},
         }
         with open(os.path.join(stage, "smoke_config.json"), "w") as f:
             json.dump(config, f)
@@ -860,19 +882,22 @@ def phase_serve(torch, rng, model) -> None:
         rc = serve.main([
             "--model", stage, "--input", os.path.join(tmp, "collect"),
             "--output", out_path, "--batch", "3", "--device", "cuda",
-            "--voxel-size", "0.4", "--scan-width", "2048",
-            "--model-width", "1024",
+            "--voxel-size", "0.4", "--scan-width", str(scan_width),
         ])
         with open(out_path) as f:
             records = [json.loads(line) for line in f]
     if rc != 0 or len(records) != num_frames:
         raise AssertionError(f"serve rc {rc}, {len(records)} of {num_frames} records")
     for r in records:
-        if r["class"] not in classes or sum(r["part_counts"].values()) != 1024 \
+        # the JAX serving CLI's record keys
+        if set(r) != {"frame", "class", "part_counts", "se3"} \
+                or r["class"] not in classes \
+                or sum(r["part_counts"].values()) != 1024 \
                 or np.asarray(r["se3"]).shape != (3, 3):
             raise AssertionError(f"bad record {r['frame']}")
-    log(f"[5 serve] {len(records)} frames served through serve.main "
-        f"(voxel 0.4, 2048 -> 1024, batch 3: the last batch zero-padded, cuda)")
+    return (f"{len(records)} frames of a {family} stage served through "
+            f"serve.main (voxel 0.4, {scan_width} -> 1024, batch 3: the last "
+            "batch zero-padded, cuda)")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1579,6 +1604,381 @@ def phase_dgcnn(torch, rng) -> dict:
     return results
 
 
+# ------------------------------------- phase 9: PointNet++ and kernel 3
+
+PN2_KINDS = (("fps", ("fps_kernel",)), ("topk", ("topk", "sort", "radix")),
+             ("gather", ("gather", "scatter", "index")), ("gemm", ("gemm",)),
+             ("argmin/reduce", ("reduce", "argmin")),
+             ("elementwise", ("elementwise",)))
+
+#: a rank outside [0, n) must trap in the any-rank kernel; run in a child
+#: process, since a trap loses the CUDA context
+TRAP_PROBE = """
+import sys
+import torch
+sys.path.insert(0, REPO)
+from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import segment_reduce
+data = torch.ones(2, 200, 4, device="cuda")
+rank = torch.zeros(2, 200, dtype=torch.int32, device="cuda")
+rank[1, 17] = 200
+try:
+    segment_reduce(data, rank)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+    sys.exit(0)
+print("no error")
+sys.exit(3)
+"""
+
+
+def segment_bar(torch, data, rank):
+    """The bar between two f32 sums of the same segments in other orders:
+    2^-20 of the sum of the absolute terms, or, for a segment of k > 9 rows,
+    the recursive-summation bound 2 (k - 1) 2^-24 of it."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
+        segment_reduce_reference,
+    )
+
+    terms = segment_reduce_reference(data.abs(), rank)
+    rows = segment_reduce_reference(torch.ones_like(data[..., :1]), rank)
+    return torch.clamp(2 * (rows - 1) * 2.0 ** -24, min=2.0 ** -20) * terms
+
+
+def phase_any_rank_kernel(torch, rng) -> dict:
+    """Kernel 3 against its plain version: bit-identical to the plain version
+    run on a CPU copy (both add a segment's rows in row order), and within
+    segment_bar of the CUDA plain version (atomics, any order); the trap
+    probe in a child process."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points_reference
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
+        segment_reduce,
+        segment_reduce_reference,
+    )
+    from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    dev = torch.device("cuda")
+
+    def gen(b, n, d, scale=30.0, high=None):
+        data = torch.from_numpy((rng.normal(size=(b, n, d)) * scale)
+                                .astype(np.float32)).to(dev)
+        rank = torch.from_numpy(rng.integers(0, high or n, (b, n))
+                                .astype(np.int32)).to(dev)
+        return data, rank
+
+    cases = []
+    # the segment sums of the path at 256x2000, captured as phase 3 does
+    for kind in ("uniform", "padded"):
+        captured = []
+
+        def record(data, rank):
+            captured.append((data.clone(), rank.clone()))
+            return segment_reduce_reference(data, rank)
+
+        with route_kernels(record, fps_with_points_reference):
+            x = torch.from_numpy(scan_batch(rng, kind, 256, 2000)).to(dev)
+            vox, vmask = voxel_downsample_batch(x, 0.4)
+            stride_sample_and_gather(vox, 1024, vmask)
+        cases += [(f"main-path {kind} voxel", *captured[0]),
+                  (f"main-path {kind} stride", *captured[1])]
+    cases += [("any order, 30x", *gen(256, 2000, 4)),
+              ("any order, 30x", *gen(256, 2000, 5)),
+              ("any order, 30x", *gen(8, 8000, 4)),
+              ("n = 1", *gen(4, 1, 4)), ("n = 490, d = 1", *gen(4, 490, 1)),
+              ("n = 490, d = 8", *gen(4, 490, 8))]
+    data, _ = gen(8, 2000, 4)
+    cases.append(("all rows in one segment", data,
+                  torch.full((8, 2000), 7, dtype=torch.int32, device=dev)))
+    data, rank = gen(8, 2000, 4, high=500)
+    cases.append(("three quarters of the segments empty", data, rank * 4))
+    data, rank = gen(8, 2000, 4)
+    data[3, 777, 2] = float("nan")
+    cases.append(("one NaN row", data, rank))
+
+    results = {"err": 0.0}
+    for label, data, rank in cases:
+        b, n, d = data.shape
+        got = segment_reduce(data, rank)
+        want_cpu = segment_reduce_reference(data.cpu(), rank.cpu())
+        want = segment_reduce_reference(data, rank)
+        bar = segment_bar(torch, data, rank)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        ok = (check_bit_identical(torch, got.cpu(), want_cpu)
+              and torch.equal(torch.isnan(got), nan)
+              and bool(((got - want).abs()[~nan] <= bar[~nan]).all()))
+        if label == "one NaN row":
+            ok = ok and int(nan.any(-1).sum()) == 1
+        if not ok:
+            raise AssertionError(
+                f"segment_reduce {b}x{n}x{d} ({label}) is not bit-identical to "
+                "its plain version on a CPU copy, or beyond the bar of the "
+                "CUDA plain version")
+        err = (got - want).abs()[~nan].max().item()
+        results["err"] = max(results["err"], (got.cpu() - want_cpu).abs()[
+            ~torch.isnan(want_cpu)].max().item())
+        line = (f"[9 pointnet2] segment_reduce {b}x{n}x{d} ({label}): "
+                f"bit-identical to the plain version on a CPU copy; vs the CUDA "
+                f"plain version max abs diff {err:.3e} (bar segment_bar)")
+        if b * n >= 64000:
+            kernel = functools.partial(segment_reduce, data, rank)
+            plain = functools.partial(segment_reduce_reference, data, rank)
+            index = rank.long()[..., None].expand(-1, -1, d)
+
+            def library():
+                return torch.zeros_like(data).scatter_add_(1, index, data)
+
+            ms, plain_ms = device_ms(torch, kernel, 20), device_ms(torch, plain, 20)
+            lib_ms = device_ms(torch, library, 20)
+            per_call = (call_ms(torch, kernel, 20), call_ms(torch, plain, 20))
+            # each row read once with its rank, each output row written once;
+            # one add a value
+            bound = roofline(nbytes(data, rank, got), data.numel())
+            line += (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}, "
+                     f"scatter_add_ {fmt(lib_ms)}, bound {bound[0]:.4f} "
+                     f"({bound[1]}); per call with launch kernel "
+                     f"{per_call[0]:.4f}, plain {per_call[1]:.4f}")
+            if label == "main-path uniform voxel":
+                results.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound=bound)
+        log(line)
+    probe = subprocess.run([sys.executable, "-c", f"REPO = {REPO!r}\n" + TRAP_PROBE],
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"trap probe: rc {probe.returncode}, "
+                             f"{probe.stdout.strip()} {probe.stderr[-500:]}")
+    log(f"[9 pointnet2] segment_reduce with a rank outside [0, n), in a child "
+        f"process: {probe.stdout.strip()}; ranks in any order never trapped")
+    return results
+
+
+@contextlib.contextmanager
+def pointnet2_fps(method: str, picks: list):
+    """Route PointNet++'s FPS through ``farthest_point_sample_batch(...,
+    method=method)`` ('auto': the kernel on the card; 'stream': the plain
+    version) and record its picks, while the block runs."""
+    from pointcloudprocessing_tpu_torch.models import pointnet2 as pn2_mod
+
+    real = pn2_mod.farthest_point_sample_batch
+
+    def recording(xyz, m):
+        idx = real(xyz, m, method=method)
+        picks.append(idx)
+        return idx
+
+    pn2_mod.farthest_point_sample_batch = recording
+    try:
+        yield
+    finally:
+        pn2_mod.farthest_point_sample_batch = real
+
+
+def close_heads(torch, got: dict, want: dict) -> tuple[dict, float]:
+    """Max abs difference per head, and the share of segmentation rows
+    beyond 1e-4 (moved by a kNN or radius-mask flip)."""
+    diffs = {k: (got[k].cpu() - want[k].cpu()).abs().max().item() for k in got}
+    rows = ((got["segmentation_output"].cpu() - want["segmentation_output"].cpu())
+            .abs().amax(-1) > 1e-4).float().mean().item()
+    return diffs, rows
+
+
+def phase_pointnet2(torch, rng) -> dict:
+    """PointNet++ 23/12 at full width (the canonical SSG model of
+    ``pointnet2_for_width(23, 12, 1024)``, f32, seeded) from a config with
+    "model": "pointnet2": (b) the segment-sum route at 256x2000 and
+    256x2048; (c) 256x1024 normal(0, 1) clouds (bench.py:118-120) through
+    the FPS kernel against the same through its plain version, and a CPU
+    twin on 2 clouds; rates, busy share, device ms by kind; (d) the serving
+    pipeline at 256x2000 (no multiple of 128) with both samplers; (e) the
+    serve CLI over a PointNet++ stage at scan width 2000."""
+    from pointcloudprocessing_tpu_torch.core.config import parse_config
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+    from pointcloudprocessing_tpu_torch.models.pointnet2 import (
+        PointNet2,
+        pointnet2_for_width,
+    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
+        segment_reduce,
+        sorted_segment_reduce,
+    )
+    from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    dev = torch.device("cuda")
+    results = {}
+
+    def counts():
+        return {"any": segment_reduce.launches, "sorted": sorted_segment_reduce.launches,
+                "fps": fps_with_points.launches}
+
+    def zero_counts():
+        segment_reduce.launches = sorted_segment_reduce.launches = 0
+        fps_with_points.launches = 0
+
+    # (b) the route: a voxel step and a stride sample per width
+    for n, want in ((2000, {"any": 2, "sorted": 0}), (2048, {"any": 0, "sorted": 2})):
+        x = torch.from_numpy(scan_batch(rng, "uniform", 256, n)).to(dev)
+        zero_counts()
+        vox, vmask = voxel_downsample_batch(x, 0.4)
+        stride_sample_and_gather(vox, 1024, vmask)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if k != "fps"}
+        if got != want:
+            raise AssertionError(f"route at 256x{n}: launches {got}, want {want}")
+        if n == 2000:
+            with route_kernels(sorted_segment_reduce, fps_with_points):
+                forced, fmask = voxel_downsample_batch(x, 0.4)
+            if not torch.equal(vmask, fmask) or not bool(
+                    ((vox - forced).abs() <= 1e-6 * forced.abs()).all()):
+                raise AssertionError("voxel output at 256x2000 through kernel 3 "
+                                     "differs from the same through kernel 1")
+    log("[9 pointnet2] route: a voxel step + a stride sample launch kernel 3 "
+        "twice and kernel 1 never at 256x2000, the reverse at 256x2048; at "
+        "256x2000 the voxel output through kernel 3 equals the same through "
+        "kernel 1 forced (masks identical, centroids within 1e-6 relative)")
+
+    # (c) PointNet++ at 256x1024
+    cfg = parse_config({
+        "info": {"name": "smoke_pointnet2",
+                 "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
+                 "part_labels": {str(i): f"p{i}" for i in range(NUM_PARTS)}},
+        "params": {"input_width": 1024, "epochs": 1, "patience": 1,
+                   "batch_size": 256, "model": "pointnet2"},
+    })
+    model = model_from_config(cfg, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    if not isinstance(model, PointNet2) or next(model.parameters()).device.type != "cuda" \
+            or (model.sa1.num_centroids, model.sa1.k, model.sa2.num_centroids,
+                model.sa2.k) != (512, 32, 128, 64):
+        raise AssertionError("model_from_config did not build the canonical "
+                             "PointNet++ on the card")
+    b, n = 256, 1024
+    x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
+    count = 6
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model(x)  # warm-up
+        fps_with_points.launches = 0
+        # ---- the PointNet++ path: counted launches start here
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(count):
+                out = model(x)
+            torch.cuda.synchronize()
+            rates.append(b * count / (time.perf_counter() - t0))
+        launches = fps_with_points.launches
+        # ---- the PointNet++ path ends here
+        if launches != 2 * 3 * count:
+            raise AssertionError(f"PointNet++: FPS launched {launches} times in "
+                                 f"{3 * count} forwards (2 each)")
+        results["fps_launches"] = launches
+        check_outputs(torch, out, b, n)
+        picks_k, picks_p = [], []
+        with pointnet2_fps("auto", picks_k):
+            through = model(x)
+        with pointnet2_fps("stream", picks_p):
+            plain = model(x)
+        torch.cuda.synchronize()
+        if len(picks_k) != 2 or not all(torch.equal(a, c) for a, c in
+                                        zip(picks_k, picks_p)):
+            raise AssertionError("PointNet++: FPS picks through the kernel differ "
+                                 "from the plain version's")
+        diffs, _ = close_heads(torch, through, plain)
+        bitwise = all(torch.equal(through[k], plain[k]) for k in through)
+        if max(diffs.values()) > 1e-6:
+            raise AssertionError(f"PointNet++ through the FPS kernel vs its plain "
+                                 f"version: {diffs}")
+        # a CPU twin on two clouds, both with the plain FPS (the CPU's default
+        # distance-matrix FPS rounds distances another way)
+        twin = pointnet2_for_width(NUM_CLASSES, NUM_PARTS, n, device="cpu")
+        twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        twin.eval()
+        with pointnet2_fps("stream", []):
+            small_gpu = model(x[:2])
+            small_cpu = twin(x[:2].cpu())
+        cpu_diffs, cpu_rows = close_heads(torch, small_gpu, small_cpu)
+        if cpu_diffs["classification_output"] > 1e-4 or cpu_rows > 1e-3:
+            raise AssertionError(f"PointNet++ on the card vs its CPU twin: "
+                                 f"{cpu_diffs}, {cpu_rows:.5f} of the rows beyond 1e-4")
+        share = busy_share(torch, lambda: [model(x) for _ in range(3)])
+        kinds = kernel_breakdown(torch, lambda: [model(x) for _ in range(2)],
+                                 calls=2, kinds=PN2_KINDS)
+        per_forward = kernels_per_call(torch, lambda: [model(x) for _ in range(2)], 2)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = float(np.median(rates))
+    results["clouds_per_s"] = rate
+    log(f"[9 pointnet2] PointNet++ 23/12 f32 SSG (512/32/0.2, 128/64/0.4), "
+        f"{b}x{n} normal(0, 1): clouds/s over 3 windows of {count} forwards: "
+        + ", ".join(f"{r:.1f}" for r in rates)
+        + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
+        f"busy share {share} over 3 forwards; FPS launches {launches} (2 a "
+        f"forward); peak allocated {peak:.2f} GiB")
+    log(f"[9 pointnet2] through the FPS kernel vs its plain version: picks "
+        f"identical, heads {'bit-identical' if bitwise else 'max abs diff ' + str(diffs)}"
+        f"; card vs CPU twin on 2 clouds: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in cpu_diffs.items())
+        + f", segmentation rows beyond 1e-4: {cpu_rows:.5f}")
+    log("[9 pointnet2] device ms per forward by kind: " + (", ".join(
+        f"{kind} {ms:.4f}" for kind, ms in kinds.items())
+        + f"; total {sum(kinds.values()):.4f}; device activities a forward: "
+        f"{per_forward}" if kinds else "not traced"))
+
+    # (d) serving at a width that does not tile: 2000 = 15 * 128 + 80
+    scan = 2000
+    pool = [scan_batch(rng, "uniform", b, scan) for _ in range(3)]
+    pool.append(scan_batch(rng, "padded", b, scan))
+    window = 6
+
+    def feed(count: int):
+        return (pool[i % len(pool)] for i in range(count))
+
+    any_launches = 0
+    for sampler, per_batch in (("fps", {"any": 1, "sorted": 0, "fps": 3}),
+                               ("stride", {"any": 2, "sorted": 0, "fps": 2})):
+        pipe = PointCloudPipeline(model, scan_width=scan, model_width=n,
+                                  voxel_size=0.4, sampler=sampler)
+        warm = list(pipe.stream(feed(2)))
+        zero_counts()
+        # ---- the serving path: counted launches start here
+        rates, outs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = list(pipe.stream(feed(window)))
+            torch.cuda.synchronize()
+            rates.append(b * len(got) / (time.perf_counter() - t0))
+            outs += got
+        launched = counts()
+        # ---- the serving path ends here
+        want = {k: v * 3 * window for k, v in per_batch.items()}
+        if launched != want or len(outs) != 3 * window:
+            raise AssertionError(f"PointNet++ serving ({sampler}): launches "
+                                 f"{launched} over {len(outs)} batches, want {want}")
+        any_launches += launched["any"]
+        results["fps_launches"] += launched["fps"]
+        for o in [*warm, *outs]:
+            check_outputs(torch, o, b, n)
+        share = busy_share(torch, lambda: list(pipe.stream(feed(4))))
+        rate = float(np.median(rates))
+        results[f"serve_{sampler}"] = rate
+        log(f"[9 pointnet2] serving {b}x{scan} -> voxel 0.4 -> {sampler} -> {n} "
+            f"-> PointNet++ (uniform and padded batches): clouds/s over 3 "
+            f"windows of {window} batches: " + ", ".join(f"{r:.1f}" for r in rates)
+            + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}"
+            f"; busy share {share} over 4 batches; launches a batch: kernel 3 "
+            f"{per_batch['any']}, kernel 1 0, FPS {per_batch['fps']}")
+    results["any_launches"] = any_launches
+
+    # (e) the serve CLI over a PointNet++ stage at scan width 2000
+    log(f"[9 pointnet2] {phase_serve(torch, rng, model, 'pointnet2', scan)}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1607,10 +2007,12 @@ def main() -> int:
                      generator=torch.Generator().manual_seed(0), device="cuda")
     model.eval()
     sliced = phase_slice(torch, rng, model)
-    phase_serve(torch, rng, model)
+    log(f"[5 serve] {phase_serve(torch, rng, model)}")
     trained = phase_train(torch, rng)
     normals = phase_normals(torch, rng, model)
     dgcnn = phase_dgcnn(torch, rng)
+    any_rank = phase_any_rank_kernel(torch, rng)
+    pn2 = phase_pointnet2(torch, rng)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
         for k in ("fwd", "bwd")}
@@ -1631,7 +2033,8 @@ def main() -> int:
               sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],
               kernels["seg_plain_ms"], kernels["seg_bound"],
               kernels["seg_library_ms"]),
-        entry("fps_with_points", FPS_SRC, FPS_TPU, sliced["launches"]["fps"],
+        entry("fps_with_points", FPS_SRC, FPS_TPU,
+              sliced["launches"]["fps"] + pn2["fps_launches"],
               kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
               kernels["fps_bound"]),
         entry("pooled_chain_forward", POOLED_SRC, POOLED_FWD_TPU,
@@ -1644,6 +2047,9 @@ def main() -> int:
               window["err"], window["ms"], window["plain_ms"], window["bound"]),
         entry("gather_maxmin", GATHER_SRC, GATHER_TPU, dgcnn["launches"],
               gather["err"], gather["ms"], gather["plain_ms"], gather["bound"]),
+        entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU, pn2["any_launches"],
+              any_rank["err"], any_rank["ms"], any_rank["plain_ms"],
+              any_rank["bound"], any_rank["library_ms"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

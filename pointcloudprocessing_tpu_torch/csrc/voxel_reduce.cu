@@ -1,8 +1,13 @@
-// Sorted segment sum for the voxel downsample and the stride sampler.
+// Segment sums for the voxel downsample and the stride sampler: two kernels
+// in one library, as the JAX package keeps both in one file.
 //
-// Replaces ops/pallas/voxel_reduce.py::sorted_segment_reduce_pallas, the
-// banded one-hot MXU contraction with a bf16 hi/lo split that the JAX
-// package runs on the TPU.
+// - sorted_segment_sum_kernel replaces ops/pallas/voxel_reduce.py::
+//    sorted_segment_reduce_pallas, the banded one-hot MXU contraction with a
+//    bf16 hi/lo split that the JAX package runs on the TPU.
+// - segment_sum_kernel (further down) replaces ops/pallas/voxel_reduce.py::
+//    segment_reduce_pallas, the dense one-hot contraction for any rank.
+//
+// sorted_segment_sum_kernel: the rank is monotone.
 //
 //   out[b, k, :] = sum of data[b, i, :] over the rows i with rank[b, i] == k
 //
@@ -157,6 +162,104 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// segment_sum_kernel: the segment sum for ANY rank in [0, n), in any order.
+//
+// The TPU kernel builds a (k_tile, n) one-hot slab per output tile and
+// contracts it on the MXU: every output tile scans every row.  Here one
+// block owns one (cloud, tile of kTile segments) and one thread one segment
+// of the tile.  The block streams the cloud's ranks in chunks of kTile
+// rows, one a thread; a ballot and a prefix over the warps compact the rows
+// whose rank falls in the tile, in row order, into shared memory with their
+// data; then each thread adds the compacted rows of its own segment.  So a
+// segment's sum is 0 + its rows in increasing row order, the order of
+// PyTorch's CPU scatter_add_, and the result is deterministic and needs no
+// atomics.  Each data row is read once in all (by the block of its tile);
+// the ranks are re-read once per tile, from L2.  The function is bound by
+// device-memory bytes; this kernel's work is the compaction (b * n * n /
+// kTile rank reads) and the per-thread scan of its tile's rows (b * n *
+// kTile compares), so it lands several times over that bound.
+//
+// A rank outside [0, n) traps, as in sorted_segment_sum_kernel.  Output
+// rows of empty segments are written as 0: the caller need not zero them.
+
+constexpr int kTile = 128;
+
+template <int D>
+__global__ void __launch_bounds__(kTile)
+    segment_sum_kernel(const float* __restrict__ data,
+                       const int* __restrict__ rank,
+                       float* __restrict__ out, int n) {
+  constexpr int kWarps = kTile / 32;
+  __shared__ int tile_seg[kTile];     // compacted rows: tile-local segment
+  __shared__ float tile_row[kTile][D];  // and data, in row order
+  __shared__ int warp_count[kWarps];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * n;  // this cloud's rows
+  const int k0 = blockIdx.y * kTile;                  // this tile's segments
+  const int* r = rank + base;
+  float acc[D];
+#pragma unroll
+  for (int c = 0; c < D; ++c) acc[c] = 0.0f;
+
+  for (int c0 = 0; c0 < n; c0 += kTile) {
+    const int i = c0 + tid;
+    int local = -1;
+    if (i < n) {
+      const int seg = r[i];
+      if (seg < 0 || seg >= n) __trap();  // outside [0, n)
+      local = seg - k0;
+    }
+    const bool hit = local >= 0 && local < kTile;
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int pos = __popc(ballot & ((1u << lane) - 1u));
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int cnt = warp_count[w];
+      if (w < warp) pos += cnt;
+      total += cnt;
+    }
+    if (hit) {
+      tile_seg[pos] = local;
+      const float* row = data + (base + i) * D;
+#pragma unroll
+      for (int c = 0; c < D; ++c) tile_row[pos][c] = row[c];
+    }
+    __syncthreads();
+    for (int j = 0; j < total; ++j) {
+      if (tile_seg[j] == tid) {
+#pragma unroll
+        for (int c = 0; c < D; ++c) acc[c] += tile_row[j][c];
+      }
+    }
+    // No third barrier: every read of warp_count above precedes the second
+    // barrier, which precedes the next chunk's writes of it; and every
+    // thread ends its scan of the tile rows before it reaches the next
+    // chunk's first barrier, which precedes their rewrite.
+  }
+  const int seg = k0 + tid;
+  if (seg < n) {
+    float* o = out + (base + seg) * D;
+#pragma unroll
+    for (int c = 0; c < D; ++c) o[c] = acc[c];
+  }
+}
+
+template <int D>
+int launch_segment_sum(const float* data, const int* rank, float* out,
+                       long long b, long long n, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(b),
+                  static_cast<unsigned>((n + kTile - 1) / kTile));
+  segment_sum_kernel<D><<<grid, kTile, 0, s>>>(data, rank, out,
+                                                static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // data: (b, n, d) f32, rank: (b, n) int32, out: (b, n, d) f32 zeroed by the
@@ -183,6 +286,31 @@ extern "C" int pcp_sorted_segment_sum(const float* data, const int* rank,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Any-rank segment sum.  data: (b, n, d) f32 with 1 <= d <= 8, rank: (b, n)
+// int32 in [0, n), out: (b, n, d) f32, every row written.  Returns a
+// cudaError_t code (0 on success).
+extern "C" int pcp_segment_sum(const float* data, const int* rank, float* out,
+                               long long b, long long n, int d, void* stream) {
+  if (b == 0 || n == 0) return 0;
+  // grid.x takes the clouds, grid.y (at most 65535) the tiles of a cloud
+  if (b < 0 || n < 0 || b > 0x7fffffffLL ||
+      (n + kTile - 1) / kTile > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: return launch_segment_sum<1>(data, rank, out, b, n, s);
+    case 2: return launch_segment_sum<2>(data, rank, out, b, n, s);
+    case 3: return launch_segment_sum<3>(data, rank, out, b, n, s);
+    case 4: return launch_segment_sum<4>(data, rank, out, b, n, s);
+    case 5: return launch_segment_sum<5>(data, rank, out, b, n, s);
+    case 6: return launch_segment_sum<6>(data, rank, out, b, n, s);
+    case 7: return launch_segment_sum<7>(data, rank, out, b, n, s);
+    case 8: return launch_segment_sum<8>(data, rank, out, b, n, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* pcp_error_string(int code) {

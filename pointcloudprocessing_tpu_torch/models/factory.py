@@ -9,20 +9,18 @@ from torch import nn
 from pointcloudprocessing_tpu_torch.models.dgcnn import dgcnn_for_width
 from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.models.pointnet import PointNet
+from pointcloudprocessing_tpu_torch.models.pointnet2 import pointnet2_for_width
 
 MODEL_FAMILIES = ("pointnet", "pointnet2", "dgcnn")
-_NOT_PORTED = {
-    "pointnet2": "ROADMAP queue 1 item 8 (PointNet++)",
-}
 
 
 def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
                       generator: torch.Generator | None = None,
                       device="cuda") -> nn.Module:
     """Build the configured model family (``cfg`` is a
-    ``core.config.TrainConfig``): PointNet or DGCNN, on ``device``, which is
-    CUDA unless the caller asks for the CPU (without CUDA the default
-    raises). ``training=True`` applies the config's T-Net regularizers
+    ``core.config.TrainConfig``): PointNet, PointNet++ or DGCNN, on
+    ``device``, which is CUDA unless the caller asks for the CPU (without
+    CUDA the default raises). ``training=True`` applies the config's T-Net regularizers
     (PointNet only); inference consumers build without them."""
     opts = dict(getattr(cfg, "model_options", {}) or {})
     if cfg.model != "dgcnn" and opts:
@@ -30,9 +28,10 @@ def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
             f"params.model_options is not supported for params.model="
             f"{cfg.model!r} (got {sorted(opts)})"
         )
-    if cfg.model in _NOT_PORTED:
-        raise NotImplementedError(
-            f"params.model={cfg.model!r} is not ported yet: {_NOT_PORTED[cfg.model]}"
+    if cfg.model == "pointnet2":
+        return pointnet2_for_width(
+            cfg.num_classes, cfg.num_parts, cfg.input_width,
+            dropout_rate=dropout_rate, generator=generator, device=device,
         )
     if cfg.model == "dgcnn":
         unknown = set(opts) - {"k", "graph"}

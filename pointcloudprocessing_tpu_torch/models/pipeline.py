@@ -3,9 +3,11 @@
 
 Voxel downsample -> FPS, the stride sampler or head truncation -> model
 inference, on the model's device. The model is any family with the head
-contract (PointNet, DGCNN): ``model(points, heads=...)`` returns a dict of
-the requested heads. On a CUDA device the voxel segment sum and FPS run
-the hand-written kernels of ``csrc/``.
+contract (PointNet, PointNet++, DGCNN): ``model(points, heads=...)``
+returns a dict of the requested heads. On a CUDA device the voxel segment
+sum and FPS run the hand-written kernels of ``csrc/``; the segment sum
+takes the any-rank kernel at a scan width that 128 does not divide, as the
+JAX package does (``ops/cuda/voxel_reduce.py``).
 
 Usage::
 
@@ -44,8 +46,8 @@ class PointCloudPipeline:
         heads: tuple[str, ...] = ALL_HEADS,
     ):
         """Args:
-        model: a model with the head contract (PointNet, DGCNN), with
-          its weights, on the device to serve from.
+        model: a model with the head contract (PointNet, PointNet++,
+          DGCNN), with its weights, on the device to serve from.
         scan_width: fixed input scan size (pad/truncate host-side).
         model_width: points fed to the network (<= scan_width).
         voxel_size: optional voxel downsample edge before sampling.

@@ -1,14 +1,22 @@
-"""Sorted segment sum: the hand-written CUDA kernel and its plain version.
+"""Segment sums: the two hand-written CUDA kernels, their plain versions and
+the shape rule between them.
 
-Counterpart of ``pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py::
-sorted_segment_reduce_pallas``. The TPU kernel contracts generated one-hot
-slabs on the MXU with a bf16 hi/lo split of the data; on the H100 it is a
-segmented prefix sum in plain fp32 over the contiguous runs, one block per
-cloud, whose time does not depend on the run lengths
-(``csrc/voxel_reduce.cu`` says why and how).
+Counterparts of ``pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py``:
 
-A CUDA tensor always goes to the kernel, and any failure raises; a CPU
-tensor goes to the plain version.
+- :func:`sorted_segment_reduce` (``sorted_segment_reduce_pallas``'s banded
+  kernel): a monotone rank. The TPU kernel contracts generated one-hot slabs
+  on the MXU with a bf16 hi/lo split of the data; on the H100 it is a
+  segmented prefix sum in plain fp32 over the contiguous runs, one block per
+  cloud, whose time does not depend on the run lengths.
+- :func:`segment_reduce` (``segment_reduce_pallas``): any rank. One block
+  per (cloud, tile of segments) compacts the rows of its tile in row order
+  and a thread adds its own segment's, so the sums equal PyTorch's CPU
+  ``scatter_add_`` bit for bit.
+
+``csrc/voxel_reduce.cu`` says why and how. :func:`monotone_segment_sum`, what
+the voxel downsample and the stride sampler call, picks between the two as
+the JAX package does. A CUDA tensor always goes to a kernel, and any
+failure raises; a CPU tensor goes to the plain version.
 """
 
 from __future__ import annotations
@@ -18,14 +26,49 @@ import torch
 from pointcloudprocessing_tpu_torch.ops.cuda import build
 
 
-def sorted_segment_reduce_reference(
-    data: torch.Tensor, rank: torch.Tensor
-) -> torch.Tensor:
-    """Plain version: ``out[b, k, :] = sum(data[b, i, :] for rank[b, i] == k)``
-    for any rank in [0, n); data (b, n, d) f32, rank (b, n) int -> (b, n, d)."""
+def segment_reduce_reference(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Plain version of both kernels: ``out[b, k, :] = sum(data[b, i, :] for
+    rank[b, i] == k)`` for any rank in [0, n); data (b, n, d) f32, rank
+    (b, n) int -> (b, n, d). One ``scatter_add_``, which on the CPU adds
+    each segment's rows in row order."""
     d = data.shape[-1]
     index = rank.long()[..., None].expand(-1, -1, d)
     return torch.zeros_like(data).scatter_add_(1, index, data)
+
+
+#: kernel 1's plain version: the same function, on a monotone rank
+sorted_segment_reduce_reference = segment_reduce_reference
+
+
+def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
+    if data.dim() != 3 or data.shape[-1] not in widths:
+        raise ValueError(
+            f"data must be (b, n, d) with d in {tuple(widths)}, got "
+            f"{tuple(data.shape)}")
+    if rank.shape != data.shape[:2]:
+        raise ValueError(
+            f"rank {tuple(rank.shape)} does not match data {tuple(data.shape)}"
+        )
+    if data.dtype != torch.float32 or rank.dtype != torch.int32:
+        raise TypeError(
+            f"need f32 data and int32 rank, got {data.dtype} and {rank.dtype}"
+        )
+    if rank.device != data.device:
+        raise ValueError("data and rank must be on the same device")
+    if not (data.is_contiguous() and rank.is_contiguous()):
+        raise ValueError("data and rank must be contiguous")
+
+
+def _launch(entry: str, data: torch.Tensor, rank: torch.Tensor,
+            out: torch.Tensor) -> None:
+    b, n, d = data.shape
+    lib = build.load("voxel_reduce")
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, entry)(
+            data.data_ptr(), rank.data_ptr(), out.data_ptr(), b, n, d, stream
+        )
+    build.check(lib, code, f"{entry} launch")
 
 
 def sorted_segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
@@ -41,32 +84,52 @@ def sorted_segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tenso
         return sorted_segment_reduce_reference(data, rank)
     if data.device.type != "cuda":
         raise ValueError(f"no segment-sum kernel for device {data.device}")
-    if data.dim() != 3 or data.shape[-1] not in (4, 5):
-        raise ValueError(f"data must be (b, n, 4|5), got {tuple(data.shape)}")
-    if rank.shape != data.shape[:2]:
-        raise ValueError(
-            f"rank {tuple(rank.shape)} does not match data {tuple(data.shape)}"
-        )
-    if data.dtype != torch.float32 or rank.dtype != torch.int32:
-        raise TypeError(
-            f"need f32 data and int32 rank, got {data.dtype} and {rank.dtype}"
-        )
-    if rank.device != data.device:
-        raise ValueError("data and rank must be on the same device")
-    if not (data.is_contiguous() and rank.is_contiguous()):
-        raise ValueError("data and rank must be contiguous")
-    b, n, d = data.shape
+    _check(data, rank, (4, 5))
     out = torch.zeros_like(data)
-    lib = build.load("voxel_reduce")
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pcp_sorted_segment_sum(
-            data.data_ptr(), rank.data_ptr(), out.data_ptr(), b, n, d, stream
-        )
-    build.check(lib, code, "sorted_segment_sum launch")
+    _launch("pcp_sorted_segment_sum", data, rank, out)
     sorted_segment_reduce.launches += 1
     return out
 
 
 #: kernel launches in this process (CPU calls and refusals do not count)
 sorted_segment_reduce.launches = 0
+
+
+def segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Segment sum for ANY rank: ``out[b, k, :]`` is the sum of the rows with
+    ``rank[b, i] == k``, added in row order, 0 for an empty segment.
+
+    data: (b, n, d) f32 with 1 <= d <= 8; rank: (b, n) int32 in [0, n), in
+    any order. The kernel checks the rank on the device: one outside [0, n)
+    traps, and the next CUDA call raises (the CUDA context is then lost).
+    """
+    if data.device.type == "cpu":
+        return segment_reduce_reference(data, rank)
+    if data.device.type != "cuda":
+        raise ValueError(f"no segment-sum kernel for device {data.device}")
+    _check(data, rank, range(1, 9))
+    out = torch.empty_like(data)  # the kernel writes every row
+    _launch("pcp_segment_sum", data, rank, out)
+    segment_reduce.launches += 1
+    return out
+
+
+#: kernel launches in this process (CPU calls and refusals do not count)
+segment_reduce.launches = 0
+
+
+def monotone_segment_sum(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """The segment sum of the voxel downsample and the stride sampler (rank
+    monotone): :func:`segment_reduce` when 128 does not divide n, else
+    :func:`sorted_segment_reduce`. Each counts its own launches.
+
+    The rule of ``sorted_segment_reduce_pallas``
+    (``pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py:151-159``): its
+    banded kernel needs an output tile (a multiple of 8 dividing n) and a
+    row chunk (a multiple of 128 dividing n), so every other n goes to the
+    dense any-rank kernel. The port's banded kernel takes any n; the rule
+    is kept so that both packages run the same kernel at the same shape.
+    """
+    if data.shape[1] % 128:
+        return segment_reduce(data, rank)
+    return sorted_segment_reduce(data, rank)

@@ -2,7 +2,7 @@
 (``pointcloudprocessing_tpu/ops/fps.py``).
 
 On a CUDA tensor FPS runs the hand-written kernel (``ops/cuda/fps``) and
-the stride sampler rides the segment-sum kernel (``ops/cuda/voxel_reduce``);
+the stride sampler rides the segment-sum kernels (``ops/cuda/voxel_reduce``);
 on a CPU tensor both take the kernels' plain versions. ``method='distmat'``
 and ``'stream'`` of :func:`farthest_point_sample_batch` are plain PyTorch on
 any device.
@@ -18,7 +18,7 @@ from pointcloudprocessing_tpu_torch.ops.cuda.fps import (
     fps_with_points_reference,
 )
 from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
-    sorted_segment_reduce,
+    monotone_segment_sum,
 )
 
 #: largest (b, n, n) f32 distance matrix 'auto' builds on the CPU
@@ -152,7 +152,7 @@ def stride_sample_and_gather(
     data = torch.cat(
         [points * w, j.to(points.dtype)[None, :, None] * w, w], dim=-1
     )
-    reduced = sorted_segment_reduce(data, bucket)
+    reduced = monotone_segment_sum(data, bucket)
     picks = reduced[:, :k, :4]
     filled = reduced[:, :k, 4] > 0.5
     # forward fill: each bucket takes the nearest filled bucket at or before

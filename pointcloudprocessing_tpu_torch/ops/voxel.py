@@ -3,7 +3,8 @@
 
 Fixed-shape formulation: the output has the input's length plus a validity
 mask. Quantize -> Morton voxel key -> stable sort -> segment opens -> dense
-ranks -> segment sum (the ``ops/cuda/voxel_reduce`` kernel on a CUDA tensor).
+ranks -> segment sum (on a CUDA tensor one of the two ``ops/cuda/voxel_reduce``
+kernels, by the width n).
 The Morton order makes the output spatially local in index order, which the
 stride sampler relies on.
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
-    sorted_segment_reduce,
+    monotone_segment_sum,
 )
 from pointcloudprocessing_tpu_torch.ops.morton import morton_keys_3d
 
@@ -88,7 +89,7 @@ def voxel_downsample_batch(
     data = torch.cat(
         [sorted_points * weights[..., None], weights[..., None]], dim=-1
     )
-    reduced = sorted_segment_reduce(data, rank)
+    reduced = monotone_segment_sum(data, rank)
     sums, counts = reduced[..., :3], reduced[..., 3]
     if reduction == "centroid":
         out = sums / torch.clamp(counts, min=1.0)[..., None]

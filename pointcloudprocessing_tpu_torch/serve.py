@@ -1,5 +1,5 @@
-"""Serving CLI: stream collect frames through a trained model (PointNet or
-DGCNN, as the stage's config says) on the GPU
+"""Serving CLI: stream collect frames through a trained model (PointNet,
+PointNet++ or DGCNN, as the stage's config says) on the GPU
 (``pointcloudprocessing_tpu/serve.py``, same arguments and JSONL records).
 
 Loads a trained stage directory (``*_config.json`` plus the PyTorch weights

@@ -65,3 +65,32 @@ def test_unknown_names_are_rejected():
 
     with pytest.raises(KeyError, match="unmapped"):
         flax_from_state_dict({"x.num_batches_tracked": torch.zeros(())})
+
+
+def test_pointnet2_tree_round_trips_and_maps_every_leaf():
+    """The canonical PointNet++ tree (89 leaves: kernel, bias, scale, mean,
+    var) maps onto the port's model with no new rule, every leaf both ways,
+    bit for bit."""
+    from pointcloudprocessing_tpu.models.pointnet2 import pointnet2_for_width as jax_pn2
+    from pointcloudprocessing_tpu_torch.models.pointnet2 import pointnet2_for_width
+
+    init = jax_pn2(23, 12, 1024).init(
+        jax.random.key(0), jnp.asarray(
+            np.random.default_rng(0).normal(size=(1, 1024, 3)).astype(np.float32)),
+        train=False)
+    tree = jax.tree_util.tree_map(
+        np.asarray, {"params": init["params"], "batch_stats": init["batch_stats"]})
+    leaves = dict(_flat(tree))
+    assert len(leaves) == 89
+    assert sum(a.size for a in leaves.values()) == 2_037_859
+    assert {path[-1] for path in leaves} == {"kernel", "bias", "scale", "mean", "var"}
+    sd = state_dict_from_flax(tree)
+    want = pointnet2_for_width(23, 12, 1024, device="cpu").state_dict()
+    assert set(sd) == set(want) and len(sd) == len(leaves)
+    for key, tensor in want.items():
+        assert sd[key].shape == tensor.shape, key
+    back = dict(_flat(flax_from_state_dict(sd)))
+    assert set(back) == set(leaves)
+    for path, arr in leaves.items():
+        assert back[path].dtype == arr.dtype, path
+        np.testing.assert_array_equal(back[path], arr, err_msg="/".join(path))

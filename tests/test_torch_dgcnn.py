@@ -223,8 +223,8 @@ def test_options_and_errors():
         model_from_config(cfg("dgcnn", graph="staticc"), device="cpu")
     with pytest.raises(ValueError, match="edge impl"):
         DGCNN(C, P, edge_impl="factoredd", **TINY)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model_from_config(cfg("pointnet2"), device="cpu")
+    with pytest.raises(ValueError, match="not supported for params.model='pointnet2'"):
+        model_from_config(cfg("pointnet2", k=10), device="cpu")
     assert dgcnn.dgcnn_for_width(3, 4, 8, device="cpu").k == 8
     canonical = dgcnn.dgcnn_for_width(3, 4, 1024, device="cpu")
     assert canonical.k == 20 and canonical.edge_widths == (64, 64, 128, 256)
@@ -235,13 +235,14 @@ def test_options_and_errors():
 
 
 def test_entry_points_default_to_cuda():
-    """``model_from_config`` and ``dgcnn_for_width`` build on CUDA unless
-    asked for the CPU; without CUDA (as here) the default raises."""
+    """``model_from_config`` (every family) and ``dgcnn_for_width`` build on
+    CUDA unless asked for the CPU; without CUDA (as here) the default
+    raises."""
     from pointcloudprocessing_tpu_torch.core.config import parse_config
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
 
     assert not torch.cuda.is_available()
-    for model in ("pointnet", "dgcnn"):
+    for model in ("pointnet", "pointnet2", "dgcnn"):
         cfg = parse_config({"info": {"name": "t", "class_labels": {"0": "a"},
                                      "part_labels": {"0": "p"}},
                             "params": {"input_width": 32, "epochs": 1,

@@ -47,7 +47,7 @@ def test_port_imports_nothing_of_jax():
                  "train.losses", "train.steps", "core.config", "core.constants",
                  "utils.native", "ops.knn", "ops.normals", "ops.gather",
                  "ops.cuda.window_normals", "ops.cuda.gather_maxmin",
-                 "models.dgcnn"):
+                 "models.dgcnn", "models.pointnet2", "ops.cuda.voxel_reduce"):
         assert f"pointcloudprocessing_tpu_torch.{name}" in report["names"], name
     assert "chip_smoke" in report["names"]
 

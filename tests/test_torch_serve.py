@@ -174,3 +174,91 @@ def test_write_aftr_frame_matches_jax(tmp_path):
     jw(str(tmp_path / "a.txt"), pts, labels)
     write_aftr_frame(str(tmp_path / "b.txt"), pts, labels)
     assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()
+
+
+@pytest.fixture(scope="module")
+def pointnet2_stage(tmp_path_factory):
+    """A PointNet++ stage (``"model": "pointnet2"``, width 64, so the SA
+    levels clamp to 32 and 8 centroids), randomly initialised, saved as
+    training saves it and converted by the tool."""
+    import orbax.checkpoint as ocp
+
+    from pointcloudprocessing_tpu.core.config import parse_config
+    from pointcloudprocessing_tpu.models.factory import model_from_config
+    from test_torch_pointnet import randomize
+
+    root = tmp_path_factory.mktemp("torch_serve_pointnet2")
+    stage_dir = root / "tiny" / "final"
+    os.makedirs(stage_dir)
+    config = {
+        "info": {"name": "tiny",
+                 "class_labels": {str(i): c for i, c in enumerate(CLASS_LABELS)},
+                 "part_labels": {str(i): p for i, p in enumerate(PART_LABELS)}},
+        "params": {"input_width": 64, "epochs": 1, "patience": 1,
+                   "batch_size": 4, "model": "pointnet2"},
+    }
+    with open(stage_dir / "tiny_config.json", "w") as f:
+        json.dump(config, f)
+    model = model_from_config(parse_config(config))
+    cloud = np.random.default_rng(0).normal(size=(1, 64, 3)).astype(np.float32)
+    variables = model.init(jax.random.key(SEED), jnp.asarray(cloud), train=False)
+    # random BN statistics and steeper output layers: at its init the model
+    # gives every part ~1/3, where argmaxes are near-ties
+    variables = randomize({"params": variables["params"],
+                           "batch_stats": variables["batch_stats"]}, SEED)
+    for head in ("mlp_cls_out", "mlp_seg_out"):
+        layer = variables["params"][head]
+        layer[next(iter(layer))]["kernel"] *= 30.0
+    ckpt = ocp.StandardCheckpointer()
+    ckpt.save(str(stage_dir / "best"), variables)
+    ckpt.wait_until_finished()
+    assert os.path.exists(_load_tool().convert_stage(str(stage_dir)))
+    collect = make_collect(str(root / "fresh"), num_frames=6,
+                           points_per_frame=220, seed=7)
+    return str(stage_dir), collect, root
+
+
+def test_serve_cli_serves_a_pointnet2_stage(pointnet2_stage):
+    """``serve.main --device cpu`` over the PointNet++ stage at a scan width
+    that does not tile (200, so the segment sums take the any-rank route)
+    writes the JAX serving CLI's records: class, part counts, identity
+    SE(3); the class and part argmaxes are not near-ties (margin > 1e-3)."""
+    from pointcloudprocessing_tpu.serve import main as jax_main
+    from pointcloudprocessing_tpu_torch.serve import main as port_main
+
+    stage_dir, collect, root = pointnet2_stage
+    args = ["--model", stage_dir, "--input", collect, "--batch", "4",
+            "--scan-width", "200", "--model-width", "64", "--voxel-size", "0.5"]
+    port_out, jax_out = str(root / "port.jsonl"), str(root / "jax.jsonl")
+    assert port_main([*args, "--output", port_out, "--device", "cpu"]) == 0
+    assert jax_main([*args, "--output", jax_out]) == 0
+    got, want = _records(port_out), _records(jax_out)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g["frame"] == w["frame"]
+        assert g["class"] == w["class"]
+        assert g["part_counts"] == w["part_counts"]
+        assert sum(g["part_counts"].values()) == 64
+        np.testing.assert_array_equal(g["se3"], np.eye(3))
+    _assert_decisive(stage_dir, collect, 200, 64, 0.5)
+
+
+def _assert_decisive(stage_dir, collect, width, model_width, voxel):
+    from pointcloudprocessing_tpu.core.config import load_config
+    from pointcloudprocessing_tpu_torch import serve
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+
+    cfg = load_config(serve._find_config(stage_dir))
+    model = model_from_config(cfg, device="cpu")
+    model.load_state_dict(torch.load(os.path.join(stage_dir, serve.WEIGHTS)))
+    pipe = PointCloudPipeline(model, width, model_width, voxel_size=voxel)
+    class_map = {c: i for i, c in enumerate(cfg.class_labels)}
+    part_map = {p: i for i, p in enumerate(cfg.part_labels)}
+    for names, scans in serve._scan_batches(
+        serve._frame_paths(collect), class_map, part_map, width, 4
+    ):
+        out = pipe(scans)
+        for key in ("classification_output", "segmentation_output"):
+            top2 = torch.topk(out[key][: len(names)], 2, dim=-1).values
+            assert (top2[..., 0] - top2[..., 1]).min() > 1e-3, key
