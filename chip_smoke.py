@@ -26,7 +26,11 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    terms and the normals' angle; gather max/min at DGCNN's four widths,
    at widths no multiple of 32 and with NaN, bit-identical), with its
    device time (torch.profiler) and its time per call beside the plain
-   version's; the pooled forward's argmax flips are counted.
+   version's; the pooled forward's argmax flips are counted. FPS also on
+   a NaN coordinate in a valid row, an invalid row and the seed row
+   (8x2048, both layouts) and past the shared-memory form (4 clouds of
+   16,385, 32,768 and 65,536 points, both layouts, the launch counted),
+   indices identical and coordinates bit-identical.
 4. slice: a full-width PointNet (23 classes, 12 parts, random seeded init)
    serves streamed 256x2048 scans through voxel 0.4 -> FPS -> 1024 points
    (clouds/s over three timed windows after a stream warm-up), then a
@@ -64,8 +68,9 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    version: bit-identical to it on a CPU copy and within a summation-order
    bar of it on the card, on the path's voxel and stride ranks at 256x2000,
    random ranks at 256x2000 (d 4, 5) and 8x8000, n 1, n 490 at d 1 and 8,
-   one segment, empty segments and a NaN row, timed beside scatter_add_;
-   a rank outside [0, n) traps (a child process). (b) the route: 256x2000
+   one segment, empty segments, a NaN row, one cloud (b 1), and past the
+   shared-memory form at 4x40000 (any order, sorted, one segment), timed
+   beside scatter_add_; a rank outside [0, n) traps (a child process). (b) the route: 256x2000
    runs kernel 3, 256x2048 kernel 1. (c) PointNet++ 23/12 at full width
    (``pointnet2_for_width(23, 12, 1024)``, f32, seeded) from a config with
    ``"model": "pointnet2"`` on 256x1024 normal(0, 1) clouds: through the
@@ -460,6 +465,22 @@ def phase_kernels(torch, rng) -> dict:
                 f"{fmt(results['seg_library_ms'])}; bound "
                 f"{results['seg_bound'][0]:.4f} ms ({results['seg_bound'][1]})")
 
+    def fps_against_plain(label, pts, k, mask, start, layout):
+        """Indices identical and coordinates bit-identical (NaN included);
+        returns the largest coordinate difference."""
+        idx, sampled = fps_with_points(pts, k, mask, start, layout=layout)
+        ridx, rsampled = fps_with_points_reference(pts, k, mask, start, layout)
+        torch.cuda.synchronize()
+        if not torch.equal(idx, ridx):
+            bad = (idx != ridx).nonzero()[0].tolist()
+            raise AssertionError(
+                f"FPS {label} {layout}: indices differ from the plain version "
+                f"first at (cloud, step) {bad}")
+        if not check_bit_identical(torch, sampled, rsampled):
+            raise AssertionError(f"FPS {label} {layout}: coordinates not "
+                                 "bit-identical")
+        return idx, sampled, (sampled - rsampled).nan_to_num().abs().max().item()
+
     for b, n, k, layout in ((256, 2048, 1024, "bcn"), (256, 2048, 1024, "bnc"),
                             (64, 8192, 1024, "bcn")):
         pts_np, mask_np = fps_case(rng, b, n, k)
@@ -468,19 +489,9 @@ def phase_kernels(torch, rng) -> dict:
         pts = torch.from_numpy(pts_np).to(dev)
         mask = torch.from_numpy(mask_np).to(dev)
         start = _seed_indices(mask, 0)
-        idx, sampled = fps_with_points(pts, k, mask, start, layout=layout)
-        ridx, rsampled = fps_with_points_reference(pts, k, mask, start, layout)
-        torch.cuda.synchronize()
-        if not torch.equal(idx, ridx):
-            bad = (idx != ridx).nonzero()[0].tolist()
-            raise AssertionError(
-                f"FPS {b}x{n}->{k} {layout}: indices differ from the plain "
-                f"version first at (cloud, step) {bad}")
-        if not torch.equal(sampled, rsampled):
-            raise AssertionError(
-                f"FPS {b}x{n}->{k} {layout}: coordinates not bit-identical")
-        results["fps_err"] = max(
-            results["fps_err"], (sampled - rsampled).abs().max().item())
+        idx, sampled, err = fps_against_plain(f"{b}x{n}->{k}", pts, k, mask,
+                                              start, layout)
+        results["fps_err"] = max(results["fps_err"], err)
         kernel = functools.partial(
             fps_with_points, pts, k, mask, start, layout=layout)
         plain = functools.partial(
@@ -496,6 +507,59 @@ def phase_kernels(torch, rng) -> dict:
             # k - 1 steps over every point: 3 sub, 3 mul, 2 add, 1 min
             results["fps_bound"] = roofline(
                 nbytes(pts, mask, start, idx, sampled), b * (k - 1) * n * 9)
+
+    # NaN coordinates (the JAX kernel's jnp.minimum / jnp.argmax rules): in a
+    # valid row it wins the next pick, then every distance is NaN and the
+    # first valid row wins each pick; in an invalid row it is never picked;
+    # in the seed row every distance is NaN from the first step
+    b, n, k = 8, 2048, 1024
+    for where in ("valid row", "invalid row", "seed row"):
+        for layout in ("bcn", "bnc"):
+            pts_np = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+            mask_np = np.ones((b, n), bool)
+            mask_np[:, 1::7] = False
+            row = {"valid row": 5, "invalid row": 8, "seed row": 0}[where]
+            pts_np[:, row, 1] = np.nan
+            if layout == "bcn":
+                pts_np = np.ascontiguousarray(pts_np.transpose(0, 2, 1))
+            mask = torch.from_numpy(mask_np).to(dev)
+            idx, _, _ = fps_against_plain(f"{b}x{n}->{k} NaN in the {where}",
+                                       torch.from_numpy(pts_np).to(dev), k,
+                                       mask, _seed_indices(mask, 0), layout)
+            picks = idx.cpu().numpy()
+            expect = {"valid row": [0, 5, 0], "seed row": [0, 0, 0]}.get(where)
+            if (expect is not None and (picks[:, :3] != expect).any()) or (
+                    where == "invalid row" and (picks == row).any()):
+                raise AssertionError(f"FPS NaN in the {where}: picks "
+                                     f"{picks[0, :4].tolist()}")
+    log(f"[3 kernels] FPS {b}x{n}->{k} with a NaN coordinate in a valid row, "
+        "an invalid row and the seed row, bcn and bnc: indices identical, "
+        "coordinates bit-identical to the plain version (picks 0, 5, 0, ...; "
+        "never the invalid row; 0, 0, ...)")
+
+    # past the shared-memory form: the device-memory kernel (kernel_form)
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import kernel_form
+
+    b, k = 4, 1024
+    for n in (16385, 32768, 65536):
+        for layout in ("bcn", "bnc"):
+            pts_np, mask_np = fps_case(rng, b, n, k)
+            if layout == "bcn":
+                pts_np = np.ascontiguousarray(pts_np.transpose(0, 2, 1))
+            pts = torch.from_numpy(pts_np).to(dev)
+            mask = torch.from_numpy(mask_np).to(dev)
+            start = _seed_indices(mask, 0)
+            before = fps_with_points.launches
+            fps_against_plain(f"{b}x{n}->{k}", pts, k, mask, start, layout)
+            if fps_with_points.launches != before + 1:
+                raise AssertionError(f"FPS {b}x{n}: the kernel did not launch")
+            ms = device_ms(torch, functools.partial(
+                fps_with_points, pts, k, mask, start, layout=layout), 3)
+            log(f"[3 kernels] FPS {b}x{n}->{k} {layout} ({kernel_form(n)} "
+                f"form): indices identical, coordinates bit-identical; device "
+                f"ms kernel {fmt(ms)}")
+            if (n, layout) == (65536, "bcn"):
+                results["fps_large_ms"] = ms
     return results
 
 
@@ -1695,6 +1759,14 @@ def phase_any_rank_kernel(torch, rng) -> dict:
     data, rank = gen(8, 2000, 4)
     data[3, 777, 2] = float("nan")
     cases.append(("one NaN row", data, rank))
+    # one cloud; and past the shared-memory form (segment_sum_form)
+    cases.append(("b = 1, any order", *gen(1, 2000, 4)))
+    cases.append(("any order, device-memory form", *gen(4, 40000, 4)))
+    data, rank = gen(4, 40000, 4)
+    cases.append(("sorted, device-memory form", data, rank.sort(dim=1).values))
+    data, _ = gen(4, 40000, 4)
+    cases.append(("all rows in one segment, device-memory form", data,
+                  torch.full((4, 40000), 39999, dtype=torch.int32, device=dev)))
 
     results = {"err": 0.0}
     for label, data, rank in cases:

@@ -3,12 +3,17 @@
 Counterpart of ``pointcloudprocessing_tpu/ops/pallas/fps.py::
 fps_pallas_with_points`` (and its index-only wrapper ``fps_pallas``). On the
 TPU the selection loop keeps a block of clouds in VMEM; on the H100 one
-thread block owns one cloud, its coordinate planes in shared memory and its
-min distances in registers, and the bound is the latency of one selection
-step (``csrc/fps.cu`` says why and how). Outputs are (b, K) directly: the
-JAX kernel's (K, b) layout is a TPU store rule.
+thread block owns one cloud and the bound is the latency of one selection
+step (``csrc/fps.cu`` says why and how). Two kernel forms, chosen by
+:func:`kernel_form`: up to ``SHARED_MAX_POINTS`` points a cloud the
+coordinate planes sit in shared memory and the min distances in registers;
+above it the coordinates are read from device memory and the min distances
+kept in a (b, n) scratch. Both give the plain version's picks and
+coordinates bit for bit, NaN included (a NaN distance keeps its point's
+score NaN, and NaN wins the argmax, as ``jnp.argmax`` has it). Outputs are
+(b, K) directly: the JAX kernel's (K, b) layout is a TPU store rule.
 
-A CUDA tensor always goes to the kernel, and any failure raises; a CPU
+A CUDA tensor of any n >= 1 goes to a kernel, and any failure raises; a CPU
 tensor goes to the plain version.
 """
 
@@ -18,9 +23,19 @@ import torch
 
 from pointcloudprocessing_tpu_torch.ops.cuda import build
 
-#: largest cloud the kernel takes: its coordinate planes fill 192 KB of the
-#: 227 KB of shared memory a block may have (the JAX package's bound, too)
-MAX_POINTS = 16384
+#: the crossover of the two kernel forms: the largest cloud whose coordinate
+#: planes fit in shared memory (192 KB of the 227 KB a block may have; the
+#: JAX package's bound for its Pallas kernel, too)
+SHARED_MAX_POINTS = 16384
+
+
+def kernel_form(n: int) -> str:
+    """The FPS kernel for a cloud of n points: 'shared' (``pcp_fps``, planes
+    in shared memory) up to ``SHARED_MAX_POINTS``, else 'global'
+    (``pcp_fps_large``, coordinates in device memory)."""
+    if n < 1:
+        raise ValueError(f"FPS needs at least one point a cloud, got {n}")
+    return "shared" if n <= SHARED_MAX_POINTS else "global"
 
 
 def _planes(points: torch.Tensor, layout: str) -> torch.Tensor:
@@ -40,9 +55,10 @@ def fps_with_points_reference(
     layout: str = "bnc",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version, the streaming form of the JAX kernel's semantics:
-    running min of direct-difference squared distances, invalid points score
-    -inf, argmax with ties to the lowest index. Returns (indices (b, K)
-    int32, sampled (b, K, 3) f32)."""
+    running min of direct-difference squared distances (``torch.minimum``,
+    which propagates NaN), invalid points score -inf, argmax with NaN first
+    and ties to the lowest index. Returns (indices (b, K) int32, sampled
+    (b, K, 3) f32)."""
     xs, ys, zs = _planes(points, layout).unbind(1)
     valid = valid_mask.bool()
     cur = start.long()
@@ -77,7 +93,8 @@ def fps_with_points(
     (indices (b, K) int32, sampled (b, K, 3) f32). Seeds come from
     ``ops.fps._seed_indices``; the kernel checks them on the device (no host
     sync): a seed outside [0, n) traps, and the next CUDA call raises (the
-    CUDA context is then lost). The kernel takes n <= MAX_POINTS."""
+    CUDA context is then lost). Any n >= 1: :func:`kernel_form` picks the
+    kernel."""
     if points.device.type == "cpu":
         return fps_with_points_reference(
             points, num_samples, valid_mask, start, layout
@@ -93,10 +110,7 @@ def fps_with_points(
         )
     b = points.shape[0]
     n = points.shape[2] if layout == "bcn" else points.shape[1]
-    if not 1 <= n <= MAX_POINTS:
-        raise ValueError(
-            f"the FPS kernel takes 1..{MAX_POINTS} points per cloud, got {n}"
-        )
+    form = kernel_form(n)
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     if valid_mask.shape != (b, n) or start.shape != (b,):
@@ -125,13 +139,18 @@ def fps_with_points(
         (b, num_samples, 3), dtype=torch.float32, device=points.device
     )
     lib = build.load("fps")
+    pointers = (points.data_ptr(), valid_mask.data_ptr(), start.data_ptr(),
+                idx.data_ptr(), sampled.data_ptr())
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pcp_fps(
-            points.data_ptr(), valid_mask.data_ptr(), start.data_ptr(),
-            idx.data_ptr(), sampled.data_ptr(), b, n, num_samples,
-            int(layout == "bcn"), stream,
-        )
+        if form == "shared":
+            code = lib.pcp_fps(*pointers, b, n, num_samples,
+                               int(layout == "bcn"), stream)
+        else:
+            min_dist = torch.empty((b, n), dtype=torch.float32,
+                                   device=points.device)
+            code = lib.pcp_fps_large(*pointers, min_dist.data_ptr(), b, n,
+                                     num_samples, int(layout == "bcn"), stream)
     build.check(lib, code, "fps launch")
     fps_with_points.launches += 1
     return idx, sampled

@@ -8,10 +8,16 @@ Counterparts of ``pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py``:
   on the MXU with a bf16 hi/lo split of the data; on the H100 it is a
   segmented prefix sum in plain fp32 over the contiguous runs, one block per
   cloud, whose time does not depend on the run lengths.
-- :func:`segment_reduce` (``segment_reduce_pallas``): any rank. One block
-  per (cloud, tile of segments) compacts the rows of its tile in row order
-  and a thread adds its own segment's, so the sums equal PyTorch's CPU
-  ``scatter_add_`` bit for bit.
+- :func:`segment_reduce` (``segment_reduce_pallas``): any rank. A stable
+  counting sort per cloud, one block a cloud: per-warp counts of the ranks,
+  a scan into segment starts, a stable placement of the row indices, then
+  a thread adds each segment's rows in row order, so the sums equal
+  PyTorch's CPU ``scatter_add_`` bit for bit. Ranks that never decrease
+  (all that the voxel and stride paths give) are already in segment
+  order, and the kernel then only finds each run's head.
+  :func:`segment_sum_form` says where its working set lives: shared
+  memory up to ``SHARED_MAX_ROWS`` rows a cloud, else a device-memory
+  scratch.
 
 ``csrc/voxel_reduce.cu`` says why and how. :func:`monotone_segment_sum`, what
 the voxel downsample and the stride sampler call, picks between the two as
@@ -40,6 +46,26 @@ def segment_reduce_reference(data: torch.Tensor, rank: torch.Tensor) -> torch.Te
 sorted_segment_reduce_reference = segment_reduce_reference
 
 
+#: the any-rank kernel's shared-memory form takes up to this many rows a
+#: cloud (44 B a row of the 227 KB a block may have); above it the kernel
+#: works in a device-memory scratch of SCRATCH_INTS int32 a row (a 32-bit
+#: count for each of a block's 32 warps, a start, a permutation entry and
+#: an earlier-rows count)
+SHARED_MAX_ROWS = 5120
+SCRATCH_INTS = 35
+#: the most rows a cloud either segment-sum kernel takes
+MAX_ROWS = 2**30
+
+
+def segment_sum_form(n: int) -> str:
+    """Where the any-rank kernel keeps a cloud of n rows: 'shared' up to
+    ``SHARED_MAX_ROWS``, else 'global' (a scratch the wrapper allocates)."""
+    if not 1 <= n <= MAX_ROWS:
+        raise ValueError(f"the segment-sum kernels take 1..{MAX_ROWS} rows a "
+                         f"cloud, got {n}")
+    return "shared" if n <= SHARED_MAX_ROWS else "global"
+
+
 def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
     if data.dim() != 3 or data.shape[-1] not in widths:
         raise ValueError(
@@ -57,16 +83,22 @@ def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
         raise ValueError("data and rank must be on the same device")
     if not (data.is_contiguous() and rank.is_contiguous()):
         raise ValueError("data and rank must be contiguous")
+    if data.shape[1] > MAX_ROWS or data.shape[0] >= 2**31:
+        raise ValueError(f"the segment-sum kernels take up to {MAX_ROWS} rows "
+                         f"and 2^31 - 1 clouds, got {tuple(data.shape)}")
 
 
 def _launch(entry: str, data: torch.Tensor, rank: torch.Tensor,
-            out: torch.Tensor) -> None:
+            out: torch.Tensor, *scratch) -> None:
+    """Launch ``entry`` on PyTorch's current stream; ``scratch``: the
+    pointers an entry takes between ``out`` and the shapes."""
     b, n, d = data.shape
     lib = build.load("voxel_reduce")
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
-            data.data_ptr(), rank.data_ptr(), out.data_ptr(), b, n, d, stream
+            data.data_ptr(), rank.data_ptr(), out.data_ptr(), *scratch, b, n,
+            d, stream
         )
     build.check(lib, code, f"{entry} launch")
 
@@ -100,8 +132,9 @@ def segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     ``rank[b, i] == k``, added in row order, 0 for an empty segment.
 
     data: (b, n, d) f32 with 1 <= d <= 8; rank: (b, n) int32 in [0, n), in
-    any order. The kernel checks the rank on the device: one outside [0, n)
-    traps, and the next CUDA call raises (the CUDA context is then lost).
+    any order; n <= ``MAX_ROWS``. The kernel checks the rank on the device:
+    one outside [0, n) traps, and the next CUDA call raises (the CUDA
+    context is then lost).
     """
     if data.device.type == "cpu":
         return segment_reduce_reference(data, rank)
@@ -109,7 +142,13 @@ def segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no segment-sum kernel for device {data.device}")
     _check(data, rank, range(1, 9))
     out = torch.empty_like(data)  # the kernel writes every row
-    _launch("pcp_segment_sum", data, rank, out)
+    b, n, _ = data.shape
+    scratch = None
+    if n and segment_sum_form(n) == "global":
+        scratch = torch.empty((b, SCRATCH_INTS * n), dtype=torch.int32,
+                              device=data.device)
+    _launch("pcp_segment_sum", data, rank, out,
+            None if scratch is None else scratch.data_ptr())
     segment_reduce.launches += 1
     return out
 

@@ -37,14 +37,30 @@ def _masks(rng):
     return mask
 
 
+#: where a NaN coordinate goes: (cloud, row, coordinate); cloud 1's seed is
+#: its first valid row (row None)
+NAN_AT = {"valid row": (0, 5, 1), "invalid row": (3, 0, 0), "seed row": (1, None, 2)}
+
+
+@pytest.mark.parametrize("nan", [None, *NAN_AT])
 @pytest.mark.parametrize("layout", ["bnc", "bcn"])
 @pytest.mark.parametrize("k", [16, 1])
-def test_plain_fps_matches_pallas_kernel(rng, layout, k):
+def test_plain_fps_matches_pallas_kernel(rng, layout, k, nan):
+    """Picks and coordinates equal to the JAX Pallas kernel's (interpret
+    mode), also with a NaN coordinate: in a valid row it wins the next pick
+    and then every distance is NaN, so the first valid row wins each pick
+    after it (``jnp.minimum`` and ``jnp.argmax`` propagate NaN); in an
+    invalid row it is never picked; in the seed row every distance is NaN
+    from the first step."""
     from pointcloudprocessing_tpu.ops.pallas.fps import fps_pallas_with_points
 
     pts = _grid_points(rng, (B, N, 3))
     pts[0, 5] = pts[0, 9]  # an exact duplicate: a real tie
     mask = _masks(rng)
+    seed_1 = int(np.argmax(mask[1]))
+    if nan is not None:
+        c, row, coord = NAN_AT[nan]
+        pts[c, seed_1 if row is None else row, coord] = np.nan
     if layout == "bcn":
         pts = np.ascontiguousarray(pts.transpose(0, 2, 1))
     jstart = jax_fps._seed_indices(jnp.asarray(mask), 0)
@@ -61,6 +77,13 @@ def test_plain_fps_matches_pallas_kernel(rng, layout, k):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
     np.testing.assert_array_equal(sampled.numpy(), np.asarray(want_pts))
     assert (idx.numpy()[2] == 0).all()  # all -inf scores pick index 0
+    if nan == "valid row":
+        assert idx.numpy()[0, :3].tolist() == [0, 5, 0][:k]
+        assert (idx.numpy()[0, 2:] == 0).all()
+    elif nan == "invalid row":
+        assert 0 not in idx.numpy()[3]
+    elif nan == "seed row":
+        assert (idx.numpy()[1] == seed_1).all()
 
 
 @pytest.mark.parametrize("method", ["auto", "distmat", "stream"])
@@ -113,6 +136,37 @@ def test_stride_sampler_matches_jax(rng, layout):
     np.testing.assert_array_equal(sampled.numpy(), np.asarray(want_pts))
     # with 5 valid rows of 16 buckets the skipped buckets repeat picks
     assert set(idx.numpy()[2]) == set(range(5))
+
+
+def test_plain_fps_past_the_shared_memory_form_matches_jax_stream(rng):
+    """One cloud of 16,385 points, the first n that takes the device-memory
+    kernel on the card: the plain version, which the card holds that
+    kernel to, against the JAX package's streaming FPS."""
+    n, k = 16385, 16
+    pts = _grid_points(rng, (1, n, 3))
+    mask = rng.uniform(size=(1, n)) > 0.25
+    want = jax_fps.farthest_point_sample_batch(
+        jnp.asarray(pts), k, jnp.asarray(mask), start_index=0, method="stream")
+    tmask = torch.from_numpy(mask)
+    idx, sampled = fps_with_points(torch.from_numpy(pts), k, tmask,
+                                   port_fps._seed_indices(tmask, 0))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(sampled.numpy()[0], pts[0, idx.numpy()[0]])
+
+
+def test_kernel_form_rule():
+    """The crossover of the two FPS kernels: planes in shared memory up to
+    16,384 points, device memory above; no n >= 1 is refused."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import (
+        SHARED_MAX_POINTS,
+        kernel_form,
+    )
+
+    assert SHARED_MAX_POINTS == 16384
+    assert [kernel_form(n) for n in (1, 2048, 16384)] == ["shared"] * 3
+    assert [kernel_form(n) for n in (16385, 65536, 10**7)] == ["global"] * 3
+    with pytest.raises(ValueError, match="at least one point"):
+        kernel_form(0)
 
 
 def test_reference_coordinates_are_the_picked_rows(rng):

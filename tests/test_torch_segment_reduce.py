@@ -62,6 +62,38 @@ def test_matches_jax_segment_sum_bit_for_bit(n):
     np.testing.assert_array_equal(got.numpy()[b, i], acc)
 
 
+@pytest.mark.parametrize("ranks", ["any order", "one segment"])
+def test_plain_segment_sum_past_the_shared_memory_form(ranks):
+    """n 40,000, the device-memory form of the kernel on the card: the plain
+    version, which the card holds the kernel to bit for bit, against
+    ``jax.ops.segment_sum``, bit for bit (both add in row order)."""
+    n = 40000
+    assert voxel_reduce.segment_sum_form(n) == "global"
+    rng = np.random.default_rng(40000)
+    data = (rng.normal(size=(2, n, D)) * 30).astype(np.float32)
+    if ranks == "any order":
+        rank = rng.integers(0, n, (2, n)).astype(np.int32)
+    else:
+        rank = np.full((2, n), n - 1, np.int32)
+    got = voxel_reduce.segment_reduce_reference(torch.from_numpy(data),
+                                                torch.from_numpy(rank))
+    np.testing.assert_array_equal(got.numpy(), _jax_segment_sum(data, rank))
+
+
+def test_segment_sum_form_rule():
+    """The any-rank kernel's working set: shared memory up to 5,120 rows a
+    cloud, a device-memory scratch above, up to 2^30 rows (wider than the
+    former limit of 65,535 tiles of 128 rows)."""
+    assert [voxel_reduce.segment_sum_form(n) for n in (1, 2000, 5120)] == [
+        "shared"] * 3
+    assert [voxel_reduce.segment_sum_form(n) for n in (5121, 40000, 2**30)] == [
+        "global"] * 3
+    assert voxel_reduce.MAX_ROWS >= 65535 * 128
+    for n in (0, 2**30 + 1):
+        with pytest.raises(ValueError, match="rows a cloud"):
+            voxel_reduce.segment_sum_form(n)
+
+
 def test_empty_segments_nan_and_one_segment():
     """Empty segments are 0; a NaN row makes its own segment NaN and no
     other; all rows in one segment sum in row order."""
