@@ -26,11 +26,18 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    terms and the normals' angle; gather max/min at DGCNN's four widths,
    at widths no multiple of 32 and with NaN, bit-identical), with its
    device time (torch.profiler) and its time per call beside the plain
-   version's; the pooled forward's argmax flips are counted. FPS also on
-   a NaN coordinate in a valid row, an invalid row and the seed row
-   (8x2048, both layouts) and past the shared-memory form (4 clouds of
-   16,385, 32,768 and 65,536 points, both layouts, the launch counted),
-   indices identical and coordinates bit-identical.
+   version's; the pooled forward's argmax flips are counted. FPS on the
+   path's own input (the plane-major voxel output of the uniform, padded
+   and dense 256x2048 scans, captured as the segment sums' are; the
+   uniform one gives fps_ms), on clouds in random order with holes
+   (256x2048 both layouts, 64x8192), PointNet++'s two calls (256x1024 ->
+   512, 256x512 -> 128), one cloud, k above the valid rows, a NaN
+   coordinate in a valid row, an invalid row and the seed row (8x2048 and,
+   in the cluster form, 2x16,385; both layouts), past one block's reach (the cluster form: 4 clouds of
+   16,385, 32,768 and 65,536 points) and past the cluster's (the
+   device-memory form: 3 clouds of 65,537), both layouts, each launch counted,
+   indices identical and coordinates bit-identical, with the kernel form,
+   its cluster size and the device time a selection step.
 4. slice: a full-width PointNet (23 classes, 12 parts, random seeded init)
    serves streamed 256x2048 scans through voxel 0.4 -> FPS -> 1024 points
    (clouds/s over three timed windows after a stream warm-up), then a
@@ -391,8 +398,10 @@ def phase_kernels(torch, rng) -> dict:
         sorted_segment_reduce,
         sorted_segment_reduce_reference,
     )
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import kernel_form
     from pointcloudprocessing_tpu_torch.ops.fps import (
         _seed_indices,
+        farthest_point_sample_and_gather,
         stride_sample_and_gather,
     )
     from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
@@ -401,8 +410,9 @@ def phase_kernels(torch, rng) -> dict:
     results = {"seg_err": 0.0, "fps_err": 0.0}
     # the segment sum's inputs exactly as the slice builds them: a voxel
     # downsample of 256x2048 scans at 0.4 (d = 4) and the stride sampler over
-    # its output (d = 5), for each kind of scan batch
-    cases = []
+    # its output (d = 5), for each kind of scan batch; and FPS's: the
+    # plane-major voxel output of the same scans
+    cases, fps_inputs = [], {}
     for kind in ("uniform", "padded", "dense"):
         captured = []
 
@@ -410,10 +420,16 @@ def phase_kernels(torch, rng) -> dict:
             captured.append((data.clone(), rank.clone()))
             return sorted_segment_reduce_reference(data, rank)
 
-        with route_kernels(record, fps_with_points_reference):
+        def record_fps(points, k, mask, start, layout="bnc", kind=kind):
+            fps_inputs[kind] = (points.clone(), k, mask.clone(), start.clone(), layout)
+            return fps_with_points_reference(points, k, mask, start, layout)
+
+        with route_kernels(record, record_fps):
             x = torch.from_numpy(scan_batch(rng, kind)).to(dev)
             vox, vmask = voxel_downsample_batch(x, 0.4)
             stride_sample_and_gather(vox, 1024, vmask)
+            vox, vmask = voxel_downsample_batch(x, 0.4, layout="bcn")
+            farthest_point_sample_and_gather(vox, 1024, vmask, layout="bcn")
         cases += [(f"main-path {kind} voxel", *captured[0]),
                   (f"main-path {kind} stride", *captured[1])]
     # synthetic ranks with long runs (invalid rows parked in bucket n - 1)
@@ -481,6 +497,50 @@ def phase_kernels(torch, rng) -> dict:
                                  "bit-identical")
         return idx, sampled, (sampled - rsampled).nan_to_num().abs().max().item()
 
+    def fps_case_line(label, pts, k, mask, start, layout, reps=10):
+        """One FPS case: the kernel launched once against the plain version,
+        then its device ms; logs the kernel form, its cluster size and the
+        time a selection step. Returns (device ms, indices, sampled)."""
+        b = pts.shape[0]
+        n = pts.shape[2] if layout == "bcn" else pts.shape[1]
+        before = fps_with_points.launches
+        idx, sampled, err = fps_against_plain(f"{b}x{n}->{k} {label}", pts, k,
+                                              mask, start, layout)
+        if fps_with_points.launches != before + 1:
+            raise AssertionError(f"FPS {b}x{n} {label}: the kernel did not launch")
+        results["fps_err"] = max(results["fps_err"], err)
+        ms = device_ms(torch, functools.partial(
+            fps_with_points, pts, k, mask, start, layout=layout), reps)
+        form, cluster = kernel_form(b, n)
+        per_step = "not traced" if ms is None else f"{ms / max(k - 1, 1) * 1e3:.3f}"
+        log(f"[3 kernels] FPS {b}x{n}->{k} {layout} {label} ({form} form, "
+            f"cluster {cluster}): indices identical, coordinates bit-identical; "
+            f"device ms kernel {fmt(ms)}, {per_step} us a selection step")
+        return ms, idx, sampled
+
+    # the path's own input: the voxel output of the scans above, Morton
+    # ordered, valid rows packed first; the uniform one sets fps_ms
+    for kind in ("uniform", "padded", "dense"):
+        pts, k, mask, start, layout = fps_inputs[kind]
+        ms, idx, sampled = fps_case_line(f"main-path {kind} voxel output", pts,
+                                         k, mask, start, layout)
+        if kind == "uniform":
+            plain = functools.partial(
+                fps_with_points_reference, pts, k, mask, start, layout)
+            plain_ms = device_ms(torch, plain, 2)
+            kernel = functools.partial(
+                fps_with_points, pts, k, mask, start, layout=layout)
+            per_call = (call_ms(torch, kernel, 10), call_ms(torch, plain, 1, 3))
+            log(f"[3 kernels] FPS fps_ms is this input's (256x2048 uniform scans "
+                f"-> voxel 0.4, bcn): device ms kernel {fmt(ms)}, plain "
+                f"{fmt(plain_ms)}; per call with launch kernel {per_call[0]:.4f}, "
+                f"plain {per_call[1]:.4f}")
+            results["fps_ms"], results["fps_plain_ms"] = ms, plain_ms
+            # k - 1 steps over every valid point: 3 sub, 3 mul, 2 add, 1 min
+            results["fps_bound"] = roofline(
+                nbytes(pts, mask, start, idx, sampled),
+                (k - 1) * int(mask.sum()) * 9)
+    # clouds in random order with holes (phase 3's synthetic case)
     for b, n, k, layout in ((256, 2048, 1024, "bcn"), (256, 2048, 1024, "bnc"),
                             (64, 8192, 1024, "bcn")):
         pts_np, mask_np = fps_case(rng, b, n, k)
@@ -489,77 +549,70 @@ def phase_kernels(torch, rng) -> dict:
         pts = torch.from_numpy(pts_np).to(dev)
         mask = torch.from_numpy(mask_np).to(dev)
         start = _seed_indices(mask, 0)
-        idx, sampled, err = fps_against_plain(f"{b}x{n}->{k}", pts, k, mask,
-                                              start, layout)
-        results["fps_err"] = max(results["fps_err"], err)
-        kernel = functools.partial(
-            fps_with_points, pts, k, mask, start, layout=layout)
-        plain = functools.partial(
-            fps_with_points_reference, pts, k, mask, start, layout)
-        ms, plain_ms = device_ms(torch, kernel, 10), device_ms(torch, plain, 2)
-        per_call = (call_ms(torch, kernel, 10), call_ms(torch, plain, 1, 3))
-        log(f"[3 kernels] FPS {b}x{n}->{k} {layout}: indices identical, "
-            f"coordinates bit-identical; device ms kernel {fmt(ms)}, plain "
-            f"{fmt(plain_ms)}; per call with launch kernel {per_call[0]:.4f}, "
-            f"plain {per_call[1]:.4f}")
-        if (b, n, layout) == (256, 2048, "bcn"):
-            results["fps_ms"], results["fps_plain_ms"] = ms, plain_ms
-            # k - 1 steps over every point: 3 sub, 3 mul, 2 add, 1 min
-            results["fps_bound"] = roofline(
-                nbytes(pts, mask, start, idx, sampled), b * (k - 1) * n * 9)
+        fps_case_line("random order", pts, k, mask, start, layout)
+    # PointNet++'s two FPS calls (all rows valid, bnc), one cloud, and k
+    # above the valid rows (300 a cloud, and a cloud with none)
+    for b, n, k in ((256, 1024, 512), (256, 512, 128)):
+        pts = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
+        mask = torch.ones((b, n), dtype=torch.bool, device=dev)
+        fps_case_line("PointNet++ normal(0, 1)", pts, k, mask,
+                      _seed_indices(mask, 0), "bnc")
+    pts, k, mask, start, layout = fps_inputs["uniform"]
+    fps_case_line("one cloud (b 1), uniform voxel output", pts[:1].contiguous(),
+                  k, mask[:1].contiguous(), start[:1].contiguous(), layout)
+    pts = torch.from_numpy(rng.uniform(-20, 20, (4, 3, 2048)).astype(np.float32)).to(dev)
+    mask = torch.zeros((4, 2048), dtype=torch.bool, device=dev)
+    mask[:3, :300] = True
+    fps_case_line("300 valid rows, k above them; one cloud with none", pts,
+                  1024, mask, _seed_indices(mask, 0), "bcn", reps=3)
 
     # NaN coordinates (the JAX kernel's jnp.minimum / jnp.argmax rules): in a
     # valid row it wins the next pick, then every distance is NaN and the
     # first valid row wins each pick; in an invalid row it is never picked;
-    # in the seed row every distance is NaN from the first step
-    b, n, k = 8, 2048, 1024
-    for where in ("valid row", "invalid row", "seed row"):
-        for layout in ("bcn", "bnc"):
-            pts_np = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
-            mask_np = np.ones((b, n), bool)
-            mask_np[:, 1::7] = False
-            row = {"valid row": 5, "invalid row": 8, "seed row": 0}[where]
-            pts_np[:, row, 1] = np.nan
-            if layout == "bcn":
-                pts_np = np.ascontiguousarray(pts_np.transpose(0, 2, 1))
-            mask = torch.from_numpy(mask_np).to(dev)
-            idx, _, _ = fps_against_plain(f"{b}x{n}->{k} NaN in the {where}",
-                                       torch.from_numpy(pts_np).to(dev), k,
-                                       mask, _seed_indices(mask, 0), layout)
-            picks = idx.cpu().numpy()
-            expect = {"valid row": [0, 5, 0], "seed row": [0, 0, 0]}.get(where)
-            if (expect is not None and (picks[:, :3] != expect).any()) or (
-                    where == "invalid row" and (picks == row).any()):
-                raise AssertionError(f"FPS NaN in the {where}: picks "
-                                     f"{picks[0, :4].tolist()}")
-    log(f"[3 kernels] FPS {b}x{n}->{k} with a NaN coordinate in a valid row, "
-        "an invalid row and the seed row, bcn and bnc: indices identical, "
-        "coordinates bit-identical to the plain version (picks 0, 5, 0, ...; "
-        "never the invalid row; 0, 0, ...)")
+    # in the seed row every distance is NaN from the first step. One block a
+    # cloud, and a cluster with the NaN row in another block than row 0's
+    k = 1024
+    for b, n, valid_row, invalid_row in ((8, 2048, 5, 8), (2, 16385, 5000, 7008)):
+        for where in ("valid row", "invalid row", "seed row"):
+            for layout in ("bcn", "bnc"):
+                pts_np = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+                mask_np = np.ones((b, n), bool)
+                mask_np[:, 1::7] = False
+                row = {"valid row": valid_row, "invalid row": invalid_row,
+                       "seed row": 0}[where]
+                pts_np[:, row, 1] = np.nan
+                if layout == "bcn":
+                    pts_np = np.ascontiguousarray(pts_np.transpose(0, 2, 1))
+                mask = torch.from_numpy(mask_np).to(dev)
+                idx, _, _ = fps_against_plain(
+                    f"{b}x{n}->{k} NaN in the {where}",
+                    torch.from_numpy(pts_np).to(dev), k, mask,
+                    _seed_indices(mask, 0), layout)
+                picks = idx.cpu().numpy()
+                expect = {"valid row": [0, row, 0], "seed row": [0, 0, 0]}.get(where)
+                if (expect is not None and (picks[:, :3] != expect).any()) or (
+                        where == "invalid row" and (picks == row).any()):
+                    raise AssertionError(f"FPS {b}x{n} NaN in the {where}: picks "
+                                         f"{picks[0, :4].tolist()}")
+        form, cluster = kernel_form(b, n)
+        log(f"[3 kernels] FPS {b}x{n}->{k} ({form} form, cluster {cluster}) with "
+            "a NaN coordinate in a valid row, an invalid row and the seed row, "
+            "bcn and bnc: indices identical, coordinates bit-identical to the "
+            f"plain version (picks 0, {valid_row}, 0, ...; never the invalid "
+            "row; 0, 0, ...)")
 
-    # past the shared-memory form: the device-memory kernel (kernel_form)
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import kernel_form
-
-    b, k = 4, 1024
-    for n in (16385, 32768, 65536):
+    # past one block's reach: the cluster form (kernel_form), 4 clouds; past
+    # the cluster's: the device-memory form, 3 clouds
+    k = 1024
+    for b, n in ((4, 16385), (4, 32768), (4, 65536), (3, 65537)):
         for layout in ("bcn", "bnc"):
             pts_np, mask_np = fps_case(rng, b, n, k)
             if layout == "bcn":
                 pts_np = np.ascontiguousarray(pts_np.transpose(0, 2, 1))
             pts = torch.from_numpy(pts_np).to(dev)
             mask = torch.from_numpy(mask_np).to(dev)
-            start = _seed_indices(mask, 0)
-            before = fps_with_points.launches
-            fps_against_plain(f"{b}x{n}->{k}", pts, k, mask, start, layout)
-            if fps_with_points.launches != before + 1:
-                raise AssertionError(f"FPS {b}x{n}: the kernel did not launch")
-            ms = device_ms(torch, functools.partial(
-                fps_with_points, pts, k, mask, start, layout=layout), 3)
-            log(f"[3 kernels] FPS {b}x{n}->{k} {layout} ({kernel_form(n)} "
-                f"form): indices identical, coordinates bit-identical; device "
-                f"ms kernel {fmt(ms)}")
-            if (n, layout) == (65536, "bcn"):
-                results["fps_large_ms"] = ms
+            fps_case_line("random order", pts, k, mask, _seed_indices(mask, 0),
+                          layout, reps=3)
     return results
 
 

@@ -42,7 +42,7 @@ _L = ctypes.c_longlong
 _ENTRY = {
     "voxel_reduce": {"pcp_sorted_segment_sum": [_P, _P, _P, _L, _L, _I, _P],
                      "pcp_segment_sum": [_P, _P, _P, _P, _L, _L, _I, _P]},
-    "fps": {"pcp_fps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "fps": {"pcp_fps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             "pcp_fps_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "pooled_chain": {
         "pcp_pooled_chain_forward":

@@ -2,13 +2,15 @@
 
 Counterpart of ``pointcloudprocessing_tpu/ops/pallas/fps.py::
 fps_pallas_with_points`` (and its index-only wrapper ``fps_pallas``). On the
-TPU the selection loop keeps a block of clouds in VMEM; on the H100 one
-thread block owns one cloud and the bound is the latency of one selection
-step (``csrc/fps.cu`` says why and how). Two kernel forms, chosen by
-:func:`kernel_form`: up to ``SHARED_MAX_POINTS`` points a cloud the
-coordinate planes sit in shared memory and the min distances in registers;
-above it the coordinates are read from device memory and the min distances
-kept in a (b, n) scratch. Both give the plain version's picks and
+TPU the selection loop keeps a block of clouds in VMEM; on the H100 the
+bound is the latency of one selection step (``csrc/fps.cu`` says why and
+how). Three kernel forms, chosen by :func:`kernel_form`: up to
+``BLOCK_MAX_POINTS`` points a cloud one thread block holds the cloud's
+valid rows in registers; up to ``CLUSTER_MAX_POINTS`` a thread-block
+cluster of up to ``MAX_CLUSTER`` blocks shares it through distributed
+shared memory; above
+that the coordinates are read from device memory and the min distances
+kept in a (b, n) scratch. All give the plain version's picks and
 coordinates bit for bit, NaN included (a NaN distance keeps its point's
 score NaN, and NaN wins the argmax, as ``jnp.argmax`` has it). Outputs are
 (b, K) directly: the JAX kernel's (K, b) layout is a TPU store rule.
@@ -23,19 +25,36 @@ import torch
 
 from pointcloudprocessing_tpu_torch.ops.cuda import build
 
-#: the crossover of the two kernel forms: the largest cloud whose coordinate
-#: planes fit in shared memory (192 KB of the 227 KB a block may have; the
-#: JAX package's bound for its Pallas kernel, too)
-SHARED_MAX_POINTS = 16384
+#: the most points one block holds: 1,024 threads with 8 points each in
+#: registers (a thread may have at most 64 registers at 1,024 a block)
+BLOCK_MAX_POINTS = 8192
+#: the portable cluster size, and the most points a cluster form holds
+MAX_CLUSTER = 8
+CLUSTER_MAX_POINTS = MAX_CLUSTER * BLOCK_MAX_POINTS
+#: the H100 SXM's SMs: clusters of MAX_CLUSTER blocks for up to this many
+#: blocks a batch, one wave at a block an SM
+_SMS = 132
 
 
-def kernel_form(n: int) -> str:
-    """The FPS kernel for a cloud of n points: 'shared' (``pcp_fps``, planes
-    in shared memory) up to ``SHARED_MAX_POINTS``, else 'global'
-    (``pcp_fps_large``, coordinates in device memory)."""
+def kernel_form(b: int, n: int) -> tuple[str, int]:
+    """The FPS kernel for b clouds of n points and its blocks a cloud:
+    'block' (``pcp_fps``, one block) up to ``BLOCK_MAX_POINTS``; 'cluster'
+    (``pcp_fps``, a thread-block cluster) up to ``CLUSTER_MAX_POINTS``;
+    else 'global' (``pcp_fps_large``, coordinates in device memory, one
+    block). A cluster's barrier costs about the same at any cluster size,
+    so a small batch takes ``MAX_CLUSTER`` blocks a cloud (fewer points a
+    block, a shorter step); a batch whose clusters of that size would not
+    fit the card at once takes the fewest blocks that hold a cloud
+    (``PERF.md``)."""
     if n < 1:
         raise ValueError(f"FPS needs at least one point a cloud, got {n}")
-    return "shared" if n <= SHARED_MAX_POINTS else "global"
+    if n <= BLOCK_MAX_POINTS:
+        return "block", 1
+    if n <= CLUSTER_MAX_POINTS:
+        if b * MAX_CLUSTER <= _SMS:
+            return "cluster", MAX_CLUSTER
+        return "cluster", -(-n // BLOCK_MAX_POINTS)
+    return "global", 1
 
 
 def _planes(points: torch.Tensor, layout: str) -> torch.Tensor:
@@ -110,7 +129,7 @@ def fps_with_points(
         )
     b = points.shape[0]
     n = points.shape[2] if layout == "bcn" else points.shape[1]
-    form = kernel_form(n)
+    form, cluster = kernel_form(b, n)
     if num_samples < 1:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     if valid_mask.shape != (b, n) or start.shape != (b,):
@@ -143,9 +162,9 @@ def fps_with_points(
                 idx.data_ptr(), sampled.data_ptr())
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if form == "shared":
+        if form != "global":
             code = lib.pcp_fps(*pointers, b, n, num_samples,
-                               int(layout == "bcn"), stream)
+                               int(layout == "bcn"), cluster, stream)
         else:
             min_dist = torch.empty((b, n), dtype=torch.float32,
                                    device=points.device)
