@@ -21,9 +21,11 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    channels and with many channels winning one point; the forward on NaN
    inputs; the backward's winner-only form through the running-statistics
    chain's autograd Function; the window moments on Morton-ordered voxel
-   output at the config-2 and config-5 shapes and on the JAX tests' edge
-   cases, counting count mismatches, the sums' error over their absolute
-   terms and the normals' angle; gather max/min at DGCNN's four widths,
+   output at the config-2 and config-5 shapes, on the JAX tests' edge
+   cases and on every form of the kernel (a window of 14,592 candidates in
+   streamed tiles, q_block 512, k 1 to 48, a tie-heavy integer grid,
+   65,536 clouds), counting count mismatches, the sums' error over their
+   absolute terms, the normals' angle and the launches; gather max/min at DGCNN's four widths,
    at widths no multiple of 32 and with NaN, bit-identical), with its
    device time (torch.profiler) and its time per call beside the plain
    version's; the pooled forward's argmax flips are counted. FPS on the
@@ -1259,10 +1261,15 @@ def surface_scans(rng, b: int = 2, n: int = 2048) -> np.ndarray:
 
 def phase_window_kernel(torch, rng) -> dict:
     """Kernel 6 against its plain version on Morton-ordered voxel output at
-    the two shapes the normals phase runs, and on the JAX tests' edge cases:
-    count mismatches, the sums' error over the sum of their absolute terms,
-    and the normals' angle between the two."""
+    the two shapes the normals phase runs, on the JAX tests' edge cases, and
+    on the inputs the PR 3 kernel refused or that reach each of its forms:
+    a window past 14,336 candidates (streamed tiles), q_block 512, k from 1
+    to 48 (every register bound, and the counting search above 32), a
+    tie-heavy integer grid and 65,536 clouds (compared on slices of
+    clouds). Count mismatches, the sums' error over the sum of their
+    absolute terms, the normals' angle between the two, and launches."""
     from pointcloudprocessing_tpu_torch.ops.cuda.window_normals import (
+        kernel_form,
         window_selection,
         windowed_moment_sums,
         windowed_moment_sums_reference,
@@ -1274,7 +1281,6 @@ def phase_window_kernel(torch, rng) -> dict:
     from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
 
     dev = torch.device("cuda")
-    k = 16
 
     def voxel_case(scans, voxel, window):
         vox, mask = voxel_downsample_batch(torch.from_numpy(scans).to(dev), voxel,
@@ -1290,70 +1296,107 @@ def phase_window_kernel(torch, rng) -> dict:
     one_mask = np.zeros((1, 512), bool)
     one_mask[0, 0] = True
     odd = rng.normal(size=(4, 490, 3)).astype(np.float32)
+    grid = rng.integers(-6, 7, (4, 2048, 3)).astype(np.float32)
+    grid_mask = rng.uniform(size=(4, 2048)) > 0.1
+    small = rng.uniform(-1, 1, (65536, 384, 3)).astype(np.float32)
 
     def raw_case(pts, mask, window):
         planes = torch.from_numpy(np.ascontiguousarray(pts.transpose(0, 2, 1))).to(dev)
         return window_arguments(planes, torch.from_numpy(mask).to(dev), window)[1:]
 
+    config2 = voxel_case(rng.uniform(-30, 30, (8, 8192, 3)).astype(np.float32), 0.5,
+                         256)
     cases = [
-        ("config 2: 8x8192 uniform(-30, 30), voxel 0.5, W 256",
-         voxel_case(rng.uniform(-30, 30, (8, 8192, 3)).astype(np.float32), 0.5, 256)),
+        ("config 2: 8x8192 uniform(-30, 30), voxel 0.5, W 256", config2, 16),
         ("config 5: 256x2048 uniform(-20, 20), voxel 0.4, W 128",
-         voxel_case(rng.uniform(-20, 20, (256, 2048, 3)).astype(np.float32), 0.4, 128)),
+         voxel_case(rng.uniform(-20, 20, (256, 2048, 3)).astype(np.float32), 0.4,
+                    128), 16),
         ("surface offset to (50, -30, 5), voxel 0.5, W 256",
-         voxel_case(surface_scans(rng), 0.5, 256)),
-        ("5 valid points (< k) among 1e6 rows", raw_case(few, few_mask, 256)),
-        ("one valid point", raw_case(one, one_mask, 128)),
-        ("n = 490, padded to 512", raw_case(odd, np.ones((4, 490), bool), 256)),
+         voxel_case(surface_scans(rng), 0.5, 256), 16),
+        ("5 valid points (< k) among 1e6 rows", raw_case(few, few_mask, 256), 16),
+        ("one valid point", raw_case(one, one_mask, 128), 16),
+        ("n = 490, padded to 512", raw_case(odd, np.ones((4, 490), bool), 256), 16),
+        ("C 14,592 > 14,336: 2x16384 uniform(-30, 30), voxel 0.5, W 7168",
+         voxel_case(rng.uniform(-30, 30, (2, 16384, 3)).astype(np.float32), 0.5,
+                    7168), 16),
+        ("q_block 512: config 2's voxel output", config2[:2] + (256, 512), 16),
+        *((f"k {k}: config 2's voxel output", config2, k) for k in (1, 4, 8, 32, 48)),
+        ("integer grid [-6, 6]^3, 10% invalid (ties at m * 2^s)",
+         raw_case(grid, grid_mask, 256), 16),
+        ("65,536 clouds of 384, uniform(-1, 1), W 128",
+         raw_case(small, np.ones(small.shape[:2], bool), 128), 16),
     ]
+    del small
     results = {"err": 0.0}
-    for label, (centered, mask, window, q_block) in cases:
+    for label, (centered, mask, window, q_block), k in cases:
         args = (centered, mask, k, window, q_block, "bcn")
+        windowed_moment_sums.launches = 0
         got = torch.stack(windowed_moment_sums(*args))
-        want = torch.stack(windowed_moment_sums_reference(*args))
-        sel, feats = window_selection(centered, mask, k, window, q_block)
-        b, _, n = centered.shape
-        abs_sums = torch.matmul(sel, feats.abs()).reshape(b, n, 10).permute(2, 0, 1)
-        del sel
         torch.cuda.synchronize()
-        mismatched = int((got[0] != want[0]).sum())
-        rel = ((got - want).abs() / (abs_sums + 1e-30)).max().item()
-        bad = int(((got - want).abs() > 2.0 ** -16 * abs_sums + 1e-6).sum())
-        ng = torch.stack(_covariance_normals(got.unbind(0)), dim=-1)
-        nw = torch.stack(_covariance_normals(want.unbind(0)), dim=-1)
-        chord = torch.minimum((ng - nw).norm(dim=-1), (ng + nw).norm(dim=-1))
-        ang = torch.rad2deg(2 * torch.asin(torch.clamp(chord.double() / 2, max=1.0)))
-        ang = ang[mask]
-        med, worst = ang.median().item(), ang.max().item()
+        if windowed_moment_sums.launches != 1:
+            raise AssertionError(f"window moments ({label}): "
+                                 f"{windowed_moment_sums.launches} launches")
+        b, _, n = centered.shape
+        # the plain version's memory is b x blocks x Q x C: compare the
+        # 65,536-cloud case on its first and last 256 clouds
+        part = [slice(0, b)] if b <= 256 else [slice(0, 256), slice(b - 256, b)]
+        mismatched = bad = 0
+        rel = med = worst = 0.0
+        for sl in part:
+            sub = (centered[sl], mask[sl], k, window, q_block, "bcn")
+            want = torch.stack(windowed_moment_sums_reference(*sub))
+            gsub = got[:, sl]
+            sel, feats = window_selection(*sub[:-1])
+            abs_sums = torch.matmul(sel, feats.abs()).reshape(
+                want.shape[1], n, 10).permute(2, 0, 1)
+            del sel
+            mismatched += int((gsub[0] != want[0]).sum())
+            rel = max(rel, ((gsub - want).abs() / (abs_sums + 1e-30)).max().item())
+            bad += int(((gsub - want).abs() > 2.0 ** -16 * abs_sums + 1e-6).sum())
+            ng = torch.stack(_covariance_normals(gsub.unbind(0)), dim=-1)
+            nw = torch.stack(_covariance_normals(want.unbind(0)), dim=-1)
+            chord = torch.minimum((ng - nw).norm(dim=-1), (ng + nw).norm(dim=-1))
+            ang = torch.rad2deg(2 * torch.asin(torch.clamp(chord.double() / 2,
+                                                           max=1.0)))[mask[sl]]
+            med, worst = max(med, ang.median().item()), max(worst, ang.max().item())
+            results["err"] = max(results["err"], (gsub - want).abs().max().item())
+            del want, abs_sums
         if mismatched or bad or med > 0.01:
             raise AssertionError(
                 f"window moments ({label}): {mismatched} counts differ, {bad} sums "
                 f"beyond 2^-16 of their absolute terms (worst {rel:.3e}), normals "
                 f"median angle {med:.4f} deg")
-        results["err"] = max(results["err"], (got - want).abs().max().item())
         kernel = functools.partial(windowed_moment_sums, *args)
-        plain = functools.partial(windowed_moment_sums_reference, *args)
-        if b * n >= 65536:
-            ms, plain_ms = device_ms(torch, kernel, 10), device_ms(torch, plain, 3)
+        ms = device_ms(torch, kernel, 10)
+        kmax, tile = kernel_form(k, q_block, window)
+        form = (f"registers {kmax}" if kmax else "counting search") + (
+            f", one tile of {q_block + 2 * window}" if tile >= q_block + 2 * window
+            else f", streamed tiles of {tile}")
+        timing = f"; device ms kernel {fmt(ms)}"
+        if label.startswith("config"):
+            plain = functools.partial(windowed_moment_sums_reference, *args)
+            plain_ms = device_ms(torch, plain, 3)
             per_call = (call_ms(torch, kernel, 10), call_ms(torch, plain, 3, 3))
             # what the function needs per query and candidate: the distance
-            # once (8 flops), a compare in each of the 8 passes and an add in
-            # each of the 6 counting passes; then 19 flops per selected
-            # candidate (shift, 6 products, 10 sums)
+            # once (8 flops), a compare for m, one for the k-th distance and
+            # one for the selection; then 19 flops per selected candidate
+            # (shift, 6 products, 10 sums)
             c = q_block + 2 * window
             bound = roofline(nbytes(centered, mask, got),
-                             b * n * c * (8 + 8 + 6) + 19 * got[0].sum().item())
-            timing = (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per "
-                      f"call with launch kernel {per_call[0]:.4f}, plain "
-                      f"{per_call[1]:.4f}; bound {bound[0]:.4f} ms ({bound[1]})")
-        else:
-            timing = ""
+                             b * n * c * 11 + 19 * got[0].sum().item())
+            timing += (f", plain {fmt(plain_ms)}; per call with launch kernel "
+                       f"{per_call[0]:.4f}, plain {per_call[1]:.4f}; bound "
+                       f"{bound[0]:.4f} ms ({bound[1]})")
+            results["config 2" if label.startswith("config 2") else "config 5"] = (
+                ms, plain_ms, bound)
         log(f"[3 kernels] window moments {b}x{n} k{k} Q{q_block} W{window} "
-            f"({label}): counts identical ({int(mask.sum())} valid queries), sums "
-            f"within {rel:.3e} of their absolute terms (bar 2^-16), normals "
-            f"angle median {med:.2e} max {worst:.2e} deg" + timing)
-        if label.startswith("config 2"):
-            results["ms"], results["plain_ms"], results["bound"] = ms, plain_ms, bound
+            f"({label}; {form}): counts identical ({int(mask.sum())} valid "
+            f"queries" + (", 512 clouds compared" if len(part) > 1 else "")
+            + f"), sums within {rel:.3e} of their absolute terms (bar 2^-16), "
+            f"normals angle median {med:.2e} max {worst:.2e} deg, 1 launch"
+            + timing)
+        del got
+    results["ms"], results["plain_ms"], results["bound"] = results["config 2"]
     return results
 
 

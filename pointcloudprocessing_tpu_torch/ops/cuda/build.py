@@ -50,7 +50,8 @@ _ENTRY = {
         "pcp_pooled_chain_backward":
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
-    "window_normals": {"pcp_window_moments": [_P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "window_normals": {
+        "pcp_window_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "gather_maxmin": {"pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _P]},
 }
 

@@ -53,12 +53,16 @@ def test_port_imports_nothing_of_jax():
 
 
 def test_no_import_statement_names_jax():
-    """Every import statement of the port and of chip_smoke.py, including
-    those inside functions (which importing a module does not run), names
-    neither JAX nor the JAX package."""
+    """Every import statement of the port, of chip_smoke.py and of the
+    kernel tools in tools/, including those inside functions (which
+    importing a module does not run), names neither JAX nor the JAX
+    package."""
     import ast
 
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "fps_bench.py"),
+             os.path.join(REPO, "tools", "window_bench.py"),
+             os.path.join(REPO, "tools", "window_events.py")]
     for root, _, names in os.walk(os.path.join(REPO, "pointcloudprocessing_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     forbidden = ("jax", "jaxlib", "flax", "pointcloudprocessing_tpu")
