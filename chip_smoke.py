@@ -15,9 +15,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    all at once.
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main paths' shapes (the segment sum on the ranks the slice builds
-   from uniform, zero-padded and LiDAR-like dense scans, and on synthetic
-   long runs, beside ``index_add_``; the pooled-chain forward and backward
-   at 8x8192 and 32x1024 points, 128 -> 1024 channels, with all-zero
+   from uniform, zero-padded and LiDAR-like dense scans, on synthetic
+   long runs and on ranks that leave most buckets empty, each into a pool
+   filled with NaN first, beside ``index_add_``; the pooled-chain forward
+   and backward at 8x8192 and 32x1024 points, 128 -> 1024 channels, with all-zero
    channels and with many channels winning one point; the forward on NaN
    inputs; the backward's winner-only form through the running-statistics
    chain's autograd Function; the window moments on Morton-ordered voxel
@@ -26,7 +27,9 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    streamed tiles, q_block 512, k 1 to 48, a tie-heavy integer grid,
    65,536 clouds), counting count mismatches, the sums' error over their
    absolute terms, the normals' angle and the launches; gather max/min at DGCNN's four widths,
-   at widths no multiple of 32 and with NaN, bit-identical), with its
+   at widths no multiple of 32 or of its slice, with NaN, with k 1 and on
+   clouds of 16,384 points (the L2 form), bit-identical, each with the form
+   it took), with its
    device time (torch.profiler) and its time per call beside the plain
    version's; the pooled forward's argmax flips are counted. FPS on the
    path's own input (the plane-major voxel output of the uniform, padded
@@ -297,18 +300,23 @@ def segment_case(rng, b: int, n: int, d: int, kind: str):
 
     'voxel': runs of 1-5 rows per occupied voxel (d = 4: xyz*w, w), the
     invalid rows (a long run on every fourth cloud) parked in bucket n - 1
-    with zero weight. 'stride': valid row j in bucket floor(j*k/nv), k=1024,
-    with nv < k on some clouds (d = 5: xyz*w, j*w, w)."""
+    with zero weight. 'sparse': a quarter of the rows valid, their runs a
+    random 1-8 buckets apart, so most buckets stay empty. 'stride': valid
+    row j in bucket floor(j*k/nv), k=1024, with nv < k on some clouds (d =
+    5: xyz*w, j*w, w)."""
     data = np.zeros((b, n, d), np.float32)
     rank = np.full((b, n), n - 1, np.int32)
     for c in range(b):
         n_invalid = n // 2 if c % 4 == 0 else int(rng.integers(0, n // 8))
+        if kind == "sparse":
+            n_invalid = 3 * n // 4
         nv = n - n_invalid
         xyz = rng.uniform(-20, 20, (nv, 3)).astype(np.float32)
-        if kind == "voxel":
+        if kind in ("voxel", "sparse"):
             is_new = rng.uniform(size=nv) < 0.6
             is_new[0] = True
-            rank[c, :nv] = np.cumsum(is_new) - 1
+            step = rng.integers(1, 9, nv) if kind == "sparse" else is_new
+            rank[c, :nv] = np.minimum(np.cumsum(step * is_new) - step[0], n - 1)
             data[c, :nv, :3] = xyz
             data[c, :nv, 3] = 1.0
         else:
@@ -434,23 +442,33 @@ def phase_kernels(torch, rng) -> dict:
             farthest_point_sample_and_gather(vox, 1024, vmask, layout="bcn")
         cases += [(f"main-path {kind} voxel", *captured[0]),
                   (f"main-path {kind} stride", *captured[1])]
-    # synthetic ranks with long runs (invalid rows parked in bucket n - 1)
+    # synthetic ranks with long runs (invalid rows parked in bucket n - 1),
+    # and ranks that leave many empty buckets
     for b, n, d, kind in ((256, 2048, 4, "voxel"), (256, 2048, 5, "stride"),
-                          (64, 8192, 4, "voxel")):
+                          (64, 8192, 4, "voxel"), (256, 2048, 4, "sparse")):
         data_np, rank_np = segment_case(rng, b, n, d, kind)
-        cases.append((f"{kind} long-run", torch.from_numpy(data_np).to(dev),
+        label = "empty buckets" if kind == "sparse" else f"{kind} long-run"
+        cases.append((label, torch.from_numpy(data_np).to(dev),
                       torch.from_numpy(rank_np).to(dev)))
     for label, data, rank in cases:
         b, n, d = data.shape
+        # the kernel writes every output row into uninitialised memory: fill
+        # the block the allocator hands out next with NaN, so that a row it
+        # left unwritten shows
+        torch.full_like(data, float("nan"))
         got = sorted_segment_reduce(data, rank)
         want = sorted_segment_reduce_reference(data, rank)
         torch.cuda.synchronize()
         err = (got - want).abs()
         bound = 1e-5 * data.abs().max() + 1e-6 * want.abs()
-        if not bool((err <= bound).all()):
+        empty = torch.ones(b, n, dtype=torch.bool, device=dev).scatter_(
+            1, rank.long(), False)
+        if not bool((err <= bound).all()) or bool((got[empty] != 0).any()):
             raise AssertionError(
                 f"segment sum {b}x{n}x{d} ({label}) disagrees with its plain "
-                f"version: max abs err {err.max().item():.3e}")
+                f"version: max abs err {err.max().item():.3e}, "
+                f"{int((got[empty] != 0).sum())} nonzero values in its "
+                f"{int(empty.sum())} empty rows")
         max_err = err.max().item()
         results["seg_err"] = max(results["seg_err"], max_err)
         kernel = functools.partial(sorted_segment_reduce, data, rank)
@@ -459,7 +477,8 @@ def phase_kernels(torch, rng) -> dict:
         per_call = (call_ms(torch, kernel, 20), call_ms(torch, plain, 20))
         longest = max(int(np.bincount(r).max()) for r in rank.cpu().numpy())
         log(f"[3 kernels] segment sum {b}x{n}x{d} {label} (longest run "
-            f"{longest}): max abs err {max_err:.3e}; device ms kernel "
+            f"{longest}; {int(empty.sum())} empty rows, all zero, in a pool "
+            f"filled with NaN): max abs err {max_err:.3e}; device ms kernel "
             f"{fmt(ms)}, plain {fmt(plain_ms)}; per call with launch "
             f"kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}")
         if label == "main-path uniform voxel":
@@ -1409,10 +1428,12 @@ def check_bit_identical(torch, got, want) -> bool:
 
 def phase_gather_kernel(torch, rng) -> dict:
     """Kernel 7 against its plain version at DGCNN's four edge widths (64x1024
-    clouds, k 20, the graph of normal(0, 1) clouds), at widths no multiple of
-    32, and with NaN in q: bit-identical."""
+    clouds, k 20, the graph of normal(0, 1) clouds), at w 3, 40 and 96 (no
+    multiple of 32, or of the slice), with NaN in q, with k 1, and on clouds
+    of 16,384 points (the L2 form): bit-identical, with the form each took."""
     from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
+        gather_form,
         gather_maxmin,
         gather_maxmin_reference,
     )
@@ -1420,38 +1441,50 @@ def phase_gather_kernel(torch, rng) -> dict:
     dev = torch.device("cuda")
     b, n, k = 64, 1024, 20
     pts = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
-    idx = knn_graph(pts, k)
+    graph = knn_graph(pts, k)
+    big = 16384  # past the shared form's 14,528 points at S 4
+    big_idx = torch.from_numpy(
+        rng.integers(0, big, (4, big, k)).astype(np.int32)).to(dev)
     results = {"err": 0.0}
     for w, label in ((64, "layers 1-2"), (128, "layer 3"), (256, "layer 4"),
-                     (3, "w 3"), (96, "w 96"), (64, "NaN in q")):
-        q = torch.from_numpy(rng.normal(size=(b, n, w)).astype(np.float32)).to(dev)
+                     (3, "w 3"), (40, "w 40"), (96, "w 96"), (64, "NaN in q"),
+                     (64, "k 1"), (64, "L2 form")):
+        idx = {"k 1": graph[..., :1].contiguous(), "L2 form": big_idx}.get(label, graph)
+        shape = (idx.shape[0], idx.shape[1], w)
+        q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
         if label == "NaN in q":
             q[0, idx[0, :8, 3].long(), 7] = float("nan")
         got = gather_maxmin(q, idx)
         want = gather_maxmin_reference(q, idx)
         torch.cuda.synchronize()
+        cb, cn, ck = idx.shape
+        name = f"{cb}x{cn}x{w} k{ck} ({label})"
         if not all(check_bit_identical(torch, g, wt) for g, wt in zip(got, want)):
-            raise AssertionError(f"gather_maxmin {b}x{n}x{w} k{k} ({label}) is not "
-                                 "bit-identical to its plain version")
+            raise AssertionError(f"gather_maxmin {name} is not bit-identical to "
+                                 "its plain version")
         for g, wt in zip(got, want):
             finite = ~torch.isnan(wt)
             results["err"] = max(results["err"],
                                  (g[finite] - wt[finite]).abs().max().item())
-        kernel =functools.partial(gather_maxmin, q, idx)
+        kernel = functools.partial(gather_maxmin, q, idx)
         plain = functools.partial(gather_maxmin_reference, q, idx)
-        ms, plain_ms = device_ms(torch, kernel, 20), device_ms(torch, plain, 10)
-        per_call = (call_ms(torch, kernel, 20), call_ms(torch, plain, 10))
+        reps = 3 if label == "L2 form" else 20
+        ms, plain_ms = device_ms(torch, kernel, reps), device_ms(torch, plain, 3)
+        per_call = (call_ms(torch, kernel, reps), call_ms(torch, plain, 3))
         # idx and q read once, both outputs written once; a compare per
         # gathered value for the max and one for the min
-        bound = roofline(nbytes(q, idx, *got), 2 * b * n * k * w)
+        bound = roofline(nbytes(q, idx, *got), 2 * cb * cn * ck * w)
         nans = int(torch.isnan(got[0]).sum())
-        log(f"[3 kernels] gather_maxmin {b}x{n}x{w} k{k} ({label}): bit-identical"
+        form, slice_ = gather_form(cb, cn, w)
+        log(f"[3 kernels] gather_maxmin {name}, {form} form"
+            + (f" S {slice_}" if slice_ else "") + ": bit-identical"
             + (f", NaN at the plain version's {nans} entries" if nans else "")
             + f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per call "
             f"with launch kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}; "
             f"bound {bound[0]:.4f} ms ({bound[1]})")
         if label == "layer 4":
             results["ms"], results["plain_ms"], results["bound"] = ms, plain_ms, bound
+        del q, got, want
     return results
 
 

@@ -15,153 +15,327 @@
 // rank is non-decreasing along i (a cumsum over sort order, or a monotone
 // bucket map), so every segment is one contiguous run of rows.  On the H100
 // the op is bound by device-memory bytes: each row is read once
-// ((d + 1) * 4 bytes with its rank) and each segment written once, a few MB
-// per serving batch against 3.35 TB/s.  No matrix unit is needed.
+// ((d + 1) * 4 bytes with its rank) and each output row written once, a few
+// MB per serving batch against 3.35 TB/s.  No matrix unit is needed.  The
+// design spends nothing else: the output is not zeroed first (the kernel
+// writes every row once), and the work is spread over tiles of rows, not
+// clouds.
 //
-// The runs are short on uniform scans (one or two rows) but long elsewhere:
-// the invalid rows are all parked in bucket n - 1, a zero-padded scan is one
-// voxel of n rows, a stride bucket spans up to n / k rows.  A walk of each
-// run by one thread is serial in its length (0.3 ms for a 2048-row run on
-// the H100, against 0.03 ms for scatter_add_), so the design is a
-// segmented scan instead, whose time does not depend on the run lengths:
-//
-// One block per cloud walks the cloud in tiles of kThreads rows, one row a
-// thread.  Each tile does a segmented inclusive prefix sum in fp32 with
-// head flags (a row heads a segment when i == 0 or rank[i] != rank[i - 1]):
-// a warp-shuffle scan within each warp, then warp 0 scans the warps' totals
-// and the running sum carried in from the previous tile.  The last row of
-// each segment then holds the segment's sum and writes it.  The order of the
-// adds is fixed by the shapes, so the result is deterministic; there are no
-// atomics.  Output rows of empty segments keep the zeros the wrapper
-// allocated.
+// A block of kThreads threads owns a tile of kTileRows rows of one cloud,
+// kRowsAThread a thread: 512 blocks at 256x2048, one wave on 132 SMs at
+// four blocks an SM, so no block waits for another's slot.  It stages the
+// tile's rows and ranks in shared memory, with the kShortRun rows after the
+// tile and the rank before it, in one round trip of coalesced loads (16
+// bytes a load where the rows allow).  A row heads a run when it is row 0
+// or its rank differs from the row before.  Ownership, which
+// ops/cuda/voxel_reduce.py::sorted_sum_plan spells out for the CPU tests:
+// - a run belongs to the tile that holds its head, whatever tiles it
+//   crosses, and writes output row rank[head];
+// - a short run (at most kShortRun rows: one or two on uniform scans) is
+//   summed by its head's thread from shared memory, 0.0f + its rows in row
+//   order, which is PyTorch's CPU scatter_add_ bit for bit;
+// - a long run (an invalid-row bucket, a zero-padded scan's one voxel of n
+//   rows, a stride bucket of many rows) is summed by the whole block:
+//   thread t adds rows head + t, head + t + kThreads, ..., from shared
+//   memory while they are staged and then from device memory, a few rows
+//   and their ranks loaded at once, until a row of another rank or the
+//   cloud's end is met; then a fixed xor-shuffle tree in each warp and the
+//   warps' totals in warp order.  A run that ends within the staged rows
+//   costs no device-memory access; past them, 2,048 rows (1,024 at d 5)
+//   cost one round trip (rows past the run's end are read and dropped:
+//   long runs are few, and the main path's dense scans have none);
+// - the empty rows below a run, rank[head - 1] + 1 .. rank[head] - 1 (from
+//   0 for row 0), are written as zeros by the run's warp, and the rows above
+//   the cloud's last rank by the warp of row n - 1 (a few rows by the lane
+//   itself, more as one run of floats, 16 bytes a store).
+// So every output row is written exactly once, every order of adds is fixed
+// by the shapes (deterministic, no atomics on data), and a long run costs
+// its rows / (kThreads * kLongReach) round trips, not its length.
 //
 // The contract is checked on the device, where it costs no host sync: a
-// rank outside [0, n) or a rank that decreases stops the kernel with a
-// trap, so the next CUDA call raises instead of a wrong sum coming back.
+// rank outside [0, n) or a rank below the one before it stops the kernel
+// with a trap, so the next CUDA call raises instead of a wrong sum coming
+// back.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 1024;
-
-// (head seen, sum) <- earlier (f0, v0) then later (f, v): a later head cuts
-// the sum off from everything before it.
-template <int D>
-__device__ __forceinline__ void combine(int f0, const float (&v0)[D], int& f,
-                                        float (&v)[D]) {
-  if (!f) {
+// A row of D floats from p into v, and back: 16-byte accesses where the
+// row's alignment A (in floats: D for rows packed from a 16-byte aligned
+// base, 1 if unknown) allows, else 8-byte or 4-byte ones.
+template <int A, int D>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[D]) {
+  if constexpr (A % 4 == 0) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) v[c] = v0[c] + v[c];
+    for (int c = 0; c < D; c += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + c);
+      v[c] = q.x;
+      v[c + 1] = q.y;
+      v[c + 2] = q.z;
+      v[c + 3] = q.w;
+    }
+  } else if constexpr (A % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < D; c += 2) {
+      const float2 q = *reinterpret_cast<const float2*>(p + c);
+      v[c] = q.x;
+      v[c + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < D; ++c) v[c] = p[c];
   }
-  f |= f0;
 }
 
 template <int D>
-__device__ __forceinline__ void warp_scan(int lane, int& f, float (&v)[D]) {
+__device__ __forceinline__ void store_row(float* p, const float (&v)[D]) {
+  if constexpr (D % 4 == 0) {
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    float vo[D];
+    for (int c = 0; c < D; c += 4) {
+      *reinterpret_cast<float4*>(p + c) =
+          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
+    }
+  } else if constexpr (D % 2 == 0) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) vo[c] = __shfl_up_sync(0xffffffffu, v[c], off);
-    const int fo = __shfl_up_sync(0xffffffffu, f, off);
-    if (lane >= off) combine<D>(fo, vo, f, v);
+    for (int c = 0; c < D; c += 2) {
+      *reinterpret_cast<float2*>(p + c) = make_float2(v[c], v[c + 1]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < D; ++c) p[c] = v[c];
   }
 }
 
+// Kernel 1's constants; ops/cuda/voxel_reduce.py holds the same three
+// (TILE_ROWS, WALK_THREADS, SHORT_RUN), and the entry point refuses a grid
+// that its own tile size does not give.
+constexpr int kThreads = 256;     // a block's threads
+constexpr int kRowsAThread = 4;
+constexpr int kTileRows = kThreads * kRowsAThread;  // rows a block owns
+// blocks an SM at 64 registers a thread: 528 on the card, so the 512 of a
+// 256x2048 batch all run at once (at 65 registers only 396 would)
+constexpr int kTileBlocksAnSm = 4;
+constexpr int kShortRun = 32;   // the longest run a single thread sums
+constexpr int kSpan = kTileRows + kShortRun;  // rows staged a block
+// a long run has more than kShortRun rows, so a tile heads at most
+// ceil(kTileRows / (kShortRun + 1)) of them
+constexpr int kMaxLong = (kTileRows + kShortRun) / (kShortRun + 1);
+
+// Zeros into floats [p, e) by a warp's lanes: 16 bytes a store between the
+// first and last 16-byte boundaries.
+__device__ __forceinline__ void zero_floats(float* p, float* e, int lane) {
+  float* p4 = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(p) + 15) & ~static_cast<uintptr_t>(15));
+  if (p4 > e) p4 = e;
+  float* e4 = p4 + ((e - p4) & ~3LL);
+  for (float* x = p + lane; x < p4; x += 32) *x = 0.0f;
+  for (float* x = p4 + 4 * lane; x < e4; x += 128) {
+    *reinterpret_cast<float4*>(x) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (float* x = e4 + lane; x < e; x += 32) *x = 0.0f;
+}
+
+// Zeros into output rows [lo, hi) of every lane's range: a lane writes up
+// to kOwnGap rows itself (the stride sampler leaves one or two between its
+// buckets), and the warp takes a longer range together as one run of
+// floats.  Called by all 32 lanes.
+constexpr int kOwnGap = 8;
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void zero_rows(float* out, int lo, int hi,
+                                          int lane) {
+  const float zero[D] = {};
+  const bool own = hi - lo <= kOwnGap;
+  if (own) {
+    for (int k = lo; k < hi; ++k) {
+      store_row<D>(out + static_cast<long long>(k) * D, zero);
+    }
+  }
+  unsigned todo = __ballot_sync(0xffffffffu, !own);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    zero_floats(out + static_cast<long long>(__shfl_sync(0xffffffffu, lo, src)) * D,
+                out + static_cast<long long>(__shfl_sync(0xffffffffu, hi, src)) * D,
+                lane);
+  }
+}
+
+// One row of D floats from device memory: 16-byte loads when `vec` (D % 4
+// == 0 and a 16-byte aligned base), else 4-byte ones.
+template <int D>
+__device__ __forceinline__ void load_global_row(const float* p, bool vec,
+                                                float (&v)[D]) {
+  if constexpr (D % 4 == 0) {
+    if (vec) {
+      load_row<4, D>(p, v);
+      return;
+    }
+  }
+  load_row<1, D>(p, v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kTileBlocksAnSm)
     sorted_segment_sum_kernel(const float* __restrict__ data,
                               const int* __restrict__ rank,
-                              float* __restrict__ out, int n) {
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float warp_v[kWarps][D];  // each warp's total, then its prefix
-  __shared__ int warp_f[kWarps];
-  __shared__ float carry[D];           // running sum at the previous tile's end
+                              float* __restrict__ out, int n, int tiles) {
+  __shared__ __align__(16) float rows_s[kSpan * D];  // rows t0 .. t0+kSpan-1
+  __shared__ int rank_s[kSpan + 1];  // [q + 1]: rank of row t0 + q, q >= -1
+  __shared__ int long_head[kMaxLong];  // tile rows that head long runs
+  __shared__ int long_count;
+  __shared__ float part[kThreads / 32][D];  // a block walk's warp totals
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const long long base = (long long)blockIdx.x * n;
-  const int* r = rank + base;
-  if (tid < D) carry[tid] = 0.0f;
+  const long long cloud = blockIdx.x / tiles;
+  const int t0 = static_cast<int>(blockIdx.x % tiles) * kTileRows;
+  const int* r_in = rank + cloud * n;
+  const float* d_in = data + cloud * n * D;
+  float* o_out = out + cloud * n * D;
+  const bool vec = reinterpret_cast<uintptr_t>(data) % 16 == 0;
 
-  for (int t0 = 0; t0 < n; t0 += kThreads) {
-    const int i = t0 + tid;
-    const bool live = i < n;
-    int seg = -1;
-    int f = 1;  // rows past n head empty segments of their own
-    float v[D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) v[c] = 0.0f;
-    if (live) {
-      seg = r[i];
-      if (seg < 0 || seg >= n) __trap();  // outside [0, n)
-      if (i > 0) {
-        const int prev = r[i - 1];
-        if (prev > seg) __trap();  // not monotone: runs would be split
-        f = prev != seg;
+  // Stage: ranks of rows t0 - 1 .. t0 + kSpan - 1 (-1 before row 0, n past
+  // the last row: no rank equals either) and the rows t0 .. t0 + kSpan - 1
+  // that exist, as one flat run of floats.
+  if (tid == 0) long_count = 0;
+  for (int q = tid; q <= kSpan; q += kThreads) {
+    const int row = t0 - 1 + q;
+    rank_s[q] = row < 0 ? -1 : (row < n ? r_in[row] : n);
+  }
+  {
+    const int count = (min(n, t0 + kSpan) - t0) * D;
+    const float* src = d_in + static_cast<long long>(t0) * D;
+    int f0 = 0;
+    if (reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+      f0 = count & ~3;
+      for (int f = 4 * tid; f < f0; f += 4 * kThreads) {
+        *reinterpret_cast<float4*>(rows_s + f) =
+            *reinterpret_cast<const float4*>(src + f);
       }
-      const float* row = data + (base + i) * D;
-#pragma unroll
-      for (int c = 0; c < D; ++c) v[c] = row[c];
     }
+    for (int f = f0 + tid; f < count; f += kThreads) rows_s[f] = src[f];
+  }
+  __syncthreads();
 
-    warp_scan<D>(lane, f, v);
-    if (lane == 31) {
-      warp_f[warp] = f;
+  // Each of the thread's rows: check it, and if it heads a run, sum a short
+  // run and write the empty rows below it; a long run's head goes on the
+  // block's list.
 #pragma unroll
-      for (int c = 0; c < D; ++c) warp_v[warp][c] = v[c];
+  for (int a = 0; a < kRowsAThread; ++a) {
+    const int q = tid + a * kThreads;  // the row in the tile
+    const int i = t0 + q;
+    int gap_lo = 0, gap_hi = 0;    // empty rows below this row's run
+    int tail_lo = 0, tail_hi = 0;  // empty rows above the last rank
+    if (i < n) {
+      const int r = rank_s[q + 1];
+      const int prev = rank_s[q];
+      if (r < 0 || r >= n) __trap();  // outside [0, n)
+      if (prev > r) __trap();         // not monotone: runs would be split
+      if (i == n - 1) {
+        tail_lo = r + 1;
+        tail_hi = n;
+      }
+      if (prev != r) {  // a head
+        gap_lo = prev + 1;
+        gap_hi = r;
+        float sum[D];
+#pragma unroll
+        for (int c = 0; c < D; ++c) sum[c] = 0.0f;
+        bool ended = false;
+        for (int p = q; p < q + kShortRun; ++p) {
+          float v[D];
+          load_row<D, D>(rows_s + p * D, v);
+#pragma unroll
+          for (int c = 0; c < D; ++c) sum[c] += v[c];
+          if (rank_s[p + 2] != r) {  // row p + 1 is another run's, or past n
+            ended = true;
+            break;
+          }
+        }
+        if (ended) {
+          store_row<D>(o_out + static_cast<long long>(r) * D, sum);
+        } else {
+          long_head[atomicAdd(&long_count, 1)] = q;
+        }
+      }
+    }
+    zero_rows<D>(o_out, gap_lo, gap_hi, lane);
+    zero_rows<D>(o_out, tail_lo, tail_hi, lane);
+  }
+  __syncthreads();
+
+  // Long runs, one at a time, by the whole block: thread t takes rows
+  // head + t + j kThreads, j = 0, 1, ..., from shared memory while staged,
+  // then from device memory if the run reaches past the staged rows.
+  // Rows a thread loads at once: 8 of 16 bytes, or 4 of 5 floats (8 of 5
+  // floats spill out of the 64 registers that keep four blocks an SM).
+  constexpr int kLongReach = D % 4 == 0 ? 8 : 4;
+  const int longs = long_count;
+  for (int l = 0; l < longs; ++l) {
+    const int h = long_head[l];
+    const int r = rank_s[h + 1];
+    const bool beyond = rank_s[kSpan] == r;  // the last staged row is the run's
+    float acc[D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) acc[c] = 0.0f;
+    for (long long q0 = h + tid;; q0 += kThreads * kLongReach) {
+      int rk[kLongReach];
+      float v[kLongReach][D];
+#pragma unroll
+      for (int j = 0; j < kLongReach; ++j) {  // ranks and rows, all in flight
+        const long long q = q0 + j * kThreads;
+        if (q < kSpan) {
+          rk[j] = rank_s[q + 1];
+          if (rk[j] == r) load_row<D, D>(rows_s + q * D, v[j]);
+        } else if (beyond && t0 + q < n) {
+          rk[j] = r_in[t0 + q];
+          load_global_row<D>(d_in + (t0 + q) * D, vec, v[j]);
+        } else {
+          rk[j] = n;
+        }
+      }
+      bool stop = false;
+#pragma unroll
+      for (int j = 0; j < kLongReach; ++j) {
+        if (rk[j] == r) {
+#pragma unroll
+          for (int c = 0; c < D; ++c) acc[c] += v[j][c];
+        } else {
+          stop = true;  // monotone: every later row is past the run too
+        }
+      }
+      if (__syncthreads_or(stop)) break;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) {
+        acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < D; ++c) part[warp][c] = acc[c];
     }
     __syncthreads();
-    if (warp == 0) {
-      // inclusive scan of the warps' totals, then shift by one: the prefix
-      // entering warp w, with the carry from the previous tile in front
-      int wf = lane < kWarps ? warp_f[lane] : 1;
-      float wv[D];
+    if (tid == 0) {
+      float sum[D];
 #pragma unroll
-      for (int c = 0; c < D; ++c) wv[c] = lane < kWarps ? warp_v[lane][c] : 0.0f;
-      warp_scan<D>(lane, wf, wv);
-      int ef = __shfl_up_sync(0xffffffffu, wf, 1);
-      float ev[D];
+      for (int c = 0; c < D; ++c) sum[c] = part[0][c];
+      for (int w = 1; w < kThreads / 32; ++w) {
 #pragma unroll
-      for (int c = 0; c < D; ++c) ev[c] = __shfl_up_sync(0xffffffffu, wv[c], 1);
-      if (lane == 0) {
-        ef = 0;
-#pragma unroll
-        for (int c = 0; c < D; ++c) ev[c] = 0.0f;
+        for (int c = 0; c < D; ++c) sum[c] += part[w][c];
       }
-      float cv[D];
-#pragma unroll
-      for (int c = 0; c < D; ++c) cv[c] = carry[c];
-      combine<D>(1, cv, ef, ev);
-      if (lane < kWarps) {
-#pragma unroll
-        for (int c = 0; c < D; ++c) warp_v[lane][c] = ev[c];
-      }
+      store_row<D>(o_out + static_cast<long long>(r) * D, sum);
     }
-    __syncthreads();
-    float pv[D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) pv[c] = warp_v[warp][c];
-    combine<D>(1, pv, f, v);
-
-    if (live && (i == n - 1 || r[i + 1] != seg)) {  // last row of its run
-      float* o = out + (base + seg) * D;
-#pragma unroll
-      for (int c = 0; c < D; ++c) o[c] = v[c];
-    }
-    if (tid == kThreads - 1) {
-#pragma unroll
-      for (int c = 0; c < D; ++c) carry[c] = v[c];
-    }
-    // The next tile's first barrier orders the carry write before warp 0
-    // reads it, and warp 0's rewrite of warp_v after every read above.  A
-    // lane 31 rewrites its own warp's entry before that barrier, but only
-    // after the full-warp shuffles of its scan, which its warp's reads of
-    // the entry above precede.
+    // thread 0 reads `part` before the next walk's barrier; every warp
+    // writes it only after that barrier
   }
 }
 
@@ -266,52 +440,6 @@ __device__ __forceinline__ unsigned match_lanes(int r, int bits) {
     peers &= one ? ones : ~ones;
   }
   return peers;
-}
-
-// A row of D floats from p into v, and back: 16-byte accesses where the
-// row's alignment A (in floats: D for rows packed from a 16-byte aligned
-// base, 1 if unknown) allows, else 8-byte or 4-byte ones.
-template <int A, int D>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[D]) {
-  if constexpr (A % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < D; c += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(p + c);
-      v[c] = q.x;
-      v[c + 1] = q.y;
-      v[c + 2] = q.z;
-      v[c + 3] = q.w;
-    }
-  } else if constexpr (A % 2 == 0) {
-#pragma unroll
-    for (int c = 0; c < D; c += 2) {
-      const float2 q = *reinterpret_cast<const float2*>(p + c);
-      v[c] = q.x;
-      v[c + 1] = q.y;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < D; ++c) v[c] = p[c];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* p, const float (&v)[D]) {
-  if constexpr (D % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < D; c += 4) {
-      *reinterpret_cast<float4*>(p + c) =
-          make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
-    }
-  } else if constexpr (D % 2 == 0) {
-#pragma unroll
-    for (int c = 0; c < D; c += 2) {
-      *reinterpret_cast<float2*>(p + c) = make_float2(v[c], v[c + 1]);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < D; ++c) p[c] = v[c];
-  }
 }
 
 // Start copying a cloud's n rows of D floats into shared memory (cp.async:
@@ -597,25 +725,29 @@ int launch_segment_sum(const float* data, const int* rank, float* out,
 
 }  // namespace
 
-// data: (b, n, d) f32, rank: (b, n) int32, out: (b, n, d) f32 zeroed by the
-// caller.  Returns a cudaError_t code (0 on success).
+// data: (b, n, d) f32, rank: (b, n) int32, out: (b, n, d) f32, 16-byte
+// aligned, every row written (no need to initialise it); tiles: the tiles a
+// cloud, ceil(n / 1024), as the caller's plan counts them.  Returns a
+// cudaError_t code (0 on success).
 extern "C" int pcp_sorted_segment_sum(const float* data, const int* rank,
                                       float* out, long long b, long long n,
-                                      int d, void* stream) {
+                                      int d, int tiles, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (b < 0 || n < 0 || n > 0x7fffffffLL || b > 0x7fffffffLL) {
+  if (b < 0 || n < 0 || n > 0x7fffffffLL ||
+      tiles != (n + kTileRows - 1) / kTileRows ||
+      b * tiles > 0x7fffffffLL || reinterpret_cast<uintptr_t>(out) % 16) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned blocks = static_cast<unsigned>(b);
+  const unsigned blocks = static_cast<unsigned>(b * tiles);
   switch (d) {
     case 4:
       sorted_segment_sum_kernel<4><<<blocks, kThreads, 0, s>>>(
-          data, rank, out, static_cast<int>(n));
+          data, rank, out, static_cast<int>(n), tiles);
       break;
     case 5:
       sorted_segment_sum_kernel<5><<<blocks, kThreads, 0, s>>>(
-          data, rank, out, static_cast<int>(n));
+          data, rank, out, static_cast<int>(n), tiles);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C signatures of each library's entry points: {name: argtypes}
 _ENTRY = {
-    "voxel_reduce": {"pcp_sorted_segment_sum": [_P, _P, _P, _L, _L, _I, _P],
+    "voxel_reduce": {"pcp_sorted_segment_sum": [_P, _P, _P, _L, _L, _I, _I, _P],
                      "pcp_segment_sum": [_P, _P, _P, _P, _L, _L, _I, _P]},
     "fps": {"pcp_fps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             "pcp_fps_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
@@ -52,7 +52,8 @@ _ENTRY = {
     },
     "window_normals": {
         "pcp_window_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
-    "gather_maxmin": {"pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _P]},
+    "gather_maxmin": {
+        "pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -5,9 +5,12 @@ Counterparts of ``pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py``:
 
 - :func:`sorted_segment_reduce` (``sorted_segment_reduce_pallas``'s banded
   kernel): a monotone rank. The TPU kernel contracts generated one-hot slabs
-  on the MXU with a bf16 hi/lo split of the data; on the H100 it is a
-  segmented prefix sum in plain fp32 over the contiguous runs, one block per
-  cloud, whose time does not depend on the run lengths.
+  on the MXU with a bf16 hi/lo split of the data; on the H100 a block owns
+  a tile of ``TILE_ROWS`` rows and the runs headed in it: a thread sums a
+  run of up to ``SHORT_RUN`` rows in row order, the block a longer one,
+  and each run's warp writes the empty rows below it as zeros, so the
+  output needs no zero fill.
+  :func:`sorted_sum_plan` spells out who writes which output row.
 - :func:`segment_reduce` (``segment_reduce_pallas``): any rank. A stable
   counting sort per cloud, one block a cloud: per-warp counts of the ranks,
   a scan into segment starts, a stable placement of the row indices, then
@@ -44,6 +47,48 @@ def segment_reduce_reference(data: torch.Tensor, rank: torch.Tensor) -> torch.Te
 
 #: kernel 1's plain version: the same function, on a monotone rank
 sorted_segment_reduce_reference = segment_reduce_reference
+
+
+#: kernel 1's plan (``csrc/voxel_reduce.cu`` holds the same constants): a
+#: block of WALK_THREADS threads owns TILE_ROWS rows of a cloud; a run of at
+#: most SHORT_RUN rows is summed by its head's thread, a longer one by the
+#: block, thread t adding rows head + t + j WALK_THREADS in order of j
+TILE_ROWS = 1024
+WALK_THREADS = 256
+SHORT_RUN = 32
+
+
+def sorted_sum_tiles(n: int) -> int:
+    """Kernel 1's blocks a cloud of n rows: one a tile of ``TILE_ROWS``."""
+    return -(-n // TILE_ROWS)
+
+
+def sorted_sum_plan(rank) -> list[tuple[int, str, int, int, int]]:
+    """Who writes each output row of one cloud in kernel 1, for a monotone
+    rank (n,) in [0, n): ``(row, kind, tile, lo, hi)`` for each write, kind
+    'thread' or 'block' for the sum of the run rows [lo, hi) (rank ``row``),
+    summed by its head's thread or by the head's tile, or 'zero' for an
+    empty row, written by the tile of the run above it (or of row n - 1
+    above the last rank; lo = hi = that row): by the head's lane, or its
+    warp where the empty range is long. ``tile`` is the owning block's
+    tile, ``lo // TILE_ROWS`` for a run."""
+    rank = [int(r) for r in rank]
+    n = len(rank)
+    writes = []
+    for i, r in enumerate(rank):
+        prev = rank[i - 1] if i else -1
+        if prev != r:  # a head
+            end = i + 1
+            while end < n and rank[end] == r:
+                end += 1
+            kind = "thread" if end - i <= SHORT_RUN else "block"
+            writes.append((r, kind, i // TILE_ROWS, i, end))
+            writes += [(k, "zero", i // TILE_ROWS, i, i)
+                       for k in range(prev + 1, r)]
+    if n:
+        writes += [(k, "zero", (n - 1) // TILE_ROWS, n - 1, n - 1)
+                   for k in range(rank[-1] + 1, n)]
+    return writes
 
 
 #: the any-rank kernel's shared-memory form takes up to this many rows a
@@ -89,16 +134,18 @@ def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
 
 
 def _launch(entry: str, data: torch.Tensor, rank: torch.Tensor,
-            out: torch.Tensor, *scratch) -> None:
+            out: torch.Tensor, *scratch, tiles: int | None = None) -> None:
     """Launch ``entry`` on PyTorch's current stream; ``scratch``: the
-    pointers an entry takes between ``out`` and the shapes."""
+    pointers an entry takes between ``out`` and the shapes; ``tiles``: kernel
+    1's tiles a cloud, which its entry takes after the shapes."""
     b, n, d = data.shape
     lib = build.load("voxel_reduce")
+    grid = () if tiles is None else (tiles,)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
             data.data_ptr(), rank.data_ptr(), out.data_ptr(), *scratch, b, n,
-            d, stream
+            d, *grid, stream
         )
     build.check(lib, code, f"{entry} launch")
 
@@ -117,8 +164,9 @@ def sorted_segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tenso
     if data.device.type != "cuda":
         raise ValueError(f"no segment-sum kernel for device {data.device}")
     _check(data, rank, (4, 5))
-    out = torch.zeros_like(data)
-    _launch("pcp_sorted_segment_sum", data, rank, out)
+    out = torch.empty_like(data)  # the kernel writes every row
+    _launch("pcp_sorted_segment_sum", data, rank, out,
+            tiles=sorted_sum_tiles(data.shape[1]))
     sorted_segment_reduce.launches += 1
     return out
 

@@ -65,3 +65,92 @@ def test_gather_rows_matches_jax():
     got = gather_rows(torch.from_numpy(x), torch.from_numpy(idx)).numpy()
     assert got.shape == (2, 7, 3, 5)
     np.testing.assert_array_equal(got, want)
+
+
+def test_gather_form_slices_and_blocks():
+    """The shared form takes the largest slice that fits and gives about a
+    block an SM: at DGCNN's 64 clouds of 1,024 points, S 32 at every edge
+    width (128 blocks at w 64) and at w 96; S 4 at w 3; S 8 at 16 clouds
+    of w 64."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
+        MIN_BLOCKS,
+        gather_form,
+    )
+
+    assert MIN_BLOCKS == 128
+    for w in (64, 128, 256, 96):
+        assert gather_form(64, 1024, w) == ("shared", 32)
+    assert gather_form(64, 1024, 3) == ("shared", 4)
+    assert gather_form(16, 1024, 64) == ("shared", 8)
+    # b x ceil(w / S) around the block count: 64 clouds x 2 slices of 32
+    # reach it, 63 do not
+    assert gather_form(63, 1024, 64) == ("shared", 16)
+    # no slice gives enough blocks: the smallest that fits
+    assert gather_form(1, 1024, 64) == ("shared", 4)
+
+
+@pytest.mark.parametrize("s,n_max", [(32, 1816), (16, 3632), (8, 7264),
+                                     (4, 14528)])
+def test_gather_form_where_each_slice_stops_fitting(s, n_max):
+    """n x S x 4 bytes within a block's 232,448: the largest n of each
+    slice keeps it, one more point takes the next smaller slice (at w 256
+    and 128 clouds, where every slice gives enough blocks), and past S 4
+    the L2 form."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
+        SHARED_BYTES,
+        gather_form,
+    )
+
+    assert n_max * s * 4 <= SHARED_BYTES < (n_max + 1) * s * 4
+    assert gather_form(128, n_max, 256) == ("shared", s)
+    assert gather_form(128, n_max + 1, 256) == (
+        ("shared", s // 2) if s > 4 else ("l2", 0))
+
+
+def test_gather_form_refuses_empty_shapes():
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_form
+
+    for shape in ((0, 4, 4), (4, 0, 4), (4, 4, 0)):
+        with pytest.raises(ValueError):
+            gather_form(*shape)
+
+
+def test_width_no_multiple_of_the_slice_matches_jax_lane_kernel():
+    """w 40 at DGCNN's batch takes slices of 32 (one full, one of 8): the
+    plain version against the lane kernel in interpret mode at that w."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_form
+
+    form, s = gather_form(64, 1024, 40)
+    assert form == "shared" and 40 % s
+    q, idx = _case(2, 128, 40, 20, seed=40, nan=True)
+    want = jax_gather_maxmin(jnp.asarray(q), jnp.asarray(idx), interpret=True)
+    got = gather_maxmin(torch.from_numpy(q), torch.from_numpy(idx))
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+
+def test_cloud_past_the_shared_memory_matches_jax_gather_fallback():
+    """A cloud of 14,529 points fits no slice (the L2 form): the plain
+    version against the JAX function's gather fallback, k 1 and k 3."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_form
+
+    n = 14529
+    assert gather_form(1, n, 8) == ("l2", 0)
+    for k in (1, 3):
+        q, idx = _case(1, n, 8, k, seed=k, nan=True)
+        want = jax_gather_maxmin(jnp.asarray(q), jnp.asarray(idx),
+                                 allow_pallas=False)
+        got = gather_maxmin(torch.from_numpy(q), torch.from_numpy(idx))
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+
+def test_no_silent_fallback_off_cpu():
+    """Only a CPU tensor takes the plain version; any other device goes to
+    the kernel or raises (here the meta device, which has no kernel)."""
+    q = torch.zeros((1, 8, 4), device="meta")
+    idx = torch.zeros((1, 8, 2), dtype=torch.int32, device="meta")
+    before = gather_maxmin.launches
+    with pytest.raises(ValueError, match="no gather-max/min kernel"):
+        gather_maxmin(q, idx)
+    assert gather_maxmin.launches == before
