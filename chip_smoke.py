@@ -19,8 +19,12 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    long runs and on ranks that leave most buckets empty, each into a pool
    filled with NaN first, beside ``index_add_``; the pooled-chain forward
    and backward at 8x8192 and 32x1024 points, 128 -> 1024 channels, with all-zero
-   channels and with many channels winning one point; the forward on NaN
-   inputs; the backward's winner-only form through the running-statistics
+   channels and with many channels winning one point, at ragged n (1000,
+   100, 8191), one cloud, c_in 64 / 192 / 256 and c 64 / 192 / 4096, the
+   backward with a non-symmetric m, beside the GEMM alone (``torch.matmul``
+   in f32, TF32 off) as a yardstick; the forward on clouds built of 16
+   repeated rows (exact ties: argmax equal to the plain version's) and on
+   NaN inputs; the backward's winner-only form through the running-statistics
    chain's autograd Function; the window moments on Morton-ordered voxel
    output at the config-2 and config-5 shapes, on the JAX tests' edge
    cases and on every form of the kernel (a window of 14,592 candidates in
@@ -99,8 +103,10 @@ launches on its paths, error against its plain version, times and bound: ``ms``,
 function, where there is one) are device times from ``torch.profiler``, or
 null with ``"ms_source": "not traced"`` if every trace came back without
 device rows (never another clock's time); ``bound_ms`` is the larger of
-the bytes the function must move over 3.35 TB/s and its operations over
-67 TFLOP/s f32 (``bound_by`` says which). The last line is ``{"ok": true,
+the bytes the function must move over 3.35 TB/s and its operations: f32
+ones over 67 TFLOP/s, plus the pooled chain's GEMM products on the tensor
+cores over 495 TFLOP/s of dense TF32, three a product in 3xTF32
+(``bound_by`` says which). The last line is ``{"ok": true,
 "device": {...}}``.
 
 Usage: python3 chip_smoke.py
@@ -134,10 +140,11 @@ GATHER_SRC = "pointcloudprocessing_tpu_torch/csrc/gather_maxmin.cu"
 GATHER_TPU = "pointcloudprocessing_tpu/ops/pallas/gather_maxmin.py:132"
 SEG_ANY_TPU = "pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py:65"
 KC46_CONFIG = "configs/kc46_lidar_config.json"
-# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth and
-# f32 outside the tensor cores
+# the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth, f32
+# outside the tensor cores, and dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def log(msg: str) -> None:
@@ -279,13 +286,15 @@ def kernels_per_call(torch, fn, calls: int) -> str:
     return "not traced" if traced is None else f"{len(traced[0]) / calls:.1f}"
 
 
-def roofline(bytes_moved: float, operations: float) -> tuple[float, str]:
+def roofline(bytes_moved: float, operations: float,
+             tf32_operations: float = 0.0) -> tuple[float, str]:
     """The least time in ms the H100 could take for a kernel's work: the
     larger of its bytes (each input read once, each output written once)
-    over 3.35 TB/s and its operations over 67 TFLOP/s of f32, and which of
-    the two binds."""
+    over 3.35 TB/s and its operations, f32 ones over 67 TFLOP/s plus
+    tensor-core ones over 495 TFLOP/s of dense TF32 (an f32-accurate
+    product in 3xTF32 is three), and which of the two binds."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = operations / F32_OPS_PER_S * 1e3
+    t_ops = (operations / F32_OPS_PER_S + tf32_operations / TF32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -666,9 +675,16 @@ def phase_pooled_kernels(torch) -> dict:
         raise AssertionError("pooled forward took an f64, strided or 96-wide call")
     log("[3 kernels] pooled forward refuses f64, strided and 96-wide inputs "
         "before any launch")
-    cases = [(8, 8192, "some dead channels"), (32, 1024, "some dead channels"),
-             (8, 8192, "all channels dead")]
-    for b, n, label in cases:
+    # (b, n, c_in, c, label, timed): the training step's shapes first, then
+    # ragged n, one cloud, and the widths' edges
+    cases = [(8, 8192, 128, 1024, "some dead channels", True),
+             (32, 1024, 128, 1024, "some dead channels", True),
+             (8, 8192, 128, 1024, "all channels dead", True),
+             (1, 1000, 128, 1024, "ragged n, one cloud", False),
+             (4, 100, 64, 64, "ragged n, c_in 64, c 64", False),
+             (3, 8191, 192, 192, "ragged n, c_in 192, c 192", False),
+             (2, 1000, 256, 4096, "c_in 256, c 4096", False)]
+    for b, n, c_in, c, label, timed in cases:
         x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
         w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
         a = torch.rand(c, device=dev, generator=gen) + 0.5
@@ -689,8 +705,9 @@ def phase_pooled_kernels(torch) -> dict:
         err = (pooled - want).abs()
         if not bool((err <= slack).all()) or not bool((want - got_r <= slack).all()):
             raise AssertionError(
-                f"pooled forward {b}x{n} ({label}): max abs err {err.max().item():.3e}"
-                f" beyond the GEMM rounding bound, or a winner off the max")
+                f"pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs err "
+                f"{err.max().item():.3e} beyond the GEMM rounding bound, or a "
+                f"winner off the max")
         if not bool(((argmax >= 0) & (argmax < n)).all()):
             raise AssertionError("pooled forward: argmax outside [0, n)")
         dead = c_row < -1e3
@@ -698,24 +715,40 @@ def phase_pooled_kernels(torch) -> dict:
             raise AssertionError("pooled forward: a dead channel is not 0 at argmax 0")
         flips = int((argmax != want_arg).sum())
         results["fwd_err"] = max(results["fwd_err"], err.max().item())
-        fwd = functools.partial(pooled_chain_forward, x, w, a, c_row)
-        fwd_plain = functools.partial(pooled_chain_forward_reference, x, w, a, c_row)
-        ms, plain_ms = device_ms(torch, fwd, 10), device_ms(torch, fwd_plain, 10)
-        per_call = (call_ms(torch, fwd, 10), call_ms(torch, fwd_plain, 10))
+        timing = ""
+        if timed:
+            fwd = functools.partial(pooled_chain_forward, x, w, a, c_row)
+            fwd_plain = functools.partial(pooled_chain_forward_reference, x, w, a, c_row)
+            ms, plain_ms = device_ms(torch, fwd, 10), device_ms(torch, fwd_plain, 10)
+            per_call = (call_ms(torch, fwd, 10), call_ms(torch, fwd_plain, 10))
+            timing = (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per "
+                      f"call with launch kernel {per_call[0]:.4f}, plain "
+                      f"{per_call[1]:.4f}")
         log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs "
             f"err {err.max().item():.3e}; argmax flips {flips} of {b * c} (each "
-            f"within GEMM rounding of the max); device ms kernel {fmt(ms)}, plain "
-            f"{fmt(plain_ms)}; per call with launch kernel {per_call[0]:.4f}, "
-            f"plain {per_call[1]:.4f}")
+            f"within GEMM rounding of the max){timing}")
         if (b, n, label) == (8, 8192, "some dead channels"):
             results["fwd_ms"], results["fwd_plain_ms"] = ms, plain_ms
-            # the GEMM, then affine, relu and max per pre-activation
+            # the GEMM's products on the tensor cores (three a product in
+            # 3xTF32), then affine, relu and max per pre-activation
             results["fwd_bound"] = roofline(
-                nbytes(x, w, a, c_row, pooled, argmax),
-                2 * b * n * c_in * c + 3 * b * n * c)
+                nbytes(x, w, a, c_row, pooled, argmax), 3 * b * n * c,
+                3 * 2 * b * n * c_in * c)
+            # yardstick, not a library time for the kernel: the GEMM alone
+            # in full f32 (TF32 is off), without affine, relu or max
+            if torch.backends.cuda.matmul.allow_tf32:
+                raise AssertionError("TF32 matmul is on")
+            gemm = functools.partial(torch.matmul, x, w.t())
+            results["gemm_ms"] = device_ms(torch, gemm, 10)
+            log(f"[3 kernels] yardstick: the GEMM alone, torch.matmul "
+                f"{b}x{n}x{c_in} @ {c_in}x{c} in f32 with TF32 off: device ms "
+                f"{fmt(results['gemm_ms'])}, per call with launch "
+                f"{call_ms(torch, gemm, 10):.4f} (kernel {fmt(ms)})")
 
         coef = torch.randn(b, c, device=dev, generator=gen)
         m_small = torch.randn(c_in, c_in, device=dev, generator=gen) * 0.01
+        if not bool(((m_small - m_small.t()).abs() > 1e-3).any()):
+            raise AssertionError("the backward's m must not be symmetric")
         const_row = torch.randn(c_in, device=dev, generator=gen) * 0.01
         crowded = argmax.clone()
         crowded[:, ::2] = 5  # half the channels win point 5 of every cloud
@@ -734,29 +767,59 @@ def phase_pooled_kernels(torch) -> dict:
             bar_dk = 1e-5 * (1 + want_dk.abs().max().item())
             if e_dx > bar_dx or e_dk > bar_dk:
                 raise AssertionError(
-                    f"pooled backward {b}x{n} ({winners}): dx err {e_dx:.3e} "
-                    f"(bar {bar_dx:.3e}), dk err {e_dk:.3e} (bar {bar_dk:.3e})")
+                    f"pooled backward {b}x{n}x{c_in}<-{c} ({winners}): dx err "
+                    f"{e_dx:.3e} (bar {bar_dx:.3e}), dk err {e_dk:.3e} (bar "
+                    f"{bar_dk:.3e})")
             results["bwd_err"] = max(results["bwd_err"], e_dx, e_dk)
-            if label == "all channels dead":
-                continue
-            bwd = functools.partial(pooled_chain_backward, x, w, coef, am,
-                                    m_small, const_row)
-            bwd_plain = functools.partial(pooled_chain_backward_reference, x, w,
-                                          coef, am, m_small, const_row)
-            ms, plain_ms = device_ms(torch, bwd, 10), device_ms(torch, bwd_plain, 5)
-            per_call = (call_ms(torch, bwd, 10), call_ms(torch, bwd_plain, 5))
-            log(f"[3 kernels] pooled backward {b}x{n}x{c_in}<-{c} ({winners}): "
-                f"max abs err dx {e_dx:.3e}, dk {e_dk:.3e} (bars {bar_dx:.1e}, "
-                f"{bar_dk:.1e}); bit-identical on a rerun; device ms kernel "
-                f"{fmt(ms)}, plain {fmt(plain_ms)}; per call with launch kernel "
-                f"{per_call[0]:.4f}, plain {per_call[1]:.4f}")
-            if (b, n, winners) == (8, 8192, "forward's winners"):
+            timing = ""
+            if timed and label != "all channels dead":
+                bwd = functools.partial(pooled_chain_backward, x, w, coef, am,
+                                        m_small, const_row)
+                bwd_plain = functools.partial(pooled_chain_backward_reference, x, w,
+                                              coef, am, m_small, const_row)
+                ms, plain_ms = device_ms(torch, bwd, 10), device_ms(torch, bwd_plain, 5)
+                per_call = (call_ms(torch, bwd, 10), call_ms(torch, bwd_plain, 5))
+                timing = (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; "
+                          f"per call with launch kernel {per_call[0]:.4f}, plain "
+                          f"{per_call[1]:.4f}")
+            log(f"[3 kernels] pooled backward {b}x{n}x{c_in}<-{c} ({winners}, "
+                f"non-symmetric m): max abs err dx {e_dx:.3e}, dk {e_dk:.3e} "
+                f"(bars {bar_dx:.1e}, {bar_dk:.1e}); bit-identical on a rerun"
+                f"{timing}")
+            if (b, n, label, winners) == (8, 8192, "some dead channels",
+                                          "forward's winners"):
                 results["bwd_ms"], results["bwd_plain_ms"] = ms, plain_ms
-                # x@M and the row, plus one coef*W row into dx and one x row
-                # into dk per (cloud, channel) winner
+                # x@M on the tensor cores (three products each in 3xTF32) and
+                # the row, plus one coef*W row into dx and one x row into dk
+                # per (cloud, channel) winner
                 results["bwd_bound"] = roofline(
                     nbytes(x, w, coef, am, m_small, const_row, dx, dk),
-                    2 * b * n * c_in * c_in + b * n * c_in + 4 * b * c * c_in)
+                    b * n * c_in + 4 * b * c * c_in, 3 * 2 * b * n * c_in * c_in)
+
+    # exact ties: clouds built of 16 distinct rows, each repeated at many
+    # indices, so every channel's max is attained at several points and the
+    # argmax must be the first of them, as the plain version's
+    b, n, c_in, c = 8, 8192, 128, 1024
+    pool = torch.relu(torch.randn(16, c_in, device=dev, generator=gen))
+    pick = torch.randint(0, 16, (b, n), device=dev, generator=gen)
+    x = pool[pick].contiguous()
+    w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+    a = torch.rand(c, device=dev, generator=gen) + 0.5
+    c_row = torch.randn(c, device=dev, generator=gen) * 0.5
+    pooled, argmax = pooled_chain_forward(x, w, a, c_row)
+    want, want_arg = pooled_chain_forward_reference(x, w, a, c_row)
+    torch.cuda.synchronize()
+    bound = (c_in * 2.0 ** -23 * torch.matmul(x.abs(), w.abs().t()) * a.abs()).amax(1)
+    err = (pooled - want).abs()
+    if not torch.equal(argmax, want_arg) or not bool((err <= 2 * bound).all()):
+        raise AssertionError(
+            f"pooled forward on repeated rows: {int((argmax != want_arg).sum())} "
+            f"argmax differ from the plain version's, max abs err "
+            f"{err.max().item():.3e}")
+    results["fwd_err"] = max(results["fwd_err"], err.max().item())
+    log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} on clouds of 16 "
+        f"repeated rows (exact ties): argmax equal to the plain version's at all "
+        f"{b * c}; max abs err {err.max().item():.3e}")
 
     # NaN propagates as in torch.relu / amax / argmax: one NaN value in a
     # point (every channel of that cloud), and NaN BatchNorm factors (an

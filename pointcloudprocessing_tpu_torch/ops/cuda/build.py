@@ -46,9 +46,9 @@ _ENTRY = {
             "pcp_fps_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "pooled_chain": {
         "pcp_pooled_chain_forward":
-            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "pcp_pooled_chain_backward":
-            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "window_normals": {
         "pcp_window_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
