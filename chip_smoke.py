@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (``pointcloudprocessing_tpu_torch``) on one
 NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
 the PointNet training step, the preprocess with windowed PCA normals, DGCNN
-inference, and PointNet++ inference and serving at a scan width that takes
-the any-rank segment sum.
+inference, PointNet++ inference and serving at a scan width that takes
+the any-rank segment sum, and the staged trainer from AFTR frames to
+checkpoints for all three model families.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -97,6 +98,32 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    clouds/s, busy share, launches a batch. (e) ``serve.main`` over a
    PointNet++ stage at scan width 2000.
 
+10. trainer: the staged trainer end to end. Four synthetic collects (four
+   of the kc46 config's classes, each a shape of its own, 18 frames of
+   0.75-1.1 x 8,192 points labelled by azimuth sector, written through
+   ``write_aftr_frame`` with a pose log) are ingested (clouds/s), then the
+   kc46 config as it ships (vanilla 23/12, 8x8192, batch 8, both stages)
+   with 3 epochs runs through ``python -m
+   pointcloudprocessing_tpu_torch.train.cli`` in a subprocess: exit 0 and
+   the success line; each history has the 14 Keras keys, finite; ``best/``
+   and the config copy exist and ``resume/`` is gone; stage 2's frozen
+   classification head equals stage 1's best. A rerun skips both stages
+   and reuses the ingested sets. A run killed in stage 1's second epoch
+   (an ``epoch_callbacks`` hook) and resumed takes the uninterrupted
+   run's batch order exactly and its losses within phase 6's bar for one
+   step, with kernels 4 and 5 launching as often a step as phase 6 counts
+   for the same freeze flags (counted launches); the trainer's train
+   steps/s beside phase 6's bare step, val steps/s, the seconds an epoch
+   takes, and the busy share over one epoch; ``serve.main --model
+   <stage>`` answers scans from the trainer's checkpoint. PointNet++ and
+   DGCNN train one stage of 2 epochs at 8x8192 through the same trainer
+   (FPS twice a forward; kernel 7 four times a DGCNN val forward, counted;
+   the first val forward's four kernel-7 calls, 8x8192 in the S 4 slice,
+   held bit for bit against the plain version on their own inputs),
+   and a stage with ``max_in_memory_bytes`` 1 trains on
+   ``StreamingLoader`` (each epoch sees every train record once, less the
+   tail under one batch). The whole script's seconds are printed.
+
 The second-to-last line is a JSON object with each of the seven kernels'
 launches on its paths, error against its plain version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
@@ -116,8 +143,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1155,10 +1184,11 @@ def check_step_against_plain(torch, label, models, run_step, x, lr) -> dict:
                       pooled_chain_backward_reference):
         logs_p = run_step(1, x)
         logs_u = run_step(2, torch.nextafter(x, torch.full_like(x, float("inf"))))
-    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "stat": 0.0}
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "stat": 0.0, "ulp": {}}
     for key in ("loss", "classification_output_loss", "segmentation_output_loss",
                 "se3_loss"):
         k, p, u = (float(logs[key]) for logs in (logs_k, logs_p, logs_u))
+        worst["ulp"][key] = abs(p - u)
         bound = 8 * abs(p - u) + 1e-6 * abs(p) + 1e-7
         if abs(k - p) > bound:
             raise AssertionError(f"train {label}: {key} {k} through the kernels, "
@@ -1288,7 +1318,8 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
     log(f"[6 train] {label}: device ms per step by kind: " + (", ".join(
         f"{kind} {ms:.4f}" for kind, ms in kinds.items())
         + f"; total {sum(kinds.values()):.4f}" if kinds else "not traced"))
-    return {"launches": launches, "steps_per_s": rate, "kinds": kinds}
+    return {"launches": launches, "steps": num_steps, "steps_per_s": rate,
+            "kinds": kinds, "loss_ulp": worst["ulp"]}
 
 
 def phase_train(torch, rng) -> dict:
@@ -1493,7 +1524,8 @@ def phase_gather_kernel(torch, rng) -> dict:
     """Kernel 7 against its plain version at DGCNN's four edge widths (64x1024
     clouds, k 20, the graph of normal(0, 1) clouds), at w 3, 40 and 96 (no
     multiple of 32, or of the slice), with NaN in q, with k 1, and on clouds
-    of 16,384 points (the L2 form): bit-identical, with the form each took."""
+    of 16,384 points (the L2 form): bit-identical, with the form each took.
+    Phase 10 holds the 8x8192 calls of the trainer's DGCNN stage."""
     from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
         gather_form,
@@ -2243,9 +2275,489 @@ def phase_pointnet2(torch, rng) -> dict:
     return results
 
 
+# ------------------------------------------------- phase 10: staged trainer
+
+#: four of the kc46 config's classes, each a shape of its own: per-axis
+#: scales of its clouds in metres
+TRAINER_SHAPES = {"kc-46": (14.0, 1.5, 1.5), "f-15e": (6.0, 6.0, 0.8),
+                 "b-2": (3.0, 9.0, 1.0), "c-5": (5.0, 5.0, 5.0)}
+TRAINER_FRAMES = 18  # a collect: 2 test, 3 val, 13 train clouds
+
+
+def write_trainer_collect(root: str, class_name: str, parts: list, width: int,
+                         seed: int) -> str:
+    """A collect in the AftrBurner layout through the port's
+    ``write_aftr_frame``: ``Lidar/frame_N.txt`` of 0.75-1.1 x ``width``
+    points labelled with the class and the part of their azimuth sector, and
+    the ``_palindrome_state__*.log`` pose log that ``parse_state_info``
+    reads (identity sensor pose, a tanker pose yawed at random)."""
+    from pointcloudprocessing_tpu_torch.data.frames import write_aftr_frame
+
+    rng = np.random.default_rng(seed)
+    collect = os.path.join(root, f"collect_{class_name}")
+    os.makedirs(os.path.join(collect, "Lidar"))
+    lines = ["Time   Frame   Sensor Pose   Tanker Pose"]
+    for i in range(TRAINER_FRAMES):
+        tanker = np.eye(4)
+        yaw = rng.uniform(-np.pi, np.pi)
+        tanker[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+        tanker[:3, 3] = rng.uniform(-5, 5, 3)
+        blocks = " ".join(" ".join(str(v) for v in m.T.ravel())
+                          for m in (np.eye(4), tanker))
+        lines.append(f"2026.Jan.01_00.00.{i:02d}.0000000.UTC {i} {blocks}")
+        n = int(rng.integers(int(0.75 * width), int(1.1 * width)))
+        pts = (rng.normal(size=(n, 3)) * TRAINER_SHAPES[class_name]).astype(np.float32)
+        sector = (np.arctan2(pts[:, 1], pts[:, 0]) + np.pi) / (2 * np.pi) * len(parts)
+        part = np.asarray(parts)[np.minimum(sector.astype(int), len(parts) - 1)]
+        write_aftr_frame(os.path.join(collect, "Lidar", f"frame_{i}.txt"), pts,
+                         np.stack([np.full(n, class_name), part], axis=1))
+    with open(os.path.join(collect, "_palindrome_state__2026.Jan.01.UTC.log"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return os.path.basename(collect)
+
+
+def trainer_config(root: str, datasets: list, model_dir: str, *, epochs: int,
+                  stages=None, model: str | None = None) -> str:
+    """The kc46 config (``configs/kc46_lidar_config.json``) as it ships, with
+    its file system in ``root``, the synthetic collects as every stage's
+    datasets and ``epochs`` set; optionally fewer stages and another model
+    family. Returns the config file's path."""
+    with open(os.path.join(REPO, KC46_CONFIG)) as f:
+        config = json.load(f)
+    profiles = config["info"]["training_profiles"]
+    for name in list(profiles):
+        if stages is not None and name not in stages:
+            del profiles[name]
+        else:
+            profiles[name]["datasets"] = {str(i): d for i, d in enumerate(datasets)}
+    config["params"]["epochs"] = epochs
+    if model is not None:
+        config["params"]["model"] = model
+    config["file_system"] = {"model_path": os.path.join(root, model_dir) + "/",
+                             "input_path": os.path.join(root, "input") + "/",
+                             "data_path": os.path.join(root, "data") + "/"}
+    for path in (config["file_system"]["model_path"], config["file_system"]["data_path"]):
+        os.makedirs(path, exist_ok=True)
+    path = os.path.join(root, model_dir, f"{config['info']['name']}_config.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """Set ``obj.name`` to ``value`` while the block runs."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def recording_batches(cls, seen: list):
+    """``cls.batches`` patched, while the block runs, to append (split size,
+    epoch, a device copy of x) for every batch it yields."""
+    batches = cls.batches
+
+    def recording(self, *args, **kwargs):
+        for x, targets in batches(self, *args, **kwargs):
+            seen.append((len(self), kwargs.get("epoch"), x.clone()))
+            yield x, targets
+    return patched(cls, "batches", recording)
+
+
+#: the trainer's epoch line: the train and val loops' seconds
+EPOCH_LINE = re.compile(r"^Epoch \d+/\d+ \[\w+\] [\d.]+s "
+                        r"\(train loop ([\d.]+)s, val loop ([\d.]+)s\)")
+
+
+def epoch_times(messages: list, steps: int, val_steps: int) -> dict:
+    """Train and val steps/s and the seconds of an epoch's train and val
+    loops, from the trainer's epoch lines (its own clock: each loop from
+    the loader's start to the sync that reads its logs)."""
+    out = {"train": [], "val": [], "epoch_s": []}
+    for m in messages:
+        if (hit := EPOCH_LINE.match(m)):
+            train_s, val_s = float(hit[1]), float(hit[2])
+            out["train"].append(steps / train_s)
+            out["val"].append(val_steps / val_s)
+            out["epoch_s"].append(train_s + val_s)
+    return out
+
+
+@contextlib.contextmanager
+def record_gather(calls: list, keep: int):
+    """Keep copies of (q, idx, the kernel's output) of the first ``keep``
+    kernel-7 calls the DGCNN edge block makes while the block runs; each
+    call launches and counts as it would."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+
+    real = dgcnn_mod.gather_maxmin
+
+    def recording(q, idx):
+        out = real(q, idx)
+        if len(calls) < keep:
+            calls.append((q.clone(), idx.clone(), tuple(t.clone() for t in out)))
+        return out
+    with route_gather(recording):
+        yield calls
+
+
+def check_stage_gathers(torch, calls: list) -> float:
+    """Each recorded kernel-7 call of the trainer's DGCNN stage against the
+    plain version on its own inputs: bit-identical, logged with its form and
+    device times. Returns the largest difference (0 when bit-identical)."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
+        gather_form,
+        gather_maxmin,
+        gather_maxmin_reference,
+    )
+
+    worst = 0.0
+    for q, idx, got in calls:
+        want = gather_maxmin_reference(q, idx)
+        (b, n, w), k = q.shape, idx.shape[2]
+        name = f"{b}x{n}x{w} k{k}"
+        if not all(check_bit_identical(torch, g, wt) for g, wt in zip(got, want)):
+            raise AssertionError(f"trainer dgcnn: gather_maxmin {name} is not "
+                                 "bit-identical to its plain version")
+        for g, wt in zip(got, want):
+            finite = ~torch.isnan(wt)
+            worst = max(worst, (g[finite] - wt[finite]).abs().max().item())
+        ms = device_ms(torch, functools.partial(gather_maxmin, q, idx), 20)
+        plain_ms = device_ms(torch, functools.partial(gather_maxmin_reference, q, idx), 3)
+        bound = roofline(nbytes(q, idx, *got), 2 * b * n * k * w)
+        form, slice_ = gather_form(b, n, w)
+        log(f"[10 trainer] dgcnn val forward's gather_maxmin {name}, {form} form"
+            + (f" S {slice_}" if slice_ else "") + ": bit-identical to the plain "
+            f"version on the stage's own q and graph; device ms kernel {fmt(ms)}, "
+            f"plain {fmt(plain_ms)}; bound {bound[0]:.4f} ms ({bound[1]})")
+    return worst
+
+
+def check_histories(label: str, got: dict, want: dict | None, epochs: int,
+                    loss_ulp: dict) -> float:
+    """Each history has the 14 Keras keys, ``epochs`` finite entries each;
+    against ``want`` every loss within phase 6's bar for one step (8x the
+    plain step's one-ulp change of that loss + 1e-6 |loss| + 1e-7) and
+    every accuracy equal. Returns the largest difference of any entry."""
+    from pointcloudprocessing_tpu_torch.train.profile import HISTORY_KEYS
+
+    keys = set(HISTORY_KEYS) | {f"val_{k}" for k in HISTORY_KEYS}
+    if set(got) != keys or any(len(v) != epochs or not np.isfinite(v).all()
+                               for v in got.values()):
+        raise AssertionError(f"trainer {label}: history keys or values "
+                             f"{ {k: v for k, v in got.items()} }")
+    if want is None:
+        return 0.0
+    worst = 0.0
+    for key, values in got.items():
+        for g, w in zip(values, want[key]):
+            worst = max(worst, abs(g - w))
+            base = key.removeprefix("val_")
+            if base in loss_ulp:
+                bound = 8 * loss_ulp[base] + 1e-6 * abs(w) + 1e-7
+            elif "accuracy" in key:
+                bound = 0.0
+            else:  # se3 RMSE: the se3 loss's bar, through the square root
+                bound = 8 * loss_ulp["se3_loss"] ** 0.5 + 1e-6 * abs(w) + 1e-7
+            if abs(g - w) > bound:
+                raise AssertionError(f"trainer {label}: {key} {g} against {w} "
+                                     f"(bar {bound:.3e})")
+    return worst
+
+
+def stage_log(name: str):
+    """A handler collecting the trainer's log lines for config ``name``."""
+    import logging
+
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    return logging.getLogger(f"train.{name}"), handler, messages
+
+
+def phase_trainer(torch, rng, trained: dict) -> dict:
+    """Phase 10: the staged trainer end to end on the card."""
+    from pointcloudprocessing_tpu_torch import serve
+    from pointcloudprocessing_tpu_torch.data.loader import DeviceLoader, StreamingLoader
+    from pointcloudprocessing_tpu_torch.data.pointcloudset import (
+        PointCloudSet,
+        load_from_file,
+    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward,
+        pooled_chain_forward,
+    )
+    from pointcloudprocessing_tpu_torch.train.callbacks import load_checkpoint
+    from pointcloudprocessing_tpu_torch.train.profile import TrainProfile
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(REPO, KC46_CONFIG)) as f:
+        kc46 = json.load(f)
+    name = kc46["info"]["name"]
+    width, batch = kc46["params"]["input_width"], kc46["params"]["batch_size"]
+    classes = list(kc46["info"]["class_labels"].values())
+    parts = list(kc46["info"]["part_labels"].values())
+    stages = list(kc46["info"]["training_profiles"])
+    out = {"launches": {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0}}
+
+    def reset():
+        for fn in (pooled_chain_forward, pooled_chain_backward, fps_with_points,
+                   gather_maxmin):
+            fn.launches = 0
+
+    def read():
+        got = {"fwd": pooled_chain_forward.launches, "bwd": pooled_chain_backward.launches,
+               "fps": fps_with_points.launches, "gather": gather_maxmin.launches}
+        for k, v in got.items():
+            out["launches"][k] += v
+        return got
+
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the collects, and ingest alone (the native one-pass path)
+        t0 = time.perf_counter()
+        datasets = [write_trainer_collect(os.path.join(root, "input"), c, parts, width,
+                                         seed=k) for k, c in enumerate(TRAINER_SHAPES)]
+        write_s = time.perf_counter() - t0
+        probe_set = PointCloudSet("ingest_probe", classes, parts, width, batch_size=batch,
+                                  rand_seed=42, print_func=lambda m: None,
+                                  data_path=os.path.join(root, "probe") + "/")
+        t0 = time.perf_counter()
+        for d in datasets:
+            probe_set.add_from_aftr_output(os.path.join(root, "input", d))
+        ingest_s = time.perf_counter() - t0
+        clouds = sum(probe_set.split_count(s) for s in ("train", "val", "test"))
+        if clouds != len(datasets) * TRAINER_FRAMES:
+            raise AssertionError(f"trainer: ingested {clouds} clouds")
+        log(f"[10 trainer] {len(datasets)} collects x {TRAINER_FRAMES} frames of "
+            f"{int(0.75 * width)}-{int(1.1 * width)} points written in {write_s:.1f} s; "
+            f"ingest (PointCloudSet, native one-pass) {clouds} clouds in "
+            f"{ingest_s:.3f} s: {clouds / ingest_s:.1f} clouds/s")
+
+        # (b) the kc46 curriculum through the CLI, in a subprocess
+        cfg_path = trainer_config(root, datasets, "models", epochs=3)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "pointcloudprocessing_tpu_torch.train.cli", cfg_path],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0 or "Model training completed successfully." not in run.stdout:
+            raise AssertionError(f"trainer: the CLI exited {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+        stage_dirs = {s: os.path.join(root, "models", name, s) for s in stages}
+        histories = {}
+        for s, d in stage_dirs.items():
+            with open(os.path.join(d, f"{name}_{s}_history.json")) as f:
+                histories[s] = json.load(f)
+            check_histories(f"CLI {s}", histories[s], None, 3, {})
+            if not (os.path.isfile(os.path.join(d, "best", "model.pt"))
+                    and os.path.isfile(os.path.join(d, os.path.basename(cfg_path)))
+                    and not os.path.exists(os.path.join(d, "resume"))):
+                raise AssertionError(f"trainer: stage {s} artifacts {os.listdir(d)}")
+        first, second = (load_checkpoint(stage_dirs[s]) for s in stages)
+        head = [k for k in first if k.startswith("mlp_cls")]
+        if not head or any(not torch.equal(first[k], second[k]) for k in head):
+            raise AssertionError("trainer: stage 2 did not start from stage 1's best "
+                                 "(its frozen classification head moved)")
+        log(f"[10 trainer] CLI kc46 ({'vanilla' if kc46['params']['vanilla'] else 'full'} "
+            f"{len(classes)}/{len(parts)}, {batch}x{width}, stages {stages}, 3 epochs "
+            f"each): exit 0 in {cli_s:.1f} s; histories with the 14 Keras keys, finite; "
+            f"best/ and the config copy written, resume/ gone; stage 2's frozen "
+            f"classification head equals stage 1's best ({len(head)} tensors); "
+            + "; ".join(f"{s} loss {h['loss'][0]:.4f} -> {h['loss'][-1]:.4f}, "
+                        f"val_loss {h['val_loss'][-1]:.4f}" for s, h in histories.items()))
+
+        # (c) a rerun skips both stages and reuses the ingested sets
+        logger, handler, messages = stage_log(name)
+        logger.addHandler(handler)
+        try:
+            t0 = time.perf_counter()
+            again = TrainProfile(cfg_path, log_to_file=False).train()
+        finally:
+            logger.removeHandler(handler)
+        if (again != histories
+                or sum("already completed" in m for m in messages) != len(stages)
+                or sum("Using existing profile" in m for m in messages) != len(stages)
+                or any(m.startswith("Adding data set") for m in messages)):
+            raise AssertionError("trainer: the rerun retrained or re-ingested")
+        log(f"[10 trainer] rerun: both stages skipped, both ingested sets reused "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+        # (d) killed in stage 1's second epoch, then resumed: counted launches
+        resume_cfg = trainer_config(root, datasets, "models_resume", epochs=3)
+        pc = {s: load_from_file(os.path.join(root, "data", f"{name}_{s}", "pc_set.joblib"))
+              for s in stages}
+        train_n = pc[stages[0]].split_count("train")
+        steps_per_epoch = train_n // batch
+        val_steps = max(pc[stages[0]].split_count("val") // batch, 1)
+
+        def kill(stage, epoch, logs):
+            if stage == stages[0] and epoch == 1:
+                raise KeyboardInterrupt("killed after epoch 1")
+
+        seen: list = []
+        logger, handler, messages = stage_log(name)
+        reset()
+        # ---- the main path (the trainer, killed and resumed): counted launches
+        with recording_batches(DeviceLoader, seen):
+            tp = TrainProfile(resume_cfg, log_to_file=False)
+            tp.epoch_callbacks.append(kill)
+            try:
+                tp.train()
+                raise AssertionError("trainer: the kill hook did not fire")
+            except KeyboardInterrupt:
+                pass
+            logger.addHandler(handler)
+            try:
+                resumed_histories = TrainProfile(resume_cfg, log_to_file=False).train()
+            finally:
+                logger.removeHandler(handler)
+        torch.cuda.synchronize()
+        launches = read()
+        # ---- the main path ends here
+        train_steps = steps_per_epoch * (2 + 2 + 3)  # killed 0-1, resumed 1-2, stage 2
+        per_step = {k: launches[k] / train_steps for k in ("fwd", "bwd")}
+        want_per_step = {k: trained["A"]["launches"][k] / trained["A"]["steps"]
+                         for k in ("fwd", "bwd")}
+        if per_step != want_per_step:
+            raise AssertionError(f"trainer: pooled launches a train step {per_step}, "
+                                 f"phase 6 counts {want_per_step}")
+        # both stages' sets hold the same collects, ingested with seed 42: one
+        # reference order serves both
+        arrays = pc[stages[0]].load_split_arrays("train")
+        reference = DeviceLoader(arrays, batch, seed=42)
+        want_rows = [row for e in range(3) for row in
+                     itertools.islice(reference._batch_indices(e), steps_per_epoch)]
+        want_rows = want_rows[:2 * steps_per_epoch] + want_rows[steps_per_epoch:] + want_rows
+        got_x = [x for n, e, x in seen if n == train_n]
+        if len(got_x) != len(want_rows) or any(
+                not np.array_equal(x.cpu().numpy(), arrays["observations"][row])
+                for x, row in zip(got_x, want_rows)):
+            raise AssertionError("trainer: the resumed run's batches differ from the "
+                                 "seeded loader's order")
+        worst = max(check_histories(f"resumed {s}", resumed_histories[s],
+                                    histories[s], 3, trained["A"]["loss_ulp"])
+                    for s in stages)
+        log(f"[10 trainer] killed in stage 1's epoch 2 (an epoch_callbacks hook), "
+            f"resumed: batch order equal to the uninterrupted run's "
+            f"({len(want_rows)} train batches: epochs 1-2 killed, 2-3 resumed, "
+            f"then stage 2's 1-3); histories of both "
+            f"stages against the CLI run's: largest difference {worst:.3e} (bar: "
+            f"phase 6's for one step, 8x its one-ulp loss change + floors; "
+            f"accuracies equal); pooled launches {launches['fwd']} / {launches['bwd']} "
+            f"over {train_steps} train steps: {per_step['fwd']:g} / {per_step['bwd']:g} "
+            f"a step, as phase 6 case A (same freeze flags)")
+        times = epoch_times(messages, steps_per_epoch, val_steps)
+        rate = float(np.median(times["train"]))
+        log(f"[10 trainer] train steps/s of the resumed run, {steps_per_epoch}-step "
+            f"epochs (loader start, steps, log sync; {batch}x{width}) "
+            f"median {rate:.3f} over {len(times['train'])} epochs "
+            f"({', '.join(f'{r:.2f}' for r in times['train'])}) beside phase 6's bare "
+            f"step {trained['A']['steps_per_s']:.3f}; val steps/s median "
+            f"{float(np.median(times['val'])):.3f}; seconds an epoch ({steps_per_epoch} "
+            f"train + {val_steps} val steps, as the trainer logs it) median "
+            f"{float(np.median(times['epoch_s'])):.3f}")
+
+        # (e) the device's busy share over one epoch of the trainer
+        busy_cfg = trainer_config(root, datasets, "models_busy", epochs=1,
+                                 stages=[stages[-1]])
+        share = busy_share(torch, lambda: TrainProfile(busy_cfg, log_to_file=False).train())
+        log(f"[10 trainer] device busy share over one epoch of stage {stages[-1]} "
+            f"(model build, {steps_per_epoch} train and {val_steps} val steps, "
+            f"checkpoints): {share}")
+
+        # (f) serve.main over the trainer's own checkpoint
+        pred = os.path.join(root, "pred.jsonl")
+        rc = serve.main(["--model", stage_dirs[stages[-1]], "--input",
+                         os.path.join(root, "input", datasets[0]), "--output", pred,
+                         "--batch", str(batch), "--device", "cuda"])
+        with open(pred) as f:
+            records = [json.loads(line) for line in f]
+        if rc != 0 or len(records) != TRAINER_FRAMES or any(
+                r["class"] not in classes or sum(r["part_counts"].values()) != width
+                for r in records):
+            raise AssertionError(f"trainer: serve rc {rc}, {len(records)} records")
+        log(f"[10 trainer] serve.main --model {stages[-1]}/ (best/model.pt, the "
+            f"trainer's checkpoint): {len(records)} scans answered")
+
+        # (g) PointNet++ and DGCNN through the same step, one stage of 2 epochs
+        for family, kernel, per_forward in (("pointnet2", "fps", 2),
+                                            ("dgcnn", "gather", 4)):
+            fam_cfg = trainer_config(root, datasets, f"models_{family}", epochs=2,
+                                    stages=[stages[-1]], model=family)
+            gathers: list = []
+            recording = record_gather(gathers, 4) if family == "dgcnn" else \
+                contextlib.nullcontext()
+            reset()
+            t0 = time.perf_counter()
+            # ---- the main path (a family through the trainer): counted launches
+            with recording:
+                hist = TrainProfile(fam_cfg, log_to_file=False).train()[stages[-1]]
+            torch.cuda.synchronize()
+            got = read()
+            # ---- the main path ends here
+            seconds = time.perf_counter() - t0
+            check_histories(family, hist, None, 2, {})
+            forwards = 2 * (steps_per_epoch + val_steps) if family == "pointnet2" \
+                else 2 * val_steps  # DGCNN's train forward gathers rows instead
+            if got[kernel] != per_forward * forwards:
+                raise AssertionError(f"trainer {family}: {kernel} launches "
+                                     f"{got[kernel]}, want {per_forward} x {forwards}")
+            log(f"[10 trainer] {family} 23/12 at {batch}x{width} (stage {stages[-1]}, "
+                f"2 epochs) in {seconds:.1f} s: loss {hist['loss'][0]:.4f} -> "
+                f"{hist['loss'][-1]:.4f}; kernel {'2 (FPS)' if kernel == 'fps' else '7'} "
+                f"launches {got[kernel]} = {per_forward} x {forwards} "
+                f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}")
+            if family == "dgcnn":
+                if [q.shape[2] for q, _, _ in gathers] != [64, 64, 128, 256]:
+                    raise AssertionError("trainer dgcnn: recorded gathers of widths "
+                                         f"{[q.shape[2] for q, _, _ in gathers]}")
+                out["gather_err"] = check_stage_gathers(torch, gathers)
+                del gathers
+
+        # (h) the streaming loader feeding the card
+        stream_cfg = trainer_config(root, datasets, "models_stream", epochs=2,
+                                   stages=[stages[-1]])
+        seen = []
+        tp = TrainProfile(stream_cfg, log_to_file=False)
+        tp._pc_sets[stages[-1]].max_in_memory_bytes = 1  # every split streams
+        reset()
+        # ---- the main path (the trainer on the streaming loader): counted launches
+        with recording_batches(StreamingLoader, seen):
+            hist = tp.train()[stages[-1]]
+        torch.cuda.synchronize()
+        got = read()
+        # ---- the main path ends here
+        check_histories("streaming", hist, None, 2, {})
+        train_split = pc[stages[-1]].split_count("train")
+        for epoch in range(2):
+            prints = np.concatenate([x.sum(dim=(1, 2)).double().cpu().numpy()
+                                     for n, e, x in seen if n == train_split and e == epoch])
+            if len(prints) != train_split - train_split % batch or \
+                    len(np.unique(prints)) != len(prints):
+                raise AssertionError(f"trainer streaming: epoch {epoch} saw "
+                                     f"{len(prints)} clouds, {len(np.unique(prints))} "
+                                     f"distinct")
+        if got["fwd"] != 2 * steps_per_epoch * per_step["fwd"]:
+            raise AssertionError(f"trainer streaming: pooled launches {got}")
+        log(f"[10 trainer] streaming stage ({stages[-1]}, max_in_memory_bytes 1: "
+            f"StreamingLoader on every split), 2 epochs: each epoch saw "
+            f"{train_split - train_split % batch} distinct train records of "
+            f"{train_split} (the tail under one batch dropped); loss "
+            f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; pooled launches "
+            f"{got['fwd']} / {got['bwd']}")
+    log(f"[10 trainer] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs only on a GPU",
               file=sys.stderr)
@@ -2277,9 +2789,10 @@ def main() -> int:
     dgcnn = phase_dgcnn(torch, rng)
     any_rank = phase_any_rank_kernel(torch, rng)
     pn2 = phase_pointnet2(torch, rng)
+    trainer = phase_trainer(torch, rng, trained)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
-        for k in ("fwd", "bwd")}
+        + trainer["launches"][k] for k in ("fwd", "bwd")}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None) -> dict:
@@ -2292,13 +2805,15 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
+    log(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
               sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],
               kernels["seg_plain_ms"], kernels["seg_bound"],
               kernels["seg_library_ms"]),
         entry("fps_with_points", FPS_SRC, FPS_TPU,
-              sliced["launches"]["fps"] + pn2["fps_launches"],
+              sliced["launches"]["fps"] + pn2["fps_launches"]
+              + trainer["launches"]["fps"],
               kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
               kernels["fps_bound"]),
         entry("pooled_chain_forward", POOLED_SRC, POOLED_FWD_TPU,
@@ -2309,8 +2824,10 @@ def main() -> int:
               pooled["bwd_plain_ms"], pooled["bwd_bound"]),
         entry("windowed_moment_sums", WINDOW_SRC, WINDOW_TPU, normals["launches"],
               window["err"], window["ms"], window["plain_ms"], window["bound"]),
-        entry("gather_maxmin", GATHER_SRC, GATHER_TPU, dgcnn["launches"],
-              gather["err"], gather["ms"], gather["plain_ms"], gather["bound"]),
+        entry("gather_maxmin", GATHER_SRC, GATHER_TPU,
+              dgcnn["launches"] + trainer["launches"]["gather"],
+              max(gather["err"], trainer["gather_err"]), gather["ms"],
+              gather["plain_ms"], gather["bound"]),
         entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU, pn2["any_launches"],
               any_rank["err"], any_rank["ms"], any_rank["plain_ms"],
               any_rank["bound"], any_rank["library_ms"]),

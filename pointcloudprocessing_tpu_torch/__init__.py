@@ -4,8 +4,9 @@
 The JAX package beside it is the reference: each module here names its JAX
 counterpart, and the tests hold the two against each other on the CPU. The
 port imports ``torch``, numpy and the standard library, never JAX and
-nothing of the JAX package: ``core`` (config schema, constants) and
-``utils`` (the native frame parser's loader) are its own copies.
+nothing of the JAX package: the modules it needs from there (the config
+schema, constants, the native helpers' loader, the TFRecord codec, the
+dataset manager) are its own copies.
 
 - ``core``:   the config schema and constants.
 - ``ops``:    normalization, jitter, Morton keys, voxel downsample, FPS and
@@ -17,10 +18,14 @@ nothing of the JAX package: ``core`` (config schema, constants) and
               T-Nets and blocks, DGCNN (inference and train-mode forward),
               ``model_from_config`` (on CUDA unless asked for the CPU) and
               ``PointCloudPipeline`` (scans -> voxel -> sampler -> model).
-- ``train``:  the losses and the single-device train, eval and predict
-              steps (Adam with freeze masks).
-- ``data``:   AftrBurner frame parsing and writing.
-- ``utils``:  the loader of the repo's C++ frame scanner.
+- ``train``:  the losses, the single-device train, eval and predict steps
+              for every family (Adam with freeze masks), the callbacks on
+              torch checkpoints, the staged trainer ``TrainProfile`` and
+              its CLI (``python -m pointcloudprocessing_tpu_torch.train.cli``).
+- ``data``:   AftrBurner frames and pose logs, the TFRecord codec,
+              ``PointCloudSet`` (ingest, splits) and the batch loaders.
+- ``utils``:  the loader of the repo's C++ runtime helpers, and the
+              profiling hooks.
 - ``convert``: Flax variables <-> PyTorch ``state_dict``.
 - ``serve``:  the serving CLI.
 """

@@ -45,3 +45,10 @@ KERAS_BN_EPSILON = 1e-3       # keras.layers.BatchNormalization default
 KERAS_BN_MOMENTUM = 0.99      # reference ConvLayer/DenseLayer default
 # copied from pointcloudprocessing_tpu/core/constants.py::NORMALIZATION_EPSILON
 NORMALIZATION_EPSILON = 1e-7  # PointCloudNormalization scale floor (PointNet.py:701)
+
+# The port's checkpoint layout (no counterpart in the JAX package, whose
+# stages hold Orbax directories): ``<stage>/best/model.pt`` holds the best
+# weights, ``<stage>/resume/`` a killed stage's train state
+BEST_DIR = "best"
+BEST_FILE = "model.pt"
+RESUME_DIR = "resume"

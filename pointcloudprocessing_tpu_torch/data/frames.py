@@ -1,10 +1,11 @@
-"""AftrBurner text-frame parsing and writing (numpy only).
+"""AftrBurner text-frame and pose-log parsing, frame writing (numpy only).
 
 Frame format: one "(x, y, z) class part" line per point. An unknown class
 or part label invalidates the whole frame; non-finite coordinates drop the
-point. The hot path runs through the C++ scanner of ``native/`` (shared
-with the JAX package through its backend-free ``utils.native``), with a
-vectorized pandas fallback.
+point. A collect's ``_palindrome_state__*.log`` gives each frame's SE(3)
+poses (``parse_state_info``). The hot path runs through the repo's C++
+scanner (``native/``, built and bound by the port's ``utils/native.py``),
+with a vectorized pandas fallback.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Callable
 
 import numpy as np
 
+from pointcloudprocessing_tpu_torch.core import constants
 from pointcloudprocessing_tpu_torch.utils.native import parse_aftr_frame_native
 
 
@@ -110,6 +112,48 @@ def parse_frame_file(
         return parse_frame_text(f.read(), class_labels, part_labels)
 
 
+# copied from pointcloudprocessing_tpu/data/frames.py::parse_state_info
+def parse_state_info(filepath: str) -> dict[int, dict]:
+    """Parse a ``_palindrome_state__*.log`` file.
+
+    Returns {frame_number: {<header key>: value, ..., 'tanker_in_sensor_frame':
+    (4,4)}} with SE(3) blocks decoded column-major, exactly like the
+    reference (PointCloudSet.py:497-507).
+    """
+    with open(filepath, "r") as f:
+        header = f.readline().strip().split("   ")
+        keys = [k for k in header if len(k) > 1]
+
+        lines = f.read().splitlines()
+
+    data: dict[int, dict] = {}
+    se3_keys = keys[2:]
+    for line in lines:
+        tokens = line.strip().split(" ")
+        if len(tokens) < 2:
+            continue
+        frame = int(tokens[1])
+        entry: dict = {keys[0]: tokens[0], keys[1]: tokens[1]}
+
+        values = np.array(tokens[2:], dtype=np.float64)
+        for i, key in enumerate(se3_keys):
+            block = values[i * constants.SE3_SIZE : (i + 1) * constants.SE3_SIZE]
+            # column-major: 16 floats are 4 columns of 4
+            entry[key] = block.reshape(constants.SE3_COLS, constants.SE3_ROWS).T
+
+        if "Sensor Pose" in keys and "Tanker Pose" in keys:
+            sensor = entry["Sensor Pose"]
+            tanker = entry["Tanker Pose"]
+            so3 = sensor[:3, :3].T @ tanker[:3, :3]
+            t = sensor[:3, :3].T @ (tanker[:3, 3:] - sensor[:3, 3:])
+            top = np.concatenate([so3, t], axis=1)
+            entry["tanker_in_sensor_frame"] = np.concatenate(
+                [top, np.array([[0.0, 0.0, 0.0, 1.0]])], axis=0
+            )
+        data[frame] = entry
+    return data
+
+
 # copied from pointcloudprocessing_tpu/data/frames.py::write_aftr_frame
 def write_aftr_frame(
     path: str,
@@ -145,3 +189,22 @@ def write_aftr_frame(
                     for lbl in row:
                         f.write(f" {lbl}")
             f.write("\n")
+
+
+# copied from pointcloudprocessing_tpu/data/frames.py::get_dir_contents
+def get_dir_contents(
+    dir_path: str, print_func: Callable[[str], None] = print
+) -> list[str]:
+    """Directory listing with advisory messages (reference:
+    PointCloudSet.py:523-539 free function)."""
+    try:
+        return os.listdir(dir_path) or []
+    except FileNotFoundError:
+        print_func(f"Error: The directory '{dir_path}' was not found.")
+    except NotADirectoryError:
+        print_func(f"Error: The path '{dir_path}' is not a directory.")
+    except PermissionError:
+        print_func(f"Error: Permission denied to read '{dir_path}'.")
+    except Exception as e:  # pragma: no cover
+        print_func(f"An error occurred: {e}")
+    return []

@@ -2,9 +2,12 @@
 PointNet++ or DGCNN, as the stage's config says) on the GPU
 (``pointcloudprocessing_tpu/serve.py``, same arguments and JSONL records).
 
-Loads a trained stage directory (``*_config.json`` plus the PyTorch weights
-file ``torch/model.pt``, which ``tools/convert_stage_to_torch.py`` writes
-from the stage's Orbax checkpoint), streams ``Lidar/frame_*.txt`` scans
+Loads a trained stage directory: its ``*_config.json`` and PyTorch weights,
+either the port's own training checkpoint ``best/model.pt`` (written by
+``train/callbacks.py::BestCheckpoint``) or, for a stage that the JAX
+package trained, ``torch/model.pt``, which
+``tools/convert_stage_to_torch.py`` writes from the stage's Orbax
+checkpoint. It streams ``Lidar/frame_*.txt`` scans
 through ``PointCloudPipeline`` and writes one JSON line per frame with the
 predicted class, per-part point counts and the SE(3) head's rotation.
 
@@ -35,7 +38,25 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from pointcloudprocessing_tpu_torch.core.constants import BEST_DIR, BEST_FILE
+
 WEIGHTS = os.path.join("torch", "model.pt")
+TRAINED_WEIGHTS = os.path.join(BEST_DIR, BEST_FILE)
+
+
+def _weights_path(model_dir: str) -> str:
+    """The stage's weights: the port's ``best/model.pt``, else the
+    converter's ``torch/model.pt``."""
+    for name in (TRAINED_WEIGHTS, WEIGHTS):
+        path = os.path.join(model_dir, name)
+        if os.path.isfile(path):
+            return path
+    raise FileNotFoundError(
+        f"No {TRAINED_WEIGHTS} or {WEIGHTS} in {model_dir}: train the stage "
+        "with `python -m pointcloudprocessing_tpu_torch.train.cli`, or convert "
+        "a JAX-trained stage with `python tools/convert_stage_to_torch.py "
+        f"{model_dir}`"
+    )
 
 
 def _find_config(model_dir: str) -> str:
@@ -102,7 +123,8 @@ def _scan_batches(
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", required=True,
-                        help="trained stage directory (config + torch/model.pt)")
+                        help="trained stage directory (config + best/model.pt "
+                             "or torch/model.pt)")
     parser.add_argument("--input", required=True,
                         help="collect directory (Lidar/frame_*.txt) or frame dir")
     parser.add_argument("--output", default="-",
@@ -149,7 +171,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
 
     model = model_from_config(cfg, device=device)
-    state = torch.load(os.path.join(args.model, WEIGHTS), map_location=device,
+    state = torch.load(_weights_path(args.model), map_location=device,
                        weights_only=True)
     model.load_state_dict(state)
     pipe = PointCloudPipeline(

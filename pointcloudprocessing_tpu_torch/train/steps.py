@@ -1,13 +1,16 @@
 """Single-device train, eval and predict steps with freeze-masked Adam
-(``pointcloudprocessing_tpu/train/steps.py``).
+(``pointcloudprocessing_tpu/train/steps.py``), for every model family that
+``model_from_config`` builds: PointNet, PointNet++ and DGCNN.
 
 - Optimizer: Adam with Keras's epsilon 1e-7 on a continuous exponential
   learning-rate decay, in optax's operation order (``optax.adam`` and
   ``optax.exponential_decay``, non-staircase; the rate is taken at the step
   count before its increment, so the first step uses ``rate``).
 - Freeze/thaw: a stage's switches label each top-level submodule "train" or
-  "freeze"; frozen parameters get no update and no moment state, and
-  frozen BatchNorms use their running statistics inside the model. Frozen
+  "freeze" by its name (``input_transform``, ``feature_transform``,
+  ``mlp_cls*``, ``mlp_seg*``; everything else, ``mlp_1_*``, ``sa*``,
+  ``ec*``, ``emb``, is the shared trunk); frozen parameters get no update
+  and no moment state, and frozen BatchNorms use their running statistics inside the model. Frozen
   parameters also take ``requires_grad=False``, so the backward skips
   their gradients (the JAX package computes them and masks the update;
   the updates are the same).
@@ -18,6 +21,9 @@
   the step updates both, and the Adam moments, in place; it returns the
   same state object with ``step`` advanced. After a step each trained
   parameter's ``.grad`` holds that step's gradient; a frozen one's is None.
+- Regularizers: PointNet's T-Net terms come from ``forward_with_reg``;
+  PointNet++ and DGCNN add none, as their JAX ``reg_losses`` collection is
+  empty.
 - Metrics: per-batch correct counts and sums, so a host can rebuild Keras's
   streaming epoch metrics exactly.
 
@@ -33,12 +39,12 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch import nn
 
 from pointcloudprocessing_tpu_torch.core.config import LearningConfig
 from pointcloudprocessing_tpu_torch.models.pointnet import (
     NOTHING_FROZEN,
     FreezeFlags,
-    PointNet,
 )
 from pointcloudprocessing_tpu_torch.ops.augment import jitter
 from pointcloudprocessing_tpu_torch.train.losses import multi_head_loss
@@ -142,12 +148,12 @@ def make_optimizer(learning: LearningConfig, params: Mapping[str, torch.Tensor],
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: PointNet  # parameters and running statistics
+    model: nn.Module  # parameters and running statistics
     opt_state: AdamState
 
 
 def init_train_state(
-    model: PointNet,
+    model: nn.Module,
     learning: LearningConfig,
     freeze: FreezeFlags = NOTHING_FROZEN,
 ) -> tuple[TrainState, Optimizer]:
@@ -189,8 +195,16 @@ def _metric_sums(outputs, targets) -> dict[str, torch.Tensor]:
     }
 
 
+def forward_with_reg(model: nn.Module, x: torch.Tensor, **kwargs):
+    """(outputs, regularizer sum) of any family: PointNet's T-Net terms,
+    or 0 for a model with no regularizer (PointNet++, DGCNN)."""
+    if hasattr(model, "forward_with_reg"):
+        return model.forward_with_reg(x, **kwargs)
+    return model(x, **kwargs), 0.0
+
+
 def _train_step_impl(
-    model: PointNet,
+    model: nn.Module,
     optimizer: Optimizer,
     loss_weights: tuple[float, float, float],
     freeze: FreezeFlags,
@@ -206,8 +220,8 @@ def _train_step_impl(
     x = jitter(x, jitter_g, jitter_stdev)
     model.zero_grad(set_to_none=True)
     with torch.enable_grad():
-        outputs, reg = model.forward_with_reg(
-            x, train=True, freeze=freeze, generator=dropout_g)
+        outputs, reg = forward_with_reg(
+            model, x, train=True, freeze=freeze, generator=dropout_g)
         total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg)
         if total.requires_grad:  # False only when every parameter is frozen
             total.backward()
@@ -221,7 +235,7 @@ def _train_step_impl(
 
 
 def make_train_step(
-    model: PointNet,
+    model: nn.Module,
     optimizer: Optimizer,
     loss_weights: tuple[float, float, float],
     freeze: FreezeFlags,
@@ -240,13 +254,13 @@ def _eval_step_impl(model, loss_weights, jitter_stdev, apply_jitter, state, x,
     if apply_jitter:
         x = jitter(x, torch.Generator(device=x.device).manual_seed(seed),
                    jitter_stdev)
-    outputs, reg = model.forward_with_reg(x, train=False)
+    outputs, reg = forward_with_reg(model, x, train=False)
     total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg)
     return {"loss": total, **head_losses, **_metric_sums(outputs, targets)}
 
 
 def make_eval_step(
-    model: PointNet,
+    model: nn.Module,
     loss_weights: tuple[float, float, float],
     jitter_stdev: tuple[float, float, float] = (0.0, 0.0, 0.0),
     apply_jitter: bool = True,
@@ -263,7 +277,7 @@ def make_eval_step(
                    apply_jitter)
 
 
-def make_predict_fn(model: PointNet) -> Callable:
+def make_predict_fn(model: nn.Module) -> Callable:
     """Inference entry: x -> outputs dict (running statistics, no dropout)."""
 
     @torch.inference_mode()

@@ -1,1 +1,2 @@
-"""Host-side helpers: the loader of the repo's C++ frame scanner."""
+"""Host-side helpers: the loader of the repo's C++ runtime helpers and the
+profiling hooks."""
