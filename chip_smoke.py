@@ -3,8 +3,8 @@
 NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
 the PointNet training step, the preprocess with windowed PCA normals, DGCNN
 inference, PointNet++ inference and serving at a scan width that takes
-the any-rank segment sum, and the staged trainer from AFTR frames to
-checkpoints for all three model families.
+the any-rank segment sum, the staged trainer from AFTR frames to
+checkpoints for all three model families, and the bf16 compute path.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -62,9 +62,14 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    cases: A, the kc46 config's ``final`` stage (vanilla 23/12, head
    frozen, 8 x 8192 points, jitter 0.1 m, dropout 0.3; one pooled chain)
    and B, the JAX bench's train row (full model, both regularizers,
-   32 x 1024 points, jitter 0.01; three chains). Each case: one step
-   through the kernels against one through the plain versions from the same
-   state, batch and generators; 30 steps on one batch (the loss must fall,
+   32 x 1024 points, jitter 0.01; three chains), their batches from a
+   generator of the phase's own (``TRAIN_SEED``; B on three batches). Each
+   case: one step through the kernels against one through the plain
+   versions from the same state, batch and generators, where every argmax
+   flip of the forward kernel must be a tie proven in float64 (the two
+   candidates within the GEMM-rounding bar) and the plain steps take the
+   kernel's winners at those ties, the flips counted; 30 steps on one batch
+   (the loss must fall,
    and each pooled kernel launches chains x steps times); train steps/s and
    clouds/s over three timed windows, the device busy share, and device ms
    per step by kind of kernel.
@@ -123,17 +128,31 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    and a stage with ``max_in_memory_bytes`` 1 trains on
    ``StreamingLoader`` (each epoch sees every train record once, less the
    tail under one batch). The whole script's seconds are printed.
+11. bf16: the bf16 compute path. Kernels 4 and 5's bf16 forms against
+   their plain versions as phase 3 holds the f32 forms (8x8192 and
+   32x1024, ragged n and one cloud, c_in 256 -> 4096, dead channels, exact
+   ties, NaN, a non-symmetric m, the running-statistics chain; dx within
+   one bf16 ulp), beside the bf16 GEMM alone; kernel 7's bf16 form at
+   DGCNN's widths, w 40, NaN, k 1 and the L2 form, bit-identical; cases A
+   and B in bf16 (phase 6's checks and tie rule, the one-ulp sensitivity
+   taken in bf16; steps/s, busy share, device ms by kind beside phase 6's);
+   DGCNN 64x1024 and PointNet++ 256x1024 in bf16 (clouds/s, device ms by
+   kind, through their kernels against their plain versions); the kc46
+   config with ``compute_dtype`` and ``optimizer_moment_dtype`` bfloat16
+   through the CLI over phase 10's collects, and ``serve`` over its stage;
+   ``graft_entry.entry()`` on the card.
 
 The second-to-last line is a JSON object with each of the seven kernels'
-launches on its paths, error against its plain version, times and bound: ``ms``,
+and the three bf16 forms' launches on their paths, error against the plain
+version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
 function, where there is one) are device times from ``torch.profiler``, or
 null with ``"ms_source": "not traced"`` if every trace came back without
 device rows (never another clock's time); ``bound_ms`` is the larger of
 the bytes the function must move over 3.35 TB/s and its operations: f32
 ones over 67 TFLOP/s, plus the pooled chain's GEMM products on the tensor
-cores over 495 TFLOP/s of dense TF32, three a product in 3xTF32
-(``bound_by`` says which). The last line is ``{"ok": true,
+cores over 495 TFLOP/s of dense TF32, three a product in 3xTF32, or over
+989 TFLOP/s of dense bf16, one a product (``bound_by`` says which). The last line is ``{"ok": true,
 "device": {...}}``.
 
 Usage: python3 chip_smoke.py
@@ -170,10 +189,15 @@ GATHER_TPU = "pointcloudprocessing_tpu/ops/pallas/gather_maxmin.py:132"
 SEG_ANY_TPU = "pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py:65"
 KC46_CONFIG = "configs/kc46_lidar_config.json"
 # the H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bandwidth, f32
-# outside the tensor cores, and dense TF32 on the tensor cores
+# outside the tensor cores, and dense TF32 and bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
+#: phase 6's own generator: a draw added to phases 1-5 leaves its batches
+#: as they are (case B's first batch is the one a fresh default_rng(0)
+#: draws after case A's)
+TRAIN_SEED = 0
 
 
 def log(msg: str) -> None:
@@ -316,14 +340,17 @@ def kernels_per_call(torch, fn, calls: int) -> str:
 
 
 def roofline(bytes_moved: float, operations: float,
-             tf32_operations: float = 0.0) -> tuple[float, str]:
+             tf32_operations: float = 0.0,
+             bf16_operations: float = 0.0) -> tuple[float, str]:
     """The least time in ms the H100 could take for a kernel's work: the
-    larger of its bytes (each input read once, each output written once)
-    over 3.35 TB/s and its operations, f32 ones over 67 TFLOP/s plus
-    tensor-core ones over 495 TFLOP/s of dense TF32 (an f32-accurate
-    product in 3xTF32 is three), and which of the two binds."""
+    largest of its bytes (each input read once, each output written once)
+    over 3.35 TB/s and its operations on each unit, which may overlap: f32
+    ones over 67 TFLOP/s, tensor-core ones over 495 TFLOP/s of dense TF32
+    (an f32-accurate product in 3xTF32 is three) or over 989 TFLOP/s of
+    dense bf16; and which binds, bytes or operations."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (operations / F32_OPS_PER_S + tf32_operations / TF32_OPS_PER_S) * 1e3
+    t_ops = max(operations / F32_OPS_PER_S, tf32_operations / TF32_OPS_PER_S,
+                bf16_operations / BF16_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -675,10 +702,13 @@ def phase_kernels(torch, rng) -> dict:
     return results
 
 
-def phase_pooled_kernels(torch) -> dict:
+def phase_pooled_kernels(torch, dtype=None) -> dict:
     """The pooled-chain kernels against their plain versions at the training
     step's shapes (c_in 128 -> c 1024): case A's 8x8192 and case B's 32x1024
-    points, inputs drawn like the chain's (relu'd activations)."""
+    points, inputs drawn like the chain's (relu'd activations). ``dtype``
+    bf16 holds the kernels' bf16 forms (phase 11): x and w in bf16, the
+    products exact and summed in f32, so the forward keeps the f32 form's
+    GEMM-rounding bar; dx comes back in bf16, within one bf16 ulp."""
     from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
         pooled_chain_backward,
         pooled_chain_backward_reference,
@@ -687,23 +717,35 @@ def phase_pooled_kernels(torch) -> dict:
     )
 
     dev = torch.device("cuda")
+    bf16 = dtype is not None
+    tag = "[11 bf16]" if bf16 else "[3 kernels]"
+    counter = "launches_bf16" if bf16 else "launches"
     gen = torch.Generator(device=dev).manual_seed(3)
     c_in, c = 128, 1024
     results = {"fwd_err": 0.0, "bwd_err": 0.0}
+
+    def op(t):  # an operand in the form's type
+        return t.to(dtype) if bf16 else t
+
+    def ulp_bar(want):  # dx: one bf16 ulp (both round an f32 sum once)
+        return 2.0 ** -7 * want.abs() if bf16 else 0.0
+
     # the wrappers refuse what the kernels do not take, before any launch
-    x0 = torch.zeros(2, 64, c_in, device=dev)
-    w0, v0 = torch.zeros(c, c_in, device=dev), torch.zeros(c, device=dev)
+    x0 = op(torch.zeros(2, 64, c_in, device=dev))
+    w0, v0 = op(torch.zeros(c, c_in, device=dev)), torch.zeros(c, device=dev)
     refused = 0
-    for bad in ((x0.double(), w0, v0, v0), (x0.transpose(1, 2).contiguous()
+    mixed = w0.float() if bf16 else w0.double()
+    for bad in ((x0, mixed, v0, v0), (x0.transpose(1, 2).contiguous()
                 .transpose(1, 2), w0, v0, v0), (x0, w0[:96], v0[:96], v0[:96])):
         try:
             pooled_chain_forward(*bad)
         except (TypeError, ValueError):
             refused += 1
-    if refused != 3 or pooled_chain_forward.launches:
-        raise AssertionError("pooled forward took an f64, strided or 96-wide call")
-    log("[3 kernels] pooled forward refuses f64, strided and 96-wide inputs "
-        "before any launch")
+    if refused != 3 or getattr(pooled_chain_forward, counter):
+        raise AssertionError("pooled forward took a mixed-type, strided or "
+                             "96-wide call")
+    log(f"{tag} pooled forward refuses a {x0.dtype} x with a {mixed.dtype} "
+        "weight, strided and 96-wide inputs before any launch")
     # (b, n, c_in, c, label, timed): the training step's shapes first, then
     # ragged n, one cloud, and the widths' edges
     cases = [(8, 8192, 128, 1024, "some dead channels", True),
@@ -713,9 +755,12 @@ def phase_pooled_kernels(torch) -> dict:
              (4, 100, 64, 64, "ragged n, c_in 64, c 64", False),
              (3, 8191, 192, 192, "ragged n, c_in 192, c 192", False),
              (2, 1000, 256, 4096, "c_in 256, c 4096", False)]
+    if bf16:  # the step's shapes, ragged n and one cloud, and the widest
+        cases = [cases[i] for i in (0, 1, 3, 6)]
     for b, n, c_in, c, label, timed in cases:
-        x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
-        w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+        x = op(torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen)))
+        w = op(torch.randn(c, c_in, device=dev, generator=gen) * 0.1)
+        xf, wf = x.float(), w.float()
         a = torch.rand(c, device=dev, generator=gen) + 0.5
         c_row = torch.randn(c, device=dev, generator=gen) * 0.5
         c_row[:16] = -1e4  # 0 at every point after relu
@@ -726,15 +771,15 @@ def phase_pooled_kernels(torch) -> dict:
         torch.cuda.synchronize()
         # f32 GEMM rounding of each pre-activation: c_in ulps of the sum of
         # |x_k w_k|, times the affine's |a|
-        bound = c_in * 2.0 ** -23 * torch.matmul(x.abs(), w.abs().t()) * a.abs()
-        r = torch.relu(torch.matmul(x, w.t()) * a + c_row)
+        bound = c_in * 2.0 ** -23 * torch.matmul(xf.abs(), wf.abs().t()) * a.abs()
+        r = torch.relu(torch.matmul(xf, wf.t()) * a + c_row)
         got_r = r.gather(1, argmax.long()[:, None, :]).squeeze(1)
         slack = (bound.gather(1, argmax.long()[:, None, :]).squeeze(1)
                  + bound.gather(1, want_arg.long()[:, None, :]).squeeze(1))
         err = (pooled - want).abs()
         if not bool((err <= slack).all()) or not bool((want - got_r <= slack).all()):
             raise AssertionError(
-                f"pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs err "
+                f"{tag} pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs err "
                 f"{err.max().item():.3e} beyond the GEMM rounding bound, or a "
                 f"winner off the max")
         if not bool(((argmax >= 0) & (argmax < n)).all()):
@@ -753,26 +798,33 @@ def phase_pooled_kernels(torch) -> dict:
             timing = (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per "
                       f"call with launch kernel {per_call[0]:.4f}, plain "
                       f"{per_call[1]:.4f}")
-        log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs "
+        log(f"{tag} pooled forward {b}x{n}x{c_in}->{c} ({label}): max abs "
             f"err {err.max().item():.3e}; argmax flips {flips} of {b * c} (each "
             f"within GEMM rounding of the max){timing}")
-        if (b, n, label) == (8, 8192, "some dead channels"):
-            results["fwd_ms"], results["fwd_plain_ms"] = ms, plain_ms
+        if timed and label == "some dead channels":
+            key = f"{b}x{n}"
+            results[f"fwd_ms_{key}"] = ms
             # the GEMM's products on the tensor cores (three a product in
-            # 3xTF32), then affine, relu and max per pre-activation
-            results["fwd_bound"] = roofline(
+            # 3xTF32, one in bf16), then affine, relu and max per
+            # pre-activation
+            gemm_ops = 2 * b * n * c_in * c
+            fwd_bound = roofline(
                 nbytes(x, w, a, c_row, pooled, argmax), 3 * b * n * c,
-                3 * 2 * b * n * c_in * c)
+                0.0 if bf16 else 3 * gemm_ops, gemm_ops if bf16 else 0.0)
             # yardstick, not a library time for the kernel: the GEMM alone
-            # in full f32 (TF32 is off), without affine, relu or max
+            # (f32 with TF32 off, or bf16), without affine, relu or max
             if torch.backends.cuda.matmul.allow_tf32:
                 raise AssertionError("TF32 matmul is on")
             gemm = functools.partial(torch.matmul, x, w.t())
-            results["gemm_ms"] = device_ms(torch, gemm, 10)
-            log(f"[3 kernels] yardstick: the GEMM alone, torch.matmul "
-                f"{b}x{n}x{c_in} @ {c_in}x{c} in f32 with TF32 off: device ms "
-                f"{fmt(results['gemm_ms'])}, per call with launch "
-                f"{call_ms(torch, gemm, 10):.4f} (kernel {fmt(ms)})")
+            gemm_ms = device_ms(torch, gemm, 10)
+            log(f"{tag} yardstick: the GEMM alone, torch.matmul "
+                f"{b}x{n}x{c_in} @ {c_in}x{c} in {x.dtype}"
+                f"{'' if bf16 else ' with TF32 off'}: device ms {fmt(gemm_ms)}, "
+                f"per call with launch {call_ms(torch, gemm, 10):.4f} (kernel "
+                f"{fmt(ms)}); bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+            if (b, n) == (8, 8192):
+                results["fwd_ms"], results["fwd_plain_ms"] = ms, plain_ms
+                results["fwd_bound"], results["gemm_ms"] = fwd_bound, gemm_ms
 
         coef = torch.randn(b, c, device=dev, generator=gen)
         m_small = torch.randn(c_in, c_in, device=dev, generator=gen) * 0.01
@@ -789,14 +841,19 @@ def phase_pooled_kernels(torch) -> dict:
             torch.cuda.synchronize()
             if not (torch.equal(dx, dx2) and torch.equal(dk, dk2)):
                 raise AssertionError("pooled backward is not deterministic")
-            e_dx = (dx - want_dx).abs().max().item()
+            if dx.dtype != x.dtype:
+                raise AssertionError(f"pooled backward: dx {dx.dtype} for x {x.dtype}")
+            d_dx = (dx.float() - want_dx.float()).abs()
+            e_dx = d_dx.max().item()
             e_dk = (dk - want_dk).abs().max().item()
             # f32 sums in another order: 1e-5 of the largest term's scale
-            bar_dx = 1e-5 * (1 + want_dx.abs().max().item())
+            # (bf16: and one bf16 ulp of dx)
+            bar_dx = 1e-5 * (1 + want_dx.float().abs().max().item())
             bar_dk = 1e-5 * (1 + want_dk.abs().max().item())
-            if e_dx > bar_dx or e_dk > bar_dk:
+            if not bool((d_dx <= bar_dx + ulp_bar(want_dx.float())).all()) \
+                    or e_dk > bar_dk:
                 raise AssertionError(
-                    f"pooled backward {b}x{n}x{c_in}<-{c} ({winners}): dx err "
+                    f"{tag} pooled backward {b}x{n}x{c_in}<-{c} ({winners}): dx err "
                     f"{e_dx:.3e} (bar {bar_dx:.3e}), dk err {e_dk:.3e} (bar "
                     f"{bar_dk:.3e})")
             results["bwd_err"] = max(results["bwd_err"], e_dx, e_dk)
@@ -811,19 +868,21 @@ def phase_pooled_kernels(torch) -> dict:
                 timing = (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; "
                           f"per call with launch kernel {per_call[0]:.4f}, plain "
                           f"{per_call[1]:.4f}")
-            log(f"[3 kernels] pooled backward {b}x{n}x{c_in}<-{c} ({winners}, "
+            log(f"{tag} pooled backward {b}x{n}x{c_in}<-{c} ({winners}, "
                 f"non-symmetric m): max abs err dx {e_dx:.3e}, dk {e_dk:.3e} "
-                f"(bars {bar_dx:.1e}, {bar_dk:.1e}); bit-identical on a rerun"
-                f"{timing}")
+                f"(bars {bar_dx:.1e}{' + one bf16 ulp' if bf16 else ''}, "
+                f"{bar_dk:.1e}); bit-identical on a rerun{timing}")
             if (b, n, label, winners) == (8, 8192, "some dead channels",
                                           "forward's winners"):
                 results["bwd_ms"], results["bwd_plain_ms"] = ms, plain_ms
-                # x@M on the tensor cores (three products each in 3xTF32) and
-                # the row, plus one coef*W row into dx and one x row into dk
-                # per (cloud, channel) winner
+                # x@M on the tensor cores (three products each in 3xTF32,
+                # one in bf16) and the row, plus one coef*W row into dx and
+                # one x row into dk per (cloud, channel) winner
+                xm_ops = 2 * b * n * c_in * c_in
                 results["bwd_bound"] = roofline(
                     nbytes(x, w, coef, am, m_small, const_row, dx, dk),
-                    b * n * c_in + 4 * b * c * c_in, 3 * 2 * b * n * c_in * c_in)
+                    b * n * c_in + 4 * b * c * c_in, 0.0 if bf16 else 3 * xm_ops,
+                    xm_ops if bf16 else 0.0)
 
     # exact ties: clouds built of 16 distinct rows, each repeated at many
     # indices, so every channel's max is attained at several points and the
@@ -831,22 +890,23 @@ def phase_pooled_kernels(torch) -> dict:
     b, n, c_in, c = 8, 8192, 128, 1024
     pool = torch.relu(torch.randn(16, c_in, device=dev, generator=gen))
     pick = torch.randint(0, 16, (b, n), device=dev, generator=gen)
-    x = pool[pick].contiguous()
-    w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+    x = op(pool[pick].contiguous())
+    w = op(torch.randn(c, c_in, device=dev, generator=gen) * 0.1)
     a = torch.rand(c, device=dev, generator=gen) + 0.5
     c_row = torch.randn(c, device=dev, generator=gen) * 0.5
     pooled, argmax = pooled_chain_forward(x, w, a, c_row)
     want, want_arg = pooled_chain_forward_reference(x, w, a, c_row)
     torch.cuda.synchronize()
-    bound = (c_in * 2.0 ** -23 * torch.matmul(x.abs(), w.abs().t()) * a.abs()).amax(1)
+    bound = (c_in * 2.0 ** -23 * torch.matmul(x.float().abs(), w.float().abs().t())
+             * a.abs()).amax(1)
     err = (pooled - want).abs()
     if not torch.equal(argmax, want_arg) or not bool((err <= 2 * bound).all()):
         raise AssertionError(
-            f"pooled forward on repeated rows: {int((argmax != want_arg).sum())} "
+            f"{tag} pooled forward on repeated rows: {int((argmax != want_arg).sum())} "
             f"argmax differ from the plain version's, max abs err "
             f"{err.max().item():.3e}")
     results["fwd_err"] = max(results["fwd_err"], err.max().item())
-    log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} on clouds of 16 "
+    log(f"{tag} pooled forward {b}x{n}x{c_in}->{c} on clouds of 16 "
         f"repeated rows (exact ties): argmax equal to the plain version's at all "
         f"{b * c}; max abs err {err.max().item():.3e}")
 
@@ -854,8 +914,8 @@ def phase_pooled_kernels(torch) -> dict:
     # point (every channel of that cloud), and NaN BatchNorm factors (an
     # unclamped variance below -eps) on four channels
     b, n = 32, 1024
-    x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
-    w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
+    x = op(torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen)))
+    w = op(torch.randn(c, c_in, device=dev, generator=gen) * 0.1)
     a = torch.rand(c, device=dev, generator=gen) + 0.5
     c_row = torch.randn(c, device=dev, generator=gen) * 0.5
     x[1, 77, 3] = float("nan")
@@ -865,16 +925,17 @@ def phase_pooled_kernels(torch) -> dict:
     torch.cuda.synchronize()
     nan_want = torch.isnan(want)
     finite = ~nan_want
-    bound = (c_in * 2.0 ** -23 * torch.matmul(x.abs(), w.abs().t()) * a.abs()).amax(1)
+    bound = (c_in * 2.0 ** -23 * torch.matmul(x.float().abs(), w.float().abs().t())
+             * a.abs()).amax(1)
     err = (pooled - want).abs()
     if not (torch.equal(torch.isnan(pooled), nan_want)
             and int(nan_want.sum()) == c + 4 * (b - 1)
             and torch.equal(argmax[nan_want], want_arg[nan_want])
             and bool((err[finite] <= 2 * bound[finite]).all())):
-        raise AssertionError("pooled forward on NaN inputs disagrees with its "
-                             "plain version")
+        raise AssertionError(f"{tag} pooled forward on NaN inputs disagrees with "
+                             "its plain version")
     results["fwd_err"] = max(results["fwd_err"], err[finite].max().item())
-    log(f"[3 kernels] pooled forward {b}x{n}x{c_in}->{c} with NaN inputs: NaN "
+    log(f"{tag} pooled forward {b}x{n}x{c_in}->{c} with NaN inputs: NaN "
         f"at the plain version's {int(nan_want.sum())} entries, at its argmax "
         f"(the first NaN); finite entries max abs err "
         f"{err[finite].max().item():.3e}")
@@ -885,7 +946,7 @@ def phase_pooled_kernels(torch) -> dict:
     from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
 
     b, n = 8, 8192
-    x = torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen))
+    x = op(torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen)))
     w = torch.randn(c, c_in, device=dev, generator=gen) * 0.1
     scale = torch.rand(c, device=dev, generator=gen) + 0.5
     bias = torch.randn(c, device=dev, generator=gen) * 0.5
@@ -896,28 +957,33 @@ def phase_pooled_kernels(torch) -> dict:
     def running_chain():
         leaves = [t.clone().requires_grad_() for t in (x, w, scale, bias)]
         pooled, _, _ = dense_bn_relu_max(*leaves, r_mean, r_var, 1e-3,
-                                         use_running=True)
+                                         use_running=True, dtype=dtype)
         (pooled * g_out).sum().backward()
         return pooled.detach(), [t.grad for t in leaves]
 
-    launched = pooled_chain_backward.launches
+    launched = getattr(pooled_chain_backward, counter)
     got_p, got_g = running_chain()
-    launched = pooled_chain_backward.launches - launched
+    launched = getattr(pooled_chain_backward, counter) - launched
     with route_pooled(pooled_chain_forward_reference, pooled_chain_backward_reference):
         want_p, want_g = running_chain()
     torch.cuda.synchronize()
-    errs = [(gk - gp).abs().max().item() for gk, gp in zip(got_g, want_g)]
-    bars = [1e-5 * (1 + gp.abs().max().item()) for gp in want_g]
+    errs = [(gk.float() - gp.float()).abs().max().item()
+            for gk, gp in zip(got_g, want_g)]
+    # dx and (bf16: rounded to it, as the JAX chain's) dweight within one
+    # bf16 ulp in the bf16 form
+    rel = [2.0 ** -7 if bf16 else 1e-5] * 2 + [1e-5] * 2
+    bars = [r * (1 + gp.float().abs().max().item()) for r, gp in zip(rel, want_g)]
     if launched != 1 or not torch.equal(got_p, want_p) or any(
             e > bar for e, bar in zip(errs, bars)):
         raise AssertionError(
-            f"running-statistics chain backward: {launched} kernel launches, "
+            f"{tag} running-statistics chain backward: {launched} kernel launches, "
             f"grad errs {errs} (bars {bars})")
     results["bwd_err"] = max(results["bwd_err"], *errs)
-    log(f"[3 kernels] pooled backward, winner-only form (running-statistics "
-        f"chain, {b}x{n}x{c_in}<-{c}): one kernel launch; max abs err dx "
-        f"{errs[0]:.3e}, dweight {errs[1]:.3e}, dscale {errs[2]:.3e}, dbias "
-        f"{errs[3]:.3e} (bars 1e-5 x (1 + max |grad|))")
+    log(f"{tag} pooled backward, winner-only form (running-statistics "
+        f"chain, {b}x{n}x{c_in}<-{c}, dx {got_g[0].dtype}): one kernel launch; "
+        f"max abs err dx {errs[0]:.3e}, dweight {errs[1]:.3e}, dscale "
+        f"{errs[2]:.3e}, dbias {errs[3]:.3e} (bars {rel[0]:.1e} x (1 + max |grad|) "
+        f"for dx and dweight, 1e-5 x for the rest)")
     return results
 
 
@@ -1165,26 +1231,126 @@ def train_batch(torch, rng, b: int, n: int, classes: int, parts: int):
     return torch.from_numpy(x.astype(np.float32)).to(dev), targets
 
 
-def check_step_against_plain(torch, label, models, run_step, x, lr) -> dict:
-    """One step of ``models[0]`` through the kernels and one of
-    ``models[1]`` (a copy) through the plain versions, from the same state,
-    batch and seed; ``models[2]``, a third copy, takes the plain step on
-    the batch moved by one f32 ulp, which measures how far the step itself
-    moves under rounding. Bars: each loss, gradient leaf, parameter and
-    running statistic within 8x that one-ulp change plus a floor (a
-    parameter whose gradient sign the one-ulp step leaves uncertain may
-    differ by Adam's 2 lr)."""
+@contextlib.contextmanager
+def record_pooled_forward(calls: list):
+    """Route the pooled chain's forward through a recorder while the block
+    runs: copies of each call's (x, w, a, c_row, pooled, argmax), with the
+    kernel's own result (copies: the step updates the weights in place)."""
+    from pointcloudprocessing_tpu_torch.models import fused_pool
+
+    real = fused_pool.pooled_chain_forward
+
+    def recording(x, w, a, c_row):
+        pooled, argmax = real(x, w, a, c_row)
+        calls.append(tuple(t.clone() for t in (x, w, a, c_row, pooled, argmax)))
+        return pooled, argmax
+
+    fused_pool.pooled_chain_forward = recording
+    try:
+        yield
+    finally:
+        fused_pool.pooled_chain_forward = real
+
+
+def proven_ties(torch, label, calls) -> list:
+    """The kernel forward's argmax flips in one step, each proven a tie.
+
+    For each recorded chain call, the plain version runs on the same
+    inputs; wherever its argmax differs from the kernel's, both candidates'
+    affine outputs are taken in float64 and must lie within the
+    GEMM-rounding bar phase 3 holds forward flips to (c_in ulps of sum_k
+    |x_k w_k|, times |a|, for each candidate). A flip that is no such tie
+    fails the phase. Returns, per call, (flip mask, the kernel's argmax)."""
     from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-        pooled_chain_backward_reference,
         pooled_chain_forward_reference,
     )
 
-    logs_k = run_step(0, x)
-    with route_pooled(pooled_chain_forward_reference,
-                      pooled_chain_backward_reference):
+    ties = []
+    for i, (x, w, a, c_row, _, argmax) in enumerate(calls):
+        _, plain_arg = pooled_chain_forward_reference(x, w, a, c_row)
+        flips = argmax != plain_arg
+        if bool(flips.any()):
+            cloud, ch = flips.nonzero(as_tuple=True)
+            rows = [x[cloud, idx[cloud, ch].long()].double()
+                    for idx in (argmax, plain_arg)]  # (flips, c_in) each
+            wd, ad, cd = w[ch].double(), a[ch].double(), c_row[ch].double()
+            y = [(r * wd).sum(-1) * ad + cd for r in rows]
+            bar = [x.shape[-1] * 2.0 ** -23 * (r.abs() * wd.abs()).sum(-1) * ad.abs()
+                   for r in rows]
+            gap = (y[0] - y[1]).abs()
+            if not bool((gap <= bar[0] + bar[1]).all()):
+                worst = int((gap / (bar[0] + bar[1])).argmax())
+                raise AssertionError(
+                    f"train {label}: chain {i}'s argmax differs from the plain "
+                    f"version's at cloud {int(cloud[worst])}, channel "
+                    f"{int(ch[worst])} by {gap[worst].item():.3e} in float64, past "
+                    f"the GEMM-rounding bar {(bar[0] + bar[1])[worst].item():.3e}: "
+                    f"not a tie")
+        ties.append((flips, argmax))
+    return ties
+
+
+def following_ties(torch, ties):
+    """The plain forward, taking the kernel's winners at the proven ties of
+    the recorded step (the i-th call of a step gets the i-th call's ties):
+    the pooled value there is the plain relu output at the kernel's winner."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_forward_reference,
+    )
+
+    count = itertools.count()
+
+    def forward(x, w, a, c_row):
+        pooled, argmax = pooled_chain_forward_reference(x, w, a, c_row)
+        flips, kernel_arg = ties[next(count)]
+        if bool(flips.any()):
+            r = torch.relu(torch.matmul(x.float(), w.float().t()) * a + c_row)
+            at_kernel = r.gather(1, kernel_arg.long()[:, None, :]).squeeze(1)
+            argmax = torch.where(flips, kernel_arg, argmax)
+            pooled = torch.where(flips, at_kernel, pooled)
+        return pooled, argmax
+
+    return forward
+
+
+def ulp_up(torch, x, dtype):
+    """x moved up by one ulp: of f32, or (``dtype`` bf16) of bf16, the
+    precision the model's first layer rounds the points to."""
+    if dtype is None:
+        return torch.nextafter(x, torch.full_like(x, float("inf")))
+    exp = torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny)))
+    return x + torch.exp2(exp - 7)
+
+
+def check_step_against_plain(torch, label, models, run_step, x, lr,
+                             dtype=None) -> dict:
+    """One step of ``models[0]`` through the kernels and one of
+    ``models[1]`` (a copy) through the plain versions, from the same state,
+    batch and seed; ``models[2]``, a third copy, takes the plain step on
+    the batch moved by one ulp (of f32, or of bf16 for a bf16 model), which
+    measures how far the step itself moves under rounding. Every argmax
+    flip of the kernel forward must be a proven tie (:func:`proven_ties`),
+    and both plain steps take the kernel's winners at exactly those ties.
+    Bars: each loss, gradient leaf, parameter and running statistic within
+    8x that one-ulp change plus a floor (a parameter whose gradient sign
+    the one-ulp step leaves uncertain may differ by Adam's 2 lr)."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward_reference,
+    )
+
+    calls: list = []
+    with record_pooled_forward(calls):
+        logs_k = run_step(0, x)
+    ties = proven_ties(torch, label, calls)
+    del calls
+    log(f"    {label}: {sum(int(f.sum()) for f, _ in ties)} argmax flips of the "
+        f"forward kernel, each a proven tie")
+    with route_pooled(following_ties(torch, ties), pooled_chain_backward_reference):
         logs_p = run_step(1, x)
-        logs_u = run_step(2, torch.nextafter(x, torch.full_like(x, float("inf"))))
-    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "stat": 0.0, "ulp": {}}
+    with route_pooled(following_ties(torch, ties), pooled_chain_backward_reference):
+        logs_u = run_step(2, ulp_up(torch, x, dtype))
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "stat": 0.0, "ulp": {},
+             "ties": sum(int(f.sum()) for f, _ in ties)}
     for key in ("loss", "classification_output_loss", "segmentation_output_loss",
                 "se3_loss"):
         k, p, u = (float(logs[key]) for logs in (logs_k, logs_p, logs_u))
@@ -1212,8 +1378,10 @@ def check_step_against_plain(torch, label, models, run_step, x, lr) -> dict:
         worst["grad"] = max(worst["grad"], (err / bound).item())
         certain = gp.abs() > 10 * sens
         perr = (pk - pp).abs()
-        certain_err = perr[certain].max().item() if bool(certain.any()) else 0.0
-        if certain_err > 1e-3 * lr or perr.max().item() > 2 * lr * (1 + 1e-3):
+        # where the sign is certain: 1e-3 lr, or one stored step apart (two
+        # updates that differ at all may round to neighbouring values)
+        over = (perr > 1e-3 * lr) & (pk != torch.nextafter(pp, pk))
+        if bool((over & certain).any()) or perr.max().item() > 2 * lr * (1 + 1e-3):
             raise AssertionError(f"train {label}: new {name} differs by "
                                  f"{perr.max().item():.3e}")
         worst["param"] = max(worst["param"], perr.max().item() / lr)
@@ -1228,7 +1396,13 @@ def check_step_against_plain(torch, label, models, run_step, x, lr) -> dict:
 
 
 def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
-               chains: int) -> dict:
+               chains: int, *, batches: int = 1, dtype=None) -> dict:
+    """One training case at full width: the step through the kernels held
+    to the plain step on ``batches`` batches (each from the same seeded
+    state), then 30 steps on the first batch with counted launches, steps/s,
+    busy share and device ms by kind. ``dtype`` bf16 trains the model in
+    bf16 (f32 Adam moments, as the JAX bench's bf16 train row) on the
+    kernels' bf16 forms."""
     import copy
 
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
@@ -1238,47 +1412,61 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
     )
     from pointcloudprocessing_tpu_torch.train import steps
 
+    tag = "[11 bf16]" if dtype is not None else "[6 train]"
+    counter = "launches_bf16" if dtype is not None else "launches"
     b, n = cfg.batch_size, cfg.input_width
     seed = 0
-    model = model_from_config(cfg, training=True, dropout_rate=0.3,
-                              generator=torch.Generator().manual_seed(0),
-                              device="cuda")
-    models = [model, copy.deepcopy(model), copy.deepcopy(model)]
-    runs = []
-    for m in models:
-        state, optimizer = steps.init_train_state(m, cfg.learning, freeze)
-        runs.append((state, steps.make_train_step(
-            m, optimizer, loss_weights, freeze, jitter_m)))
-    lr = float(optimizer.learning_rate(0))
-    x, targets = train_batch(torch, rng, b, n, cfg.num_classes, cfg.num_parts)
+    pristine = model_from_config(cfg, training=True, dropout_rate=0.3,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cuda", dtype=dtype)
+    data = [train_batch(torch, rng, b, n, cfg.num_classes, cfg.num_parts)
+            for _ in range(batches)]
+    ties = []
+    for k, (x, targets) in enumerate(data):
+        models = [copy.deepcopy(pristine) for _ in range(3)]
+        runs = []
+        for m in models:
+            state, optimizer = steps.init_train_state(m, cfg.learning, freeze)
+            runs.append((state, steps.make_train_step(
+                m, optimizer, loss_weights, freeze, jitter_m)))
+        lr = float(optimizer.learning_rate(0))
 
-    def run_step(i, points):
-        state, step = runs[i]
-        _, logs = step(state, points, targets, seed)
-        torch.cuda.synchronize()
-        return logs
+        def run_step(i, points):
+            state, step = runs[i]
+            _, logs = step(state, points, targets, seed)
+            torch.cuda.synchronize()
+            return logs
 
-    worst = check_step_against_plain(torch, label, models, run_step, x, lr)
-    log(f"[6 train] {label}: one step through the kernels vs the plain "
-        f"versions (same state, batch, generators): worst error over its "
-        f"bar: losses {worst['loss']:.3f}, grads {worst['grad']:.3f}, running "
-        f"statistics {worst['stat']:.3f}; largest param difference "
-        f"{worst['param']:.3f} lr (bars: 8x the plain step's own one-ulp "
-        f"change + floors; params 1e-3 lr where the gradient sign is certain, "
-        f"else 2 lr)")
+        worst = check_step_against_plain(torch, label, models, run_step, x, lr,
+                                         dtype)
+        ties.append(worst["ties"])
+        log(f"{tag} {label}, batch {k + 1} of {batches}: one step through the "
+            f"kernels vs the plain versions (same state, batch, generators): "
+            f"argmax flips {worst['ties']}, each a proven tie (float64 within the "
+            f"GEMM-rounding bar; the plain steps take the kernel's winners "
+            f"there); worst error over its bar: losses {worst['loss']:.3f}, grads "
+            f"{worst['grad']:.3f}, running statistics {worst['stat']:.3f}; "
+            f"largest param difference {worst['param']:.3f} lr (bars: 8x the "
+            f"plain step's own one-ulp change + floors; params 1e-3 lr where the "
+            f"gradient sign is certain, else 2 lr)")
+    x, targets = data[0]
+    model = copy.deepcopy(pristine)
+    state, optimizer = steps.init_train_state(model, cfg.learning, freeze)
+    runs = [(state, steps.make_train_step(model, optimizer, loss_weights, freeze,
+                                          jitter_m))]
 
     state, step = runs[0]
     num_steps = 30
-    pooled_chain_forward.launches = 0
-    pooled_chain_backward.launches = 0
+    setattr(pooled_chain_forward, counter, 0)
+    setattr(pooled_chain_backward, counter, 0)
     # ---- the main path: counted launches start here
     losses = []
     for _ in range(num_steps):
         state, logs = step(state, x, targets, seed)
         losses.append(logs["loss"])
     torch.cuda.synchronize()
-    launches = {"fwd": pooled_chain_forward.launches,
-                "bwd": pooled_chain_backward.launches}
+    launches = {"fwd": getattr(pooled_chain_forward, counter),
+                "bwd": getattr(pooled_chain_backward, counter)}
     # ---- the main path ends here
     losses = [float(v) for v in losses]
     if launches != {"fwd": chains * num_steps, "bwd": chains * num_steps}:
@@ -1286,7 +1474,7 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
                              f"{chains} x {num_steps} each")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"train {label}: loss {losses[0]} -> {losses[-1]}")
-    log(f"[6 train] {label}: {num_steps} steps on one batch: loss "
+    log(f"{tag} {label}: {num_steps} steps on one batch: loss "
         f"{losses[0]:.5f} -> {losses[-1]:.5f}; pooled launches {launches} "
         f"({chains} chains x {num_steps} steps)")
 
@@ -1310,19 +1498,21 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
 
     share = busy_share(torch, steps_fn(5))
     kinds = kernel_breakdown(torch, steps_fn(3), calls=3)
-    log(f"[6 train] {label}: train steps/s over {windows} windows of {window} "
+    log(f"{tag} {label}: train steps/s over {windows} windows of {window} "
         f"steps: " + ", ".join(f"{r:.3f}" for r in rates)
         + f"; median {rate:.3f} ({rate * b:.1f} clouds/s, spread "
         f"{(max(rates) - min(rates)) / rate:.4f}); device busy share "
         f"{share} over 5 steps")
-    log(f"[6 train] {label}: device ms per step by kind: " + (", ".join(
+    log(f"{tag} {label}: device ms per step by kind: " + (", ".join(
         f"{kind} {ms:.4f}" for kind, ms in kinds.items())
         + f"; total {sum(kinds.values()):.4f}" if kinds else "not traced"))
     return {"launches": launches, "steps": num_steps, "steps_per_s": rate,
-            "kinds": kinds, "loss_ulp": worst["ulp"]}
+            "kinds": kinds, "loss_ulp": worst["ulp"], "ties": ties}
 
 
-def phase_train(torch, rng) -> dict:
+def phase_train(torch, dtype=None) -> dict:
+    """Cases A and B (phase 6; phase 11 in bf16), from a generator of the
+    phase's own (``TRAIN_SEED``): case A's batch, then case B's three."""
     from pointcloudprocessing_tpu_torch.core.config import (
         LearningConfig,
         load_config,
@@ -1333,17 +1523,21 @@ def phase_train(torch, rng) -> dict:
         freeze_flags_from_trainable,
     )
 
+    rng = np.random.default_rng(TRAIN_SEED)
+    kind = "bf16" if dtype is not None else "f32"
     # A: the users' configuration, kc46 `final` (seeded init, no checkpoint)
     cfg = load_config(os.path.join(REPO, KC46_CONFIG))
     stage = next(st for st in cfg.stages if st.name == "final")
     lw = stage.loss_weights
     a = train_case(
         torch, rng, f"A kc46 final ({'vanilla' if cfg.vanilla else 'full'} "
-        f"{cfg.num_classes}/{cfg.num_parts}, {cfg.batch_size}x{cfg.input_width})",
+        f"{cfg.num_classes}/{cfg.num_parts} {kind}, {cfg.batch_size}x{cfg.input_width})",
         cfg, freeze_flags_from_trainable(stage.trainable),
         (lw.classification, lw.segmentation, lw.rotation), stage.noise.as_tuple(),
-        chains=1)
-    # B: the JAX bench's train-step row (bench.py:357-395)
+        chains=1, dtype=dtype)
+    # B: the JAX bench's train-step row (bench.py:357-395; bf16: :650-651),
+    # on three batches, the first the one a fresh default_rng(0) draws
+    # after case A's
     config_b = {
         "info": {"name": "bench_train",
                  "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
@@ -1355,9 +1549,9 @@ def phase_train(torch, rng) -> dict:
     cfg_b = parse_config(config_b)
     if cfg_b.learning != LearningConfig(rate=1e-4):
         raise AssertionError(f"case B's learning config {cfg_b.learning}")
-    b = train_case(torch, rng, "B bench train (full 23/12, both regularizers, 32x1024)",
-                   cfg_b, FreezeFlags(), (1.0, 1.0, 0.1), (0.01, 0.01, 0.01),
-                   chains=3)
+    b = train_case(torch, rng, f"B bench train (full 23/12 {kind}, both "
+                   f"regularizers, 32x1024)", cfg_b, FreezeFlags(), (1.0, 1.0, 0.1),
+                   (0.01, 0.01, 0.01), chains=3, batches=3, dtype=dtype)
     return {"A": a, "B": b}
 
 
@@ -1520,12 +1714,14 @@ def check_bit_identical(torch, got, want) -> bool:
                 and torch.equal(got[~nan], want[~nan]))
 
 
-def phase_gather_kernel(torch, rng) -> dict:
+def phase_gather_kernel(torch, rng, dtype=None) -> dict:
     """Kernel 7 against its plain version at DGCNN's four edge widths (64x1024
     clouds, k 20, the graph of normal(0, 1) clouds), at w 3, 40 and 96 (no
     multiple of 32, or of the slice), with NaN in q, with k 1, and on clouds
     of 16,384 points (the L2 form): bit-identical, with the form each took.
-    Phase 10 holds the 8x8192 calls of the trainer's DGCNN stage."""
+    Phase 10 holds the 8x8192 calls of the trainer's DGCNN stage. ``dtype``
+    bf16 holds the bf16 form (phase 11) at the three widths, w 40, NaN, k 1
+    and the L2 form."""
     from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
         gather_form,
@@ -1541,12 +1737,18 @@ def phase_gather_kernel(torch, rng) -> dict:
     big_idx = torch.from_numpy(
         rng.integers(0, big, (4, big, k)).astype(np.int32)).to(dev)
     results = {"err": 0.0}
-    for w, label in ((64, "layers 1-2"), (128, "layer 3"), (256, "layer 4"),
-                     (3, "w 3"), (40, "w 40"), (96, "w 96"), (64, "NaN in q"),
-                     (64, "k 1"), (64, "L2 form")):
+    tag = "[11 bf16]" if dtype is not None else "[3 kernels]"
+    cases = ((64, "layers 1-2"), (128, "layer 3"), (256, "layer 4"),
+             (3, "w 3"), (40, "w 40"), (96, "w 96"), (64, "NaN in q"),
+             (64, "k 1"), (64, "L2 form"))
+    if dtype is not None:
+        cases = tuple(case for case in cases if case[1] not in ("w 3", "w 96"))
+    for w, label in cases:
         idx = {"k 1": graph[..., :1].contiguous(), "L2 form": big_idx}.get(label, graph)
         shape = (idx.shape[0], idx.shape[1], w)
         q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        if dtype is not None:
+            q = q.to(dtype)
         if label == "NaN in q":
             q[0, idx[0, :8, 3].long(), 7] = float("nan")
         got = gather_maxmin(q, idx)
@@ -1555,12 +1757,12 @@ def phase_gather_kernel(torch, rng) -> dict:
         cb, cn, ck = idx.shape
         name = f"{cb}x{cn}x{w} k{ck} ({label})"
         if not all(check_bit_identical(torch, g, wt) for g, wt in zip(got, want)):
-            raise AssertionError(f"gather_maxmin {name} is not bit-identical to "
-                                 "its plain version")
+            raise AssertionError(f"{tag} gather_maxmin {name} is not bit-identical "
+                                 "to its plain version")
         for g, wt in zip(got, want):
             finite = ~torch.isnan(wt)
             results["err"] = max(results["err"],
-                                 (g[finite] - wt[finite]).abs().max().item())
+                                 (g[finite] - wt[finite]).abs().max().float().item())
         kernel = functools.partial(gather_maxmin, q, idx)
         plain = functools.partial(gather_maxmin_reference, q, idx)
         reps = 3 if label == "L2 form" else 20
@@ -1570,8 +1772,8 @@ def phase_gather_kernel(torch, rng) -> dict:
         # gathered value for the max and one for the min
         bound = roofline(nbytes(q, idx, *got), 2 * cb * cn * ck * w)
         nans = int(torch.isnan(got[0]).sum())
-        form, slice_ = gather_form(cb, cn, w)
-        log(f"[3 kernels] gather_maxmin {name}, {form} form"
+        form, slice_ = gather_form(cb, cn, w, q.element_size())
+        log(f"{tag} gather_maxmin {name} {q.dtype}, {form} form"
             + (f" S {slice_}" if slice_ else "") + ": bit-identical"
             + (f", NaN at the plain version's {nans} entries" if nans else "")
             + f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per call "
@@ -1754,13 +1956,16 @@ def record_knn():
         dgcnn_mod.knn_graph = real
 
 
-def phase_dgcnn(torch, rng) -> dict:
+def phase_dgcnn(torch, rng, dtype=None) -> dict:
     """DGCNN 23/12 at full width (edge widths 64, 64, 128, 256, embedding
     1024, k 20, f32, seeded init) built by model_from_config from a config
     with "model": "dgcnn", at bench.py:135-165's shape (64x1024 normal(0, 1)
     clouds), dynamic and static graph: kernel 7 against the plain version and
     the literal edge dataflow, rates, busy share, device ms by kind, and one
-    PointCloudPipeline stream."""
+    PointCloudPipeline stream. ``dtype`` bf16 (phase 11, the bench row's
+    own dtype): the same model in bf16 on kernel 7's bf16 form, against its
+    plain version (bit-identical), rates and device ms by kind; no literal
+    dataflow (it rounds ``U - V`` and the edges elsewhere) and no stream."""
     from pointcloudprocessing_tpu_torch.core.config import parse_config
     from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
@@ -1771,6 +1976,9 @@ def phase_dgcnn(torch, rng) -> dict:
     )
 
     dev = torch.device("cuda")
+    tag = "[11 bf16]" if dtype is not None else "[8 dgcnn]"
+    kind = "bf16" if dtype is not None else "f32"
+    counter = "launches_bf16" if dtype is not None else "launches"
     b, n = 64, 1024
     x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
     results = {"launches": 0}
@@ -1784,7 +1992,8 @@ def phase_dgcnn(torch, rng) -> dict:
                        "model_options": {"graph": graph}},
         })
         # the same seed gives both graph modes the same weights
-        model = model_from_config(cfg, generator=torch.Generator().manual_seed(0))
+        model = model_from_config(cfg, generator=torch.Generator().manual_seed(0),
+                                  dtype=dtype)
         model.eval()
         edges = [m for m in model.modules() if isinstance(m, dgcnn_mod.EdgeConv)]
         if next(model.parameters()).device.type != "cuda" or len(edges) != 4:
@@ -1792,7 +2001,7 @@ def phase_dgcnn(torch, rng) -> dict:
         with torch.inference_mode():
             model(x)  # warm-up
             count = 10
-            gather_maxmin.launches = 0
+            setattr(gather_maxmin, counter, 0)
             # ---- the DGCNN path: counted launches start here
             rates = []
             for _ in range(3):
@@ -1802,7 +2011,7 @@ def phase_dgcnn(torch, rng) -> dict:
                     out = model(x)
                 torch.cuda.synchronize()
                 rates.append(b * count / (time.perf_counter() - t0))
-            launches = gather_maxmin.launches
+            launches = getattr(gather_maxmin, counter)
             # ---- the DGCNN path ends here
             if launches != 4 * 3 * count:
                 raise AssertionError(f"DGCNN {graph}: kernel 7 launched {launches} "
@@ -1813,31 +2022,36 @@ def phase_dgcnn(torch, rng) -> dict:
                 plain = model(x)
             with record_knn() as met:
                 model(x)
-            for e in edges:
-                e.impl = "reference"
-            with record_knn() as met_literal:
-                literal = model(x)
-            for e in edges:
-                e.impl = "auto"
             torch.cuda.synchronize()
             same = all(torch.equal(out[key], plain[key]) for key in out)
-            diffs = {key: (out[key] - literal[key]).abs().max().item() for key in out}
-            seg_rows = ((out["segmentation_output"] - literal["segmentation_output"])
-                        .abs().amax(-1) > 1e-4).float().mean().item()
-            # rows whose neighbour set differs between the two dataflows' graphs
-            swaps = [int((a.sort(-1).values != c.sort(-1).values).any(-1).sum())
-                     for (_, a), (_, c) in zip(met, met_literal)]
             if not same:
-                raise AssertionError(f"DGCNN {graph}: factored path through kernel 7 "
-                                     "differs from the one through its plain version")
+                raise AssertionError(f"DGCNN {kind} {graph}: factored path through "
+                                     "kernel 7 differs from the one through its "
+                                     "plain version")
+            if dtype is None:
+                for e in edges:
+                    e.impl = "reference"
+                with record_knn() as met_literal:
+                    literal = model(x)
+                for e in edges:
+                    e.impl = "auto"
+                diffs = {key: (out[key] - literal[key]).abs().max().item()
+                         for key in out}
+                seg_rows = ((out["segmentation_output"]
+                             - literal["segmentation_output"])
+                            .abs().amax(-1) > 1e-4).float().mean().item()
+                # rows whose neighbour set differs between the two dataflows'
+                # graphs
+                swaps = [int((a.sort(-1).values != c.sort(-1).values).any(-1).sum())
+                         for (_, a), (_, c) in zip(met, met_literal)]
             # static: one graph, so every head within the parity bar. Dynamic:
             # each layer's graph is rebuilt from features the two dataflows
             # round differently, so a near-tie can swap a neighbour (counted
             # in `swaps`), which moves that point's segmentation row; the
             # pooled classification stays within the bar
-            if diffs["classification_output"] > 1e-4 or (
+            if dtype is None and (diffs["classification_output"] > 1e-4 or (
                     graph == "static" and max(diffs.values()) > 1e-4) or (
-                    seg_rows > 1e-3):
+                    seg_rows > 1e-3)):
                 raise AssertionError(f"DGCNN {graph}: factored vs literal edge "
                                      f"dataflow differ by {diffs}, {seg_rows:.5f} "
                                      "of the segmentation rows beyond 1e-4")
@@ -1851,28 +2065,32 @@ def phase_dgcnn(torch, rng) -> dict:
             dist_ms = device_ms(torch, lambda: [torch.matmul(f, f.transpose(1, 2))
                                                 for f in feats], 3)
         rate = float(np.median(rates))
-        log(f"[8 dgcnn] DGCNN 23/12 f32 k20 {graph} graph, {b}x{n} normal(0, 1): "
+        log(f"{tag} DGCNN 23/12 {kind} k20 {graph} graph, {b}x{n} normal(0, 1): "
             f"clouds/s over 3 windows of {count} forwards: "
             + ", ".join(f"{r:.1f}" for r in rates)
             + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
             f"busy share {share} over 3 forwards; kernel 7 launches {launches} "
             f"(4 a forward)")
-        log(f"[8 dgcnn] {graph}: through kernel 7 vs its plain version: "
-            f"bit-identical; vs the literal edge dataflow: max abs diff "
+        log(f"{tag} {graph}: through kernel 7 vs its plain version: "
+            f"bit-identical" + ("" if dtype is not None else
+            "; vs the literal edge dataflow: max abs diff "
             + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
             + f"; segmentation rows beyond 1e-4: {seg_rows:.5f}; kNN rows with "
-            f"another neighbour set, by layer: {swaps}")
+            f"another neighbour set, by layer: {swaps}"))
         if kinds:
             gemm_rest = kinds["gemm"] - (dist_ms or 0.0)
-            log(f"[8 dgcnn] {graph}: device ms per forward by kind: distance GEMM "
+            log(f"{tag} {graph}: device ms per forward by kind: distance GEMM "
                 f"{fmt(dist_ms)} ({len(feats)} kNN graphs), other GEMM "
                 f"{gemm_rest:.4f}, " + ", ".join(
                     f"{kind} {ms:.4f}" for kind, ms in kinds.items() if kind != "gemm")
                 + f"; total {sum(kinds.values()):.4f}; device activities a "
                 f"forward: {per_forward}")
         else:
-            log(f"[8 dgcnn] {graph}: device ms by kind: not traced")
+            log(f"{tag} {graph}: device ms by kind: not traced")
         results[graph] = rate
+        results[f"{graph}_kinds"] = kinds
+    if dtype is not None:
+        return results
 
     # one stream through the pipeline: voxel 0.4 -> FPS -> 1024 -> DGCNN
     pipe = PointCloudPipeline(model, scan_width=2048, model_width=n, voxel_size=0.4)
@@ -2079,64 +2297,28 @@ def close_heads(torch, got: dict, want: dict) -> tuple[dict, float]:
     return diffs, rows
 
 
-def phase_pointnet2(torch, rng) -> dict:
+def pointnet2_forward(torch, rng, dtype=None) -> tuple:
     """PointNet++ 23/12 at full width (the canonical SSG model of
-    ``pointnet2_for_width(23, 12, 1024)``, f32, seeded) from a config with
-    "model": "pointnet2": (b) the segment-sum route at 256x2000 and
-    256x2048; (c) 256x1024 normal(0, 1) clouds (bench.py:118-120) through
-    the FPS kernel against the same through its plain version, and a CPU
-    twin on 2 clouds; rates, busy share, device ms by kind; (d) the serving
-    pipeline at 256x2000 (no multiple of 128) with both samplers; (e) the
-    serve CLI over a PointNet++ stage at scan width 2000."""
+    ``pointnet2_for_width(23, 12, 1024)``, seeded) from a config with
+    "model": "pointnet2" on 256x1024 normal(0, 1) clouds (bench.py:108-120):
+    through the FPS kernel against the same through its plain version, a
+    CPU twin on 2 clouds (f32), clouds/s over three windows, busy share,
+    device ms by kind; FPS launches twice a forward. ``dtype`` bf16 (phase
+    11, the bench row's dtype): the same in bf16 (FPS on the f32 xyz), no
+    CPU twin (the CPU's bf16 GEMMs round elsewhere). Returns (model,
+    results)."""
     from pointcloudprocessing_tpu_torch.core.config import parse_config
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
-    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
     from pointcloudprocessing_tpu_torch.models.pointnet2 import (
         PointNet2,
         pointnet2_for_width,
     )
     from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
-    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
-        segment_reduce,
-        sorted_segment_reduce,
-    )
-    from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
-    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
 
     dev = torch.device("cuda")
+    tag = "[11 bf16]" if dtype is not None else "[9 pointnet2]"
+    precision = "bf16" if dtype is not None else "f32"
     results = {}
-
-    def counts():
-        return {"any": segment_reduce.launches, "sorted": sorted_segment_reduce.launches,
-                "fps": fps_with_points.launches}
-
-    def zero_counts():
-        segment_reduce.launches = sorted_segment_reduce.launches = 0
-        fps_with_points.launches = 0
-
-    # (b) the route: a voxel step and a stride sample per width
-    for n, want in ((2000, {"any": 2, "sorted": 0}), (2048, {"any": 0, "sorted": 2})):
-        x = torch.from_numpy(scan_batch(rng, "uniform", 256, n)).to(dev)
-        zero_counts()
-        vox, vmask = voxel_downsample_batch(x, 0.4)
-        stride_sample_and_gather(vox, 1024, vmask)
-        torch.cuda.synchronize()
-        got = {k: v for k, v in counts().items() if k != "fps"}
-        if got != want:
-            raise AssertionError(f"route at 256x{n}: launches {got}, want {want}")
-        if n == 2000:
-            with route_kernels(sorted_segment_reduce, fps_with_points):
-                forced, fmask = voxel_downsample_batch(x, 0.4)
-            if not torch.equal(vmask, fmask) or not bool(
-                    ((vox - forced).abs() <= 1e-6 * forced.abs()).all()):
-                raise AssertionError("voxel output at 256x2000 through kernel 3 "
-                                     "differs from the same through kernel 1")
-    log("[9 pointnet2] route: a voxel step + a stride sample launch kernel 3 "
-        "twice and kernel 1 never at 256x2000, the reverse at 256x2048; at "
-        "256x2000 the voxel output through kernel 3 equals the same through "
-        "kernel 1 forced (masks identical, centroids within 1e-6 relative)")
-
-    # (c) PointNet++ at 256x1024
     cfg = parse_config({
         "info": {"name": "smoke_pointnet2",
                  "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
@@ -2144,7 +2326,8 @@ def phase_pointnet2(torch, rng) -> dict:
         "params": {"input_width": 1024, "epochs": 1, "patience": 1,
                    "batch_size": 256, "model": "pointnet2"},
     })
-    model = model_from_config(cfg, generator=torch.Generator().manual_seed(0))
+    model = model_from_config(cfg, generator=torch.Generator().manual_seed(0),
+                              dtype=dtype)
     model.eval()
     if not isinstance(model, PointNet2) or next(model.parameters()).device.type != "cuda" \
             or (model.sa1.num_centroids, model.sa1.k, model.sa2.num_centroids,
@@ -2189,18 +2372,20 @@ def phase_pointnet2(torch, rng) -> dict:
         if max(diffs.values()) > 1e-6:
             raise AssertionError(f"PointNet++ through the FPS kernel vs its plain "
                                  f"version: {diffs}")
-        # a CPU twin on two clouds, both with the plain FPS (the CPU's default
-        # distance-matrix FPS rounds distances another way)
-        twin = pointnet2_for_width(NUM_CLASSES, NUM_PARTS, n, device="cpu")
-        twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        twin.eval()
-        with pointnet2_fps("stream", []):
-            small_gpu = model(x[:2])
-            small_cpu = twin(x[:2].cpu())
-        cpu_diffs, cpu_rows = close_heads(torch, small_gpu, small_cpu)
-        if cpu_diffs["classification_output"] > 1e-4 or cpu_rows > 1e-3:
-            raise AssertionError(f"PointNet++ on the card vs its CPU twin: "
-                                 f"{cpu_diffs}, {cpu_rows:.5f} of the rows beyond 1e-4")
+        cpu_diffs, cpu_rows = {}, 0.0
+        if dtype is None:
+            # a CPU twin on two clouds, both with the plain FPS (the CPU's default
+            # distance-matrix FPS rounds distances another way)
+            twin = pointnet2_for_width(NUM_CLASSES, NUM_PARTS, n, device="cpu")
+            twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            twin.eval()
+            with pointnet2_fps("stream", []):
+                small_gpu = model(x[:2])
+                small_cpu = twin(x[:2].cpu())
+            cpu_diffs, cpu_rows = close_heads(torch, small_gpu, small_cpu)
+            if cpu_diffs["classification_output"] > 1e-4 or cpu_rows > 1e-3:
+                raise AssertionError(f"PointNet++ on the card vs its CPU twin: "
+                                     f"{cpu_diffs}, {cpu_rows:.5f} of the rows beyond 1e-4")
         share = busy_share(torch, lambda: [model(x) for _ in range(3)])
         kinds = kernel_breakdown(torch, lambda: [model(x) for _ in range(2)],
                                  calls=2, kinds=PN2_KINDS)
@@ -2208,21 +2393,80 @@ def phase_pointnet2(torch, rng) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
     rate = float(np.median(rates))
     results["clouds_per_s"] = rate
-    log(f"[9 pointnet2] PointNet++ 23/12 f32 SSG (512/32/0.2, 128/64/0.4), "
+    log(f"{tag} PointNet++ 23/12 {precision} SSG (512/32/0.2, 128/64/0.4), "
         f"{b}x{n} normal(0, 1): clouds/s over 3 windows of {count} forwards: "
         + ", ".join(f"{r:.1f}" for r in rates)
         + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
         f"busy share {share} over 3 forwards; FPS launches {launches} (2 a "
         f"forward); peak allocated {peak:.2f} GiB")
-    log(f"[9 pointnet2] through the FPS kernel vs its plain version: picks "
+    log(f"{tag} through the FPS kernel vs its plain version: picks "
         f"identical, heads {'bit-identical' if bitwise else 'max abs diff ' + str(diffs)}"
-        f"; card vs CPU twin on 2 clouds: " + ", ".join(
+        + ("" if dtype is not None else "; card vs CPU twin on 2 clouds: " + ", ".join(
             f"{k} {v:.3e}" for k, v in cpu_diffs.items())
-        + f", segmentation rows beyond 1e-4: {cpu_rows:.5f}")
-    log("[9 pointnet2] device ms per forward by kind: " + (", ".join(
+        + f", segmentation rows beyond 1e-4: {cpu_rows:.5f}"))
+    log(f"{tag} device ms per forward by kind: " + (", ".join(
         f"{kind} {ms:.4f}" for kind, ms in kinds.items())
         + f"; total {sum(kinds.values()):.4f}; device activities a forward: "
         f"{per_forward}" if kinds else "not traced"))
+    results["kinds"] = kinds
+    return model, results
+
+
+def phase_pointnet2(torch, rng) -> dict:
+    """PointNet++ 23/12 at full width (the canonical SSG model of
+    ``pointnet2_for_width(23, 12, 1024)``, f32, seeded) from a config with
+    "model": "pointnet2": (b) the segment-sum route at 256x2000 and
+    256x2048; (c) 256x1024 normal(0, 1) clouds (bench.py:118-120) through
+    the FPS kernel against the same through its plain version, and a CPU
+    twin on 2 clouds; rates, busy share, device ms by kind; (d) the serving
+    pipeline at 256x2000 (no multiple of 128) with both samplers; (e) the
+    serve CLI over a PointNet++ stage at scan width 2000."""
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
+        segment_reduce,
+        sorted_segment_reduce,
+    )
+    from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    dev = torch.device("cuda")
+    results = {}
+
+    def counts():
+        return {"any": segment_reduce.launches, "sorted": sorted_segment_reduce.launches,
+                "fps": fps_with_points.launches}
+
+    def zero_counts():
+        segment_reduce.launches = sorted_segment_reduce.launches = 0
+        fps_with_points.launches = 0
+
+    # (b) the route: a voxel step and a stride sample per width
+    for n, want in ((2000, {"any": 2, "sorted": 0}), (2048, {"any": 0, "sorted": 2})):
+        x = torch.from_numpy(scan_batch(rng, "uniform", 256, n)).to(dev)
+        zero_counts()
+        vox, vmask = voxel_downsample_batch(x, 0.4)
+        stride_sample_and_gather(vox, 1024, vmask)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if k != "fps"}
+        if got != want:
+            raise AssertionError(f"route at 256x{n}: launches {got}, want {want}")
+        if n == 2000:
+            with route_kernels(sorted_segment_reduce, fps_with_points):
+                forced, fmask = voxel_downsample_batch(x, 0.4)
+            if not torch.equal(vmask, fmask) or not bool(
+                    ((vox - forced).abs() <= 1e-6 * forced.abs()).all()):
+                raise AssertionError("voxel output at 256x2000 through kernel 3 "
+                                     "differs from the same through kernel 1")
+    log("[9 pointnet2] route: a voxel step + a stride sample launch kernel 3 "
+        "twice and kernel 1 never at 256x2000, the reverse at 256x2048; at "
+        "256x2000 the voxel output through kernel 3 equals the same through "
+        "kernel 1 forced (masks identical, centroids within 1e-6 relative)")
+
+    # (c) PointNet++ at 256x1024
+    model, forward = pointnet2_forward(torch, rng)
+    results.update(forward)
+    b, n = 256, 1024  # the forward's clouds, served below
 
     # (d) serving at a width that does not tile: 2000 = 15 * 128 + 80
     scan = 2000
@@ -2478,8 +2722,9 @@ def stage_log(name: str):
     return logging.getLogger(f"train.{name}"), handler, messages
 
 
-def phase_trainer(torch, rng, trained: dict) -> dict:
-    """Phase 10: the staged trainer end to end on the card."""
+def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
+    """Phase 10: the staged trainer end to end on the card, its collects,
+    sets and stages in ``root`` (phase 11 reuses the collects and sets)."""
     from pointcloudprocessing_tpu_torch import serve
     from pointcloudprocessing_tpu_torch.data.loader import DeviceLoader, StreamingLoader
     from pointcloudprocessing_tpu_torch.data.pointcloudset import (
@@ -2517,241 +2762,342 @@ def phase_trainer(torch, rng, trained: dict) -> dict:
             out["launches"][k] += v
         return got
 
-    with tempfile.TemporaryDirectory() as root:
-        # (a) the collects, and ingest alone (the native one-pass path)
-        t0 = time.perf_counter()
-        datasets = [write_trainer_collect(os.path.join(root, "input"), c, parts, width,
-                                         seed=k) for k, c in enumerate(TRAINER_SHAPES)]
-        write_s = time.perf_counter() - t0
-        probe_set = PointCloudSet("ingest_probe", classes, parts, width, batch_size=batch,
-                                  rand_seed=42, print_func=lambda m: None,
-                                  data_path=os.path.join(root, "probe") + "/")
-        t0 = time.perf_counter()
-        for d in datasets:
-            probe_set.add_from_aftr_output(os.path.join(root, "input", d))
-        ingest_s = time.perf_counter() - t0
-        clouds = sum(probe_set.split_count(s) for s in ("train", "val", "test"))
-        if clouds != len(datasets) * TRAINER_FRAMES:
-            raise AssertionError(f"trainer: ingested {clouds} clouds")
-        log(f"[10 trainer] {len(datasets)} collects x {TRAINER_FRAMES} frames of "
-            f"{int(0.75 * width)}-{int(1.1 * width)} points written in {write_s:.1f} s; "
-            f"ingest (PointCloudSet, native one-pass) {clouds} clouds in "
-            f"{ingest_s:.3f} s: {clouds / ingest_s:.1f} clouds/s")
+    # (a) the collects, and ingest alone (the native one-pass path)
+    t0 = time.perf_counter()
+    datasets = [write_trainer_collect(os.path.join(root, "input"), c, parts, width,
+                                     seed=k) for k, c in enumerate(TRAINER_SHAPES)]
+    write_s = time.perf_counter() - t0
+    probe_set = PointCloudSet("ingest_probe", classes, parts, width, batch_size=batch,
+                              rand_seed=42, print_func=lambda m: None,
+                              data_path=os.path.join(root, "probe") + "/")
+    t0 = time.perf_counter()
+    for d in datasets:
+        probe_set.add_from_aftr_output(os.path.join(root, "input", d))
+    ingest_s = time.perf_counter() - t0
+    clouds = sum(probe_set.split_count(s) for s in ("train", "val", "test"))
+    if clouds != len(datasets) * TRAINER_FRAMES:
+        raise AssertionError(f"trainer: ingested {clouds} clouds")
+    log(f"[10 trainer] {len(datasets)} collects x {TRAINER_FRAMES} frames of "
+        f"{int(0.75 * width)}-{int(1.1 * width)} points written in {write_s:.1f} s; "
+        f"ingest (PointCloudSet, native one-pass) {clouds} clouds in "
+        f"{ingest_s:.3f} s: {clouds / ingest_s:.1f} clouds/s")
 
-        # (b) the kc46 curriculum through the CLI, in a subprocess
-        cfg_path = trainer_config(root, datasets, "models", epochs=3)
-        t0 = time.perf_counter()
-        run = subprocess.run(
-            [sys.executable, "-m", "pointcloudprocessing_tpu_torch.train.cli", cfg_path],
-            cwd=REPO, capture_output=True, text=True, timeout=600)
-        cli_s = time.perf_counter() - t0
-        if run.returncode != 0 or "Model training completed successfully." not in run.stdout:
-            raise AssertionError(f"trainer: the CLI exited {run.returncode}:\n"
-                                 f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
-        stage_dirs = {s: os.path.join(root, "models", name, s) for s in stages}
-        histories = {}
-        for s, d in stage_dirs.items():
-            with open(os.path.join(d, f"{name}_{s}_history.json")) as f:
-                histories[s] = json.load(f)
-            check_histories(f"CLI {s}", histories[s], None, 3, {})
-            if not (os.path.isfile(os.path.join(d, "best", "model.pt"))
-                    and os.path.isfile(os.path.join(d, os.path.basename(cfg_path)))
-                    and not os.path.exists(os.path.join(d, "resume"))):
-                raise AssertionError(f"trainer: stage {s} artifacts {os.listdir(d)}")
-        first, second = (load_checkpoint(stage_dirs[s]) for s in stages)
-        head = [k for k in first if k.startswith("mlp_cls")]
-        if not head or any(not torch.equal(first[k], second[k]) for k in head):
-            raise AssertionError("trainer: stage 2 did not start from stage 1's best "
-                                 "(its frozen classification head moved)")
-        log(f"[10 trainer] CLI kc46 ({'vanilla' if kc46['params']['vanilla'] else 'full'} "
-            f"{len(classes)}/{len(parts)}, {batch}x{width}, stages {stages}, 3 epochs "
-            f"each): exit 0 in {cli_s:.1f} s; histories with the 14 Keras keys, finite; "
-            f"best/ and the config copy written, resume/ gone; stage 2's frozen "
-            f"classification head equals stage 1's best ({len(head)} tensors); "
-            + "; ".join(f"{s} loss {h['loss'][0]:.4f} -> {h['loss'][-1]:.4f}, "
-                        f"val_loss {h['val_loss'][-1]:.4f}" for s, h in histories.items()))
+    # (b) the kc46 curriculum through the CLI, in a subprocess
+    cfg_path = trainer_config(root, datasets, "models", epochs=3)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "pointcloudprocessing_tpu_torch.train.cli", cfg_path],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0 or "Model training completed successfully." not in run.stdout:
+        raise AssertionError(f"trainer: the CLI exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    stage_dirs = {s: os.path.join(root, "models", name, s) for s in stages}
+    histories = {}
+    for s, d in stage_dirs.items():
+        with open(os.path.join(d, f"{name}_{s}_history.json")) as f:
+            histories[s] = json.load(f)
+        check_histories(f"CLI {s}", histories[s], None, 3, {})
+        if not (os.path.isfile(os.path.join(d, "best", "model.pt"))
+                and os.path.isfile(os.path.join(d, os.path.basename(cfg_path)))
+                and not os.path.exists(os.path.join(d, "resume"))):
+            raise AssertionError(f"trainer: stage {s} artifacts {os.listdir(d)}")
+    first, second = (load_checkpoint(stage_dirs[s]) for s in stages)
+    head = [k for k in first if k.startswith("mlp_cls")]
+    if not head or any(not torch.equal(first[k], second[k]) for k in head):
+        raise AssertionError("trainer: stage 2 did not start from stage 1's best "
+                             "(its frozen classification head moved)")
+    log(f"[10 trainer] CLI kc46 ({'vanilla' if kc46['params']['vanilla'] else 'full'} "
+        f"{len(classes)}/{len(parts)}, {batch}x{width}, stages {stages}, 3 epochs "
+        f"each): exit 0 in {cli_s:.1f} s; histories with the 14 Keras keys, finite; "
+        f"best/ and the config copy written, resume/ gone; stage 2's frozen "
+        f"classification head equals stage 1's best ({len(head)} tensors); "
+        + "; ".join(f"{s} loss {h['loss'][0]:.4f} -> {h['loss'][-1]:.4f}, "
+                    f"val_loss {h['val_loss'][-1]:.4f}" for s, h in histories.items()))
 
-        # (c) a rerun skips both stages and reuses the ingested sets
-        logger, handler, messages = stage_log(name)
+    # (c) a rerun skips both stages and reuses the ingested sets
+    logger, handler, messages = stage_log(name)
+    logger.addHandler(handler)
+    try:
+        t0 = time.perf_counter()
+        again = TrainProfile(cfg_path, log_to_file=False).train()
+    finally:
+        logger.removeHandler(handler)
+    if (again != histories
+            or sum("already completed" in m for m in messages) != len(stages)
+            or sum("Using existing profile" in m for m in messages) != len(stages)
+            or any(m.startswith("Adding data set") for m in messages)):
+        raise AssertionError("trainer: the rerun retrained or re-ingested")
+    log(f"[10 trainer] rerun: both stages skipped, both ingested sets reused "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # (d) killed in stage 1's second epoch, then resumed: counted launches
+    resume_cfg = trainer_config(root, datasets, "models_resume", epochs=3)
+    pc = {s: load_from_file(os.path.join(root, "data", f"{name}_{s}", "pc_set.joblib"))
+          for s in stages}
+    train_n = pc[stages[0]].split_count("train")
+    steps_per_epoch = train_n // batch
+    val_steps = max(pc[stages[0]].split_count("val") // batch, 1)
+
+    def kill(stage, epoch, logs):
+        if stage == stages[0] and epoch == 1:
+            raise KeyboardInterrupt("killed after epoch 1")
+
+    seen: list = []
+    logger, handler, messages = stage_log(name)
+    reset()
+    # ---- the main path (the trainer, killed and resumed): counted launches
+    with recording_batches(DeviceLoader, seen):
+        tp = TrainProfile(resume_cfg, log_to_file=False)
+        tp.epoch_callbacks.append(kill)
+        try:
+            tp.train()
+            raise AssertionError("trainer: the kill hook did not fire")
+        except KeyboardInterrupt:
+            pass
         logger.addHandler(handler)
         try:
-            t0 = time.perf_counter()
-            again = TrainProfile(cfg_path, log_to_file=False).train()
+            resumed_histories = TrainProfile(resume_cfg, log_to_file=False).train()
         finally:
             logger.removeHandler(handler)
-        if (again != histories
-                or sum("already completed" in m for m in messages) != len(stages)
-                or sum("Using existing profile" in m for m in messages) != len(stages)
-                or any(m.startswith("Adding data set") for m in messages)):
-            raise AssertionError("trainer: the rerun retrained or re-ingested")
-        log(f"[10 trainer] rerun: both stages skipped, both ingested sets reused "
-            f"({time.perf_counter() - t0:.2f} s)")
+    torch.cuda.synchronize()
+    launches = read()
+    # ---- the main path ends here
+    train_steps = steps_per_epoch * (2 + 2 + 3)  # killed 0-1, resumed 1-2, stage 2
+    per_step = {k: launches[k] / train_steps for k in ("fwd", "bwd")}
+    want_per_step = {k: trained["A"]["launches"][k] / trained["A"]["steps"]
+                     for k in ("fwd", "bwd")}
+    if per_step != want_per_step:
+        raise AssertionError(f"trainer: pooled launches a train step {per_step}, "
+                             f"phase 6 counts {want_per_step}")
+    # both stages' sets hold the same collects, ingested with seed 42: one
+    # reference order serves both
+    arrays = pc[stages[0]].load_split_arrays("train")
+    reference = DeviceLoader(arrays, batch, seed=42)
+    want_rows = [row for e in range(3) for row in
+                 itertools.islice(reference._batch_indices(e), steps_per_epoch)]
+    want_rows = want_rows[:2 * steps_per_epoch] + want_rows[steps_per_epoch:] + want_rows
+    got_x = [x for n, e, x in seen if n == train_n]
+    if len(got_x) != len(want_rows) or any(
+            not np.array_equal(x.cpu().numpy(), arrays["observations"][row])
+            for x, row in zip(got_x, want_rows)):
+        raise AssertionError("trainer: the resumed run's batches differ from the "
+                             "seeded loader's order")
+    worst = max(check_histories(f"resumed {s}", resumed_histories[s],
+                                histories[s], 3, trained["A"]["loss_ulp"])
+                for s in stages)
+    log(f"[10 trainer] killed in stage 1's epoch 2 (an epoch_callbacks hook), "
+        f"resumed: batch order equal to the uninterrupted run's "
+        f"({len(want_rows)} train batches: epochs 1-2 killed, 2-3 resumed, "
+        f"then stage 2's 1-3); histories of both "
+        f"stages against the CLI run's: largest difference {worst:.3e} (bar: "
+        f"phase 6's for one step, 8x its one-ulp loss change + floors; "
+        f"accuracies equal); pooled launches {launches['fwd']} / {launches['bwd']} "
+        f"over {train_steps} train steps: {per_step['fwd']:g} / {per_step['bwd']:g} "
+        f"a step, as phase 6 case A (same freeze flags)")
+    times = epoch_times(messages, steps_per_epoch, val_steps)
+    rate = float(np.median(times["train"]))
+    log(f"[10 trainer] train steps/s of the resumed run, {steps_per_epoch}-step "
+        f"epochs (loader start, steps, log sync; {batch}x{width}) "
+        f"median {rate:.3f} over {len(times['train'])} epochs "
+        f"({', '.join(f'{r:.2f}' for r in times['train'])}) beside phase 6's bare "
+        f"step {trained['A']['steps_per_s']:.3f}; val steps/s median "
+        f"{float(np.median(times['val'])):.3f}; seconds an epoch ({steps_per_epoch} "
+        f"train + {val_steps} val steps, as the trainer logs it) median "
+        f"{float(np.median(times['epoch_s'])):.3f}")
 
-        # (d) killed in stage 1's second epoch, then resumed: counted launches
-        resume_cfg = trainer_config(root, datasets, "models_resume", epochs=3)
-        pc = {s: load_from_file(os.path.join(root, "data", f"{name}_{s}", "pc_set.joblib"))
-              for s in stages}
-        train_n = pc[stages[0]].split_count("train")
-        steps_per_epoch = train_n // batch
-        val_steps = max(pc[stages[0]].split_count("val") // batch, 1)
+    # (e) the device's busy share over one epoch of the trainer
+    busy_cfg = trainer_config(root, datasets, "models_busy", epochs=1,
+                             stages=[stages[-1]])
+    share = busy_share(torch, lambda: TrainProfile(busy_cfg, log_to_file=False).train())
+    log(f"[10 trainer] device busy share over one epoch of stage {stages[-1]} "
+        f"(model build, {steps_per_epoch} train and {val_steps} val steps, "
+        f"checkpoints): {share}")
 
-        def kill(stage, epoch, logs):
-            if stage == stages[0] and epoch == 1:
-                raise KeyboardInterrupt("killed after epoch 1")
+    # (f) serve.main over the trainer's own checkpoint
+    pred = os.path.join(root, "pred.jsonl")
+    rc = serve.main(["--model", stage_dirs[stages[-1]], "--input",
+                     os.path.join(root, "input", datasets[0]), "--output", pred,
+                     "--batch", str(batch), "--device", "cuda"])
+    with open(pred) as f:
+        records = [json.loads(line) for line in f]
+    if rc != 0 or len(records) != TRAINER_FRAMES or any(
+            r["class"] not in classes or sum(r["part_counts"].values()) != width
+            for r in records):
+        raise AssertionError(f"trainer: serve rc {rc}, {len(records)} records")
+    log(f"[10 trainer] serve.main --model {stages[-1]}/ (best/model.pt, the "
+        f"trainer's checkpoint): {len(records)} scans answered")
 
-        seen: list = []
-        logger, handler, messages = stage_log(name)
+    # (g) PointNet++ and DGCNN through the same step, one stage of 2 epochs
+    for family, kernel, per_forward in (("pointnet2", "fps", 2),
+                                        ("dgcnn", "gather", 4)):
+        fam_cfg = trainer_config(root, datasets, f"models_{family}", epochs=2,
+                                stages=[stages[-1]], model=family)
+        gathers: list = []
+        recording = record_gather(gathers, 4) if family == "dgcnn" else \
+            contextlib.nullcontext()
         reset()
-        # ---- the main path (the trainer, killed and resumed): counted launches
-        with recording_batches(DeviceLoader, seen):
-            tp = TrainProfile(resume_cfg, log_to_file=False)
-            tp.epoch_callbacks.append(kill)
-            try:
-                tp.train()
-                raise AssertionError("trainer: the kill hook did not fire")
-            except KeyboardInterrupt:
-                pass
-            logger.addHandler(handler)
-            try:
-                resumed_histories = TrainProfile(resume_cfg, log_to_file=False).train()
-            finally:
-                logger.removeHandler(handler)
-        torch.cuda.synchronize()
-        launches = read()
-        # ---- the main path ends here
-        train_steps = steps_per_epoch * (2 + 2 + 3)  # killed 0-1, resumed 1-2, stage 2
-        per_step = {k: launches[k] / train_steps for k in ("fwd", "bwd")}
-        want_per_step = {k: trained["A"]["launches"][k] / trained["A"]["steps"]
-                         for k in ("fwd", "bwd")}
-        if per_step != want_per_step:
-            raise AssertionError(f"trainer: pooled launches a train step {per_step}, "
-                                 f"phase 6 counts {want_per_step}")
-        # both stages' sets hold the same collects, ingested with seed 42: one
-        # reference order serves both
-        arrays = pc[stages[0]].load_split_arrays("train")
-        reference = DeviceLoader(arrays, batch, seed=42)
-        want_rows = [row for e in range(3) for row in
-                     itertools.islice(reference._batch_indices(e), steps_per_epoch)]
-        want_rows = want_rows[:2 * steps_per_epoch] + want_rows[steps_per_epoch:] + want_rows
-        got_x = [x for n, e, x in seen if n == train_n]
-        if len(got_x) != len(want_rows) or any(
-                not np.array_equal(x.cpu().numpy(), arrays["observations"][row])
-                for x, row in zip(got_x, want_rows)):
-            raise AssertionError("trainer: the resumed run's batches differ from the "
-                                 "seeded loader's order")
-        worst = max(check_histories(f"resumed {s}", resumed_histories[s],
-                                    histories[s], 3, trained["A"]["loss_ulp"])
-                    for s in stages)
-        log(f"[10 trainer] killed in stage 1's epoch 2 (an epoch_callbacks hook), "
-            f"resumed: batch order equal to the uninterrupted run's "
-            f"({len(want_rows)} train batches: epochs 1-2 killed, 2-3 resumed, "
-            f"then stage 2's 1-3); histories of both "
-            f"stages against the CLI run's: largest difference {worst:.3e} (bar: "
-            f"phase 6's for one step, 8x its one-ulp loss change + floors; "
-            f"accuracies equal); pooled launches {launches['fwd']} / {launches['bwd']} "
-            f"over {train_steps} train steps: {per_step['fwd']:g} / {per_step['bwd']:g} "
-            f"a step, as phase 6 case A (same freeze flags)")
-        times = epoch_times(messages, steps_per_epoch, val_steps)
-        rate = float(np.median(times["train"]))
-        log(f"[10 trainer] train steps/s of the resumed run, {steps_per_epoch}-step "
-            f"epochs (loader start, steps, log sync; {batch}x{width}) "
-            f"median {rate:.3f} over {len(times['train'])} epochs "
-            f"({', '.join(f'{r:.2f}' for r in times['train'])}) beside phase 6's bare "
-            f"step {trained['A']['steps_per_s']:.3f}; val steps/s median "
-            f"{float(np.median(times['val'])):.3f}; seconds an epoch ({steps_per_epoch} "
-            f"train + {val_steps} val steps, as the trainer logs it) median "
-            f"{float(np.median(times['epoch_s'])):.3f}")
-
-        # (e) the device's busy share over one epoch of the trainer
-        busy_cfg = trainer_config(root, datasets, "models_busy", epochs=1,
-                                 stages=[stages[-1]])
-        share = busy_share(torch, lambda: TrainProfile(busy_cfg, log_to_file=False).train())
-        log(f"[10 trainer] device busy share over one epoch of stage {stages[-1]} "
-            f"(model build, {steps_per_epoch} train and {val_steps} val steps, "
-            f"checkpoints): {share}")
-
-        # (f) serve.main over the trainer's own checkpoint
-        pred = os.path.join(root, "pred.jsonl")
-        rc = serve.main(["--model", stage_dirs[stages[-1]], "--input",
-                         os.path.join(root, "input", datasets[0]), "--output", pred,
-                         "--batch", str(batch), "--device", "cuda"])
-        with open(pred) as f:
-            records = [json.loads(line) for line in f]
-        if rc != 0 or len(records) != TRAINER_FRAMES or any(
-                r["class"] not in classes or sum(r["part_counts"].values()) != width
-                for r in records):
-            raise AssertionError(f"trainer: serve rc {rc}, {len(records)} records")
-        log(f"[10 trainer] serve.main --model {stages[-1]}/ (best/model.pt, the "
-            f"trainer's checkpoint): {len(records)} scans answered")
-
-        # (g) PointNet++ and DGCNN through the same step, one stage of 2 epochs
-        for family, kernel, per_forward in (("pointnet2", "fps", 2),
-                                            ("dgcnn", "gather", 4)):
-            fam_cfg = trainer_config(root, datasets, f"models_{family}", epochs=2,
-                                    stages=[stages[-1]], model=family)
-            gathers: list = []
-            recording = record_gather(gathers, 4) if family == "dgcnn" else \
-                contextlib.nullcontext()
-            reset()
-            t0 = time.perf_counter()
-            # ---- the main path (a family through the trainer): counted launches
-            with recording:
-                hist = TrainProfile(fam_cfg, log_to_file=False).train()[stages[-1]]
-            torch.cuda.synchronize()
-            got = read()
-            # ---- the main path ends here
-            seconds = time.perf_counter() - t0
-            check_histories(family, hist, None, 2, {})
-            forwards = 2 * (steps_per_epoch + val_steps) if family == "pointnet2" \
-                else 2 * val_steps  # DGCNN's train forward gathers rows instead
-            if got[kernel] != per_forward * forwards:
-                raise AssertionError(f"trainer {family}: {kernel} launches "
-                                     f"{got[kernel]}, want {per_forward} x {forwards}")
-            log(f"[10 trainer] {family} 23/12 at {batch}x{width} (stage {stages[-1]}, "
-                f"2 epochs) in {seconds:.1f} s: loss {hist['loss'][0]:.4f} -> "
-                f"{hist['loss'][-1]:.4f}; kernel {'2 (FPS)' if kernel == 'fps' else '7'} "
-                f"launches {got[kernel]} = {per_forward} x {forwards} "
-                f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}")
-            if family == "dgcnn":
-                if [q.shape[2] for q, _, _ in gathers] != [64, 64, 128, 256]:
-                    raise AssertionError("trainer dgcnn: recorded gathers of widths "
-                                         f"{[q.shape[2] for q, _, _ in gathers]}")
-                out["gather_err"] = check_stage_gathers(torch, gathers)
-                del gathers
-
-        # (h) the streaming loader feeding the card
-        stream_cfg = trainer_config(root, datasets, "models_stream", epochs=2,
-                                   stages=[stages[-1]])
-        seen = []
-        tp = TrainProfile(stream_cfg, log_to_file=False)
-        tp._pc_sets[stages[-1]].max_in_memory_bytes = 1  # every split streams
-        reset()
-        # ---- the main path (the trainer on the streaming loader): counted launches
-        with recording_batches(StreamingLoader, seen):
-            hist = tp.train()[stages[-1]]
+        t0 = time.perf_counter()
+        # ---- the main path (a family through the trainer): counted launches
+        with recording:
+            hist = TrainProfile(fam_cfg, log_to_file=False).train()[stages[-1]]
         torch.cuda.synchronize()
         got = read()
         # ---- the main path ends here
-        check_histories("streaming", hist, None, 2, {})
-        train_split = pc[stages[-1]].split_count("train")
-        for epoch in range(2):
-            prints = np.concatenate([x.sum(dim=(1, 2)).double().cpu().numpy()
-                                     for n, e, x in seen if n == train_split and e == epoch])
-            if len(prints) != train_split - train_split % batch or \
-                    len(np.unique(prints)) != len(prints):
-                raise AssertionError(f"trainer streaming: epoch {epoch} saw "
-                                     f"{len(prints)} clouds, {len(np.unique(prints))} "
-                                     f"distinct")
-        if got["fwd"] != 2 * steps_per_epoch * per_step["fwd"]:
-            raise AssertionError(f"trainer streaming: pooled launches {got}")
-        log(f"[10 trainer] streaming stage ({stages[-1]}, max_in_memory_bytes 1: "
-            f"StreamingLoader on every split), 2 epochs: each epoch saw "
-            f"{train_split - train_split % batch} distinct train records of "
-            f"{train_split} (the tail under one batch dropped); loss "
-            f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; pooled launches "
-            f"{got['fwd']} / {got['bwd']}")
+        seconds = time.perf_counter() - t0
+        check_histories(family, hist, None, 2, {})
+        forwards = 2 * (steps_per_epoch + val_steps) if family == "pointnet2" \
+            else 2 * val_steps  # DGCNN's train forward gathers rows instead
+        if got[kernel] != per_forward * forwards:
+            raise AssertionError(f"trainer {family}: {kernel} launches "
+                                 f"{got[kernel]}, want {per_forward} x {forwards}")
+        log(f"[10 trainer] {family} 23/12 at {batch}x{width} (stage {stages[-1]}, "
+            f"2 epochs) in {seconds:.1f} s: loss {hist['loss'][0]:.4f} -> "
+            f"{hist['loss'][-1]:.4f}; kernel {'2 (FPS)' if kernel == 'fps' else '7'} "
+            f"launches {got[kernel]} = {per_forward} x {forwards} "
+            f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}")
+        if family == "dgcnn":
+            if [q.shape[2] for q, _, _ in gathers] != [64, 64, 128, 256]:
+                raise AssertionError("trainer dgcnn: recorded gathers of widths "
+                                     f"{[q.shape[2] for q, _, _ in gathers]}")
+            out["gather_err"] = check_stage_gathers(torch, gathers)
+            del gathers
+
+    # (h) the streaming loader feeding the card
+    stream_cfg = trainer_config(root, datasets, "models_stream", epochs=2,
+                               stages=[stages[-1]])
+    seen = []
+    tp = TrainProfile(stream_cfg, log_to_file=False)
+    tp._pc_sets[stages[-1]].max_in_memory_bytes = 1  # every split streams
+    reset()
+    # ---- the main path (the trainer on the streaming loader): counted launches
+    with recording_batches(StreamingLoader, seen):
+        hist = tp.train()[stages[-1]]
+    torch.cuda.synchronize()
+    got = read()
+    # ---- the main path ends here
+    check_histories("streaming", hist, None, 2, {})
+    train_split = pc[stages[-1]].split_count("train")
+    for epoch in range(2):
+        prints = np.concatenate([x.sum(dim=(1, 2)).double().cpu().numpy()
+                                 for n, e, x in seen if n == train_split and e == epoch])
+        if len(prints) != train_split - train_split % batch or \
+                len(np.unique(prints)) != len(prints):
+            raise AssertionError(f"trainer streaming: epoch {epoch} saw "
+                                 f"{len(prints)} clouds, {len(np.unique(prints))} "
+                                 f"distinct")
+    if got["fwd"] != 2 * steps_per_epoch * per_step["fwd"]:
+        raise AssertionError(f"trainer streaming: pooled launches {got}")
+    log(f"[10 trainer] streaming stage ({stages[-1]}, max_in_memory_bytes 1: "
+        f"StreamingLoader on every split), 2 epochs: each epoch saw "
+        f"{train_split - train_split % batch} distinct train records of "
+        f"{train_split} (the tail under one batch dropped); loss "
+        f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; pooled launches "
+        f"{got['fwd']} / {got['bwd']}")
+    out["datasets"], out["histories"] = datasets, histories
     log(f"[10 trainer] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+# ------------------------------------------------------- phase 11: bf16 compute
+
+def phase_cli_bf16(torch, root: str, datasets: list, f32_histories: dict) -> None:
+    """The kc46 config with ``compute_dtype`` and ``optimizer_moment_dtype``
+    set to bfloat16 (a copy in the phase-10 directory; ``configs/`` as it
+    ships), through the CLI in a subprocess over phase 10's collects and
+    ingested sets: exit 0, every stage's history finite and its
+    ``best/model.pt`` f32, and ``serve.main`` (which builds in f32, as the
+    JAX package's does) answers from the last stage."""
+    from pointcloudprocessing_tpu_torch import serve
+    from pointcloudprocessing_tpu_torch.train.callbacks import load_checkpoint
+
+    cfg_path = trainer_config(root, datasets, "models_bf16", epochs=3)
+    with open(cfg_path) as f:
+        config = json.load(f)
+    config["params"]["compute_dtype"] = "bfloat16"
+    config["params"]["optimizer_moment_dtype"] = "bfloat16"
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    name, batch = config["info"]["name"], config["params"]["batch_size"]
+    stages = list(config["info"]["training_profiles"])
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "pointcloudprocessing_tpu_torch.train.cli", cfg_path],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0 or "Model training completed successfully." not in run.stdout:
+        raise AssertionError(f"bf16 CLI exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    summary = []
+    for s in stages:
+        d = os.path.join(root, "models_bf16", name, s)
+        with open(os.path.join(d, f"{name}_{s}_history.json")) as f:
+            hist = json.load(f)
+        check_histories(f"bf16 CLI {s}", hist, None, 3, {})
+        sd = load_checkpoint(d)
+        if any(t.dtype != torch.float32 for t in sd.values()):
+            raise AssertionError(f"bf16 CLI: stage {s}'s best/model.pt is not f32")
+        summary.append(f"{s} loss {hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f} "
+                       f"(f32 run: {f32_histories[s]['loss'][-1]:.4f})")
+    pred = os.path.join(root, "pred_bf16.jsonl")
+    rc = serve.main(["--model", os.path.join(root, "models_bf16", name, stages[-1]),
+                     "--input", os.path.join(root, "input", datasets[0]),
+                     "--output", pred, "--batch", str(batch), "--device", "cuda"])
+    with open(pred) as f:
+        records = [json.loads(line) for line in f]
+    if rc != 0 or len(records) != TRAINER_FRAMES:
+        raise AssertionError(f"bf16 CLI: serve rc {rc}, {len(records)} records")
+    log(f"[11 bf16] CLI kc46 with compute_dtype and optimizer_moment_dtype "
+        f"bfloat16 (stages {stages}, 3 epochs each): exit 0 in {cli_s:.1f} s; "
+        + "; ".join(summary) + f"; best/model.pt f32; serve.main --model "
+        f"{stages[-1]}/ answered {len(records)} scans")
+
+
+def phase_entry(torch) -> None:
+    """``graft_entry.entry()``, the twin of the repo's JAX entry point: the
+    23/12 PointNet on 8 x 1,024 zero points, on the card."""
+    from pointcloudprocessing_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != {"classification_output": (8, NUM_CLASSES),
+                  "segmentation_output": (8, 1024, NUM_PARTS), "se3": (8, 3, 3)} \
+            or any(v.device.type != "cuda" or not bool(torch.isfinite(v).all())
+                   for v in out.values()):
+        raise AssertionError(f"graft_entry.entry(): {shapes}")
+    log(f"[11 bf16] graft_entry.entry() on the card: heads {shapes}, finite")
+
+
+def phase_bf16(torch, rng, trained: dict, dgcnn: dict, pn2: dict,
+               trainer: dict, root: str) -> dict:
+    """Phase 11: the bf16 compute path on the card, beside phases 3-10's f32
+    numbers from the same run."""
+    t_phase = time.perf_counter()
+    pooled = phase_pooled_kernels(torch, torch.bfloat16)
+    gather = phase_gather_kernel(torch, rng, torch.bfloat16)
+    steps = phase_train(torch, torch.bfloat16)
+    for case in ("A", "B"):
+        log(f"[11 bf16] case {case}: bf16 {steps[case]['steps_per_s']:.3f} steps/s "
+            f"beside phase 6's f32 {trained[case]['steps_per_s']:.3f}; tie flips "
+            f"a batch bf16 {steps[case]['ties']}, f32 {trained[case]['ties']}")
+    dg = phase_dgcnn(torch, rng, torch.bfloat16)
+    log(f"[11 bf16] DGCNN clouds/s bf16 {dg['dynamic']:.1f} / {dg['static']:.1f} "
+        f"(dynamic / static) beside phase 8's f32 {dgcnn['dynamic']:.1f} / "
+        f"{dgcnn['static']:.1f}")
+    _, pn = pointnet2_forward(torch, rng, torch.bfloat16)
+    log(f"[11 bf16] PointNet++ clouds/s bf16 {pn['clouds_per_s']:.1f} beside "
+        f"phase 9's f32 {pn2['clouds_per_s']:.1f}")
+    phase_cli_bf16(torch, root, trainer["datasets"], trainer["histories"])
+    phase_entry(torch)
+    log(f"[11 bf16] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"pooled": pooled, "gather": gather,
+            "launches": {"fwd": steps["A"]["launches"]["fwd"]
+                         + steps["B"]["launches"]["fwd"],
+                         "bwd": steps["A"]["launches"]["bwd"]
+                         + steps["B"]["launches"]["bwd"],
+                         "gather": dg["launches"]}}
 
 
 def main() -> int:
@@ -2784,12 +3130,15 @@ def main() -> int:
     model.eval()
     sliced = phase_slice(torch, rng, model)
     log(f"[5 serve] {phase_serve(torch, rng, model)}")
-    trained = phase_train(torch, rng)
+    trained = phase_train(torch)
     normals = phase_normals(torch, rng, model)
     dgcnn = phase_dgcnn(torch, rng)
     any_rank = phase_any_rank_kernel(torch, rng)
     pn2 = phase_pointnet2(torch, rng)
-    trainer = phase_trainer(torch, rng, trained)
+    with tempfile.TemporaryDirectory() as trainer_root:
+        trainer = phase_trainer(torch, rng, trained, trainer_root)
+        log(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
+        bf16 = phase_bf16(torch, rng, trained, dgcnn, pn2, trainer, trainer_root)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
         + trainer["launches"][k] for k in ("fwd", "bwd")}
@@ -2805,7 +3154,7 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
-    log(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
               sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],
@@ -2831,6 +3180,18 @@ def main() -> int:
         entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU, pn2["any_launches"],
               any_rank["err"], any_rank["ms"], any_rank["plain_ms"],
               any_rank["bound"], any_rank["library_ms"]),
+        entry("pooled_chain_forward_bf16", POOLED_SRC, POOLED_FWD_TPU,
+              bf16["launches"]["fwd"], bf16["pooled"]["fwd_err"],
+              bf16["pooled"]["fwd_ms"], bf16["pooled"]["fwd_plain_ms"],
+              bf16["pooled"]["fwd_bound"]),
+        entry("pooled_chain_backward_bf16", POOLED_SRC, POOLED_BWD_TPU,
+              bf16["launches"]["bwd"], bf16["pooled"]["bwd_err"],
+              bf16["pooled"]["bwd_ms"], bf16["pooled"]["bwd_plain_ms"],
+              bf16["pooled"]["bwd_bound"]),
+        entry("gather_maxmin_bf16", GATHER_SRC, GATHER_TPU,
+              bf16["launches"]["gather"], bf16["gather"]["err"],
+              bf16["gather"]["ms"], bf16["gather"]["plain_ms"],
+              bf16["gather"]["bound"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

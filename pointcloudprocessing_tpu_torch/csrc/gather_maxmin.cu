@@ -59,7 +59,16 @@
 // is not NaN is one of the gathered values.  An index outside
 // [0, n) stops the kernel with a trap (checked on the device, no host
 // sync), and the next CUDA call raises.
+//
+// The bf16 form (q, qmax and qmin bf16, the TPU kernel's other dtype) is
+// the same kernel on 2-byte elements: a slice keeps its bytes (S 64, 32,
+// 16 or 8 channels), a lane holds 8 channels in its 16 bytes, and each
+// 32-bit word takes a pair into max.NaN.bf16x2 / min.NaN.bf16x2, one
+// instruction for two channels.  Exact in bf16 too; the TPU kernel upcasts
+// to f32 and back, which gives the same values.  Bound: at 64 x 1024 x
+// 256, k 20, 5.2 + 33.6 + 67.1 MB, 0.032 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -84,41 +93,87 @@ __device__ __forceinline__ float take_min(float x, float best) {
   return r;
 }
 
-// The shared form.  kVec: w % 4 == 0 and q, qmax, qmin 16-byte aligned.
-template <int S, bool kVec>
+// A 32-bit word of a row: one f32 channel, or two bf16 channels.
+template <typename T>
+struct Word;
+template <>
+struct Word<float> {
+  static constexpr uint32_t kLow = 0xff800000u;   // -inf
+  static constexpr uint32_t kHigh = 0x7f800000u;  // +inf
+  __device__ static uint32_t max(uint32_t x, uint32_t best) {
+    return __float_as_uint(take_max(__uint_as_float(x), __uint_as_float(best)));
+  }
+  __device__ static uint32_t min(uint32_t x, uint32_t best) {
+    return __float_as_uint(take_min(__uint_as_float(x), __uint_as_float(best)));
+  }
+};
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr uint32_t kLow = 0xff80ff80u;
+  static constexpr uint32_t kHigh = 0x7f807f80u;
+  __device__ static uint32_t max(uint32_t x, uint32_t best) {
+    uint32_t r;
+    asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(best));
+    return r;
+  }
+  __device__ static uint32_t min(uint32_t x, uint32_t best) {
+    uint32_t r;
+    asm("min.NaN.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(x), "r"(best));
+    return r;
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f32(float v, float* out) { *out = v; }
+__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* out) {
+  *out = __float2bfloat16_rn(v);  // exact: v is one of the row's values
+}
+
+// The shared form, S channels a slice.  kVec: w a multiple of a lane's
+// channels and q, qmax, qmin 16-byte aligned.
+template <typename T, int S, bool kVec>
 __global__ void __launch_bounds__(1024)
-    gather_maxmin_shared_kernel(const float* __restrict__ q,
+    gather_maxmin_shared_kernel(const T* __restrict__ q,
                                 const int* __restrict__ idx,
-                                float* __restrict__ qmax,
-                                float* __restrict__ qmin, int n, int w, int k,
+                                T* __restrict__ qmax,
+                                T* __restrict__ qmin, int n, int w, int k,
                                 int slices) {
-  constexpr int kLanes = S / 4;         // lanes a point
+  constexpr int kV = 16 / sizeof(T);    // channels a lane (16 bytes)
+  constexpr int kLanes = S / kV;        // lanes a point
   constexpr int kPoints = 32 / kLanes;  // points a warp at once
-  extern __shared__ __align__(16) float slab[];  // n rows of S floats
+  extern __shared__ __align__(16) unsigned char slab_bytes[];  // n rows of S
+  T* slab = reinterpret_cast<T*>(slab_bytes);
 
   const long long cloud = blockIdx.x / slices;
   const int c0 = static_cast<int>(blockIdx.x % slices) * S;
   const int width = min(S, w - c0);  // this slice's channels
-  const float* qc = q + cloud * n * w + c0;
+  const T* qc = q + cloud * n * w + c0;
 
   // Stage the slice: row r's channels at slab[r S ..].
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(slab));
   if constexpr (kVec) {
-    const int chunks = width / 4;
+    const int chunks = width / kV;
     for (int e = threadIdx.x; e < n * chunks; e += blockDim.x) {
       const int r = e / chunks;
-      const int c = 4 * (e - r * chunks);
+      const int c = kV * (e - r * chunks);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-                   ::"r"(dst + 4 * (r * S + c)),
+                   ::"r"(dst + static_cast<unsigned>(sizeof(T)) * (r * S + c)),
                    "l"(qc + static_cast<long long>(r) * w + c) : "memory");
     }
-  } else {
+  } else if constexpr (sizeof(T) == 4) {
     for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
       const int r = e / width;
       const int c = e - r * width;
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
                    ::"r"(dst + 4 * (r * S + c)),
                    "l"(qc + static_cast<long long>(r) * w + c) : "memory");
+    }
+  } else {  // 2-byte elements: below cp.async's smallest copy
+    for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
+      const int r = e / width;
+      const int c = e - r * width;
+      slab[r * S + c] = qc[static_cast<long long>(r) * w + c];
     }
   }
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -127,11 +182,11 @@ __global__ void __launch_bounds__(1024)
 
   const int lane = threadIdx.x & 31;
   const int group = lane / kLanes;  // the warp's point
-  const int sub = lane % kLanes;    // channels 4 sub .. 4 sub + 3
+  const int sub = lane % kLanes;    // channels kV sub .. kV sub + kV - 1
   const int warps = blockDim.x >> 5;
   const int* ic = idx + cloud * n * k;
-  const float* col = slab + 4 * sub;  // this lane's channels of row 0
-  const long long out0 = cloud * n * w + c0 + 4 * sub;
+  const T* col = slab + kV * sub;  // this lane's channels of row 0
+  const long long out0 = cloud * n * w + c0 + kV * sub;
   const unsigned rows = static_cast<unsigned>(n);
   const bool vec_idx = k % 4 == 0 && reinterpret_cast<uintptr_t>(idx) % 16 == 0;
 
@@ -146,24 +201,24 @@ __global__ void __launch_bounds__(1024)
       asm volatile("prefetch.global.L1 [%0];" ::"l"(next));
       asm volatile("prefetch.global.L1 [%0];" ::"l"(next + k - 1));
     }
-    float mx[4], mn[4];
+    uint32_t mx[4], mn[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      mx[e] = -__int_as_float(0x7f800000);
-      mn[e] = __int_as_float(0x7f800000);
+      mx[e] = Word<T>::kLow;
+      mn[e] = Word<T>::kHigh;
     }
-    auto take = [&](const float4& x) {
-      mx[0] = take_max(x.x, mx[0]);
-      mx[1] = take_max(x.y, mx[1]);
-      mx[2] = take_max(x.z, mx[2]);
-      mx[3] = take_max(x.w, mx[3]);
-      mn[0] = take_min(x.x, mn[0]);
-      mn[1] = take_min(x.y, mn[1]);
-      mn[2] = take_min(x.z, mn[2]);
-      mn[3] = take_min(x.w, mn[3]);
+    auto take = [&](const uint4& x) {
+      mx[0] = Word<T>::max(x.x, mx[0]);
+      mx[1] = Word<T>::max(x.y, mx[1]);
+      mx[2] = Word<T>::max(x.z, mx[2]);
+      mx[3] = Word<T>::max(x.w, mx[3]);
+      mn[0] = Word<T>::min(x.x, mn[0]);
+      mn[1] = Word<T>::min(x.y, mn[1]);
+      mn[2] = Word<T>::min(x.z, mn[2]);
+      mn[3] = Word<T>::min(x.w, mn[3]);
     };
     auto row = [&](int src) {
-      return *reinterpret_cast<const float4*>(col + src * S);
+      return *reinterpret_cast<const uint4*>(col + src * S);
     };
     // Eight (then four) neighbours a step, with no branch between their
     // loads: the indices (16-byte loads where k and idx allow, else one at a
@@ -175,7 +230,7 @@ __global__ void __launch_bounds__(1024)
     };
     auto step = [&](int s0, int s1, int s2, int s3) {
       if (bad(make_int4(s0, s1, s2, s3))) __trap();  // outside the cloud
-      const float4 x0 = row(s0), x1 = row(s1), x2 = row(s2), x3 = row(s3);
+      const uint4 x0 = row(s0), x1 = row(s1), x2 = row(s2), x3 = row(s3);
       take(x0);
       take(x1);
       take(x2);
@@ -187,8 +242,8 @@ __global__ void __launch_bounds__(1024)
         const int4 s = *reinterpret_cast<const int4*>(ir + j);
         const int4 t = *reinterpret_cast<const int4*>(ir + j + 4);
         if (bad(s) | bad(t)) __trap();  // a neighbour outside the cloud
-        const float4 x0 = row(s.x), x1 = row(s.y), x2 = row(s.z), x3 = row(s.w);
-        const float4 x4 = row(t.x), x5 = row(t.y), x6 = row(t.z), x7 = row(t.w);
+        const uint4 x0 = row(s.x), x1 = row(s.y), x2 = row(s.z), x3 = row(s.w);
+        const uint4 x4 = row(t.x), x5 = row(t.y), x6 = row(t.z), x7 = row(t.w);
         take(x0);
         take(x1);
         take(x2);
@@ -210,19 +265,19 @@ __global__ void __launch_bounds__(1024)
       if (static_cast<unsigned>(s0) >= rows) __trap();
       take(row(s0));
     }
-    if (live && 4 * sub < width) {
+    if (live && kV * sub < width) {
       const long long o = out0 + static_cast<long long>(p) * w;
       if constexpr (kVec) {
-        *reinterpret_cast<float4*>(qmax + o) =
-            make_float4(mx[0], mx[1], mx[2], mx[3]);
-        *reinterpret_cast<float4*>(qmin + o) =
-            make_float4(mn[0], mn[1], mn[2], mn[3]);
+        *reinterpret_cast<uint4*>(qmax + o) = make_uint4(mx[0], mx[1], mx[2], mx[3]);
+        *reinterpret_cast<uint4*>(qmin + o) = make_uint4(mn[0], mn[1], mn[2], mn[3]);
       } else {
+        const T* hi = reinterpret_cast<const T*>(mx);
+        const T* lo = reinterpret_cast<const T*>(mn);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (4 * sub + e < width) {
-            qmax[o + e] = mx[e];
-            qmin[o + e] = mn[e];
+        for (int e = 0; e < kV; ++e) {
+          if (kV * sub + e < width) {
+            qmax[o + e] = hi[e];
+            qmin[o + e] = lo[e];
           }
         }
       }
@@ -230,18 +285,18 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <int S, bool kVec>
-int launch_slice(const float* q, const int* idx, float* qmax, float* qmin,
+template <typename T, int S, bool kVec>
+int launch_slice(const T* q, const int* idx, T* qmax, T* qmin,
                  long long b, int n, int w, int k, cudaStream_t s) {
   const int slices = (w + S - 1) / S;
   const long long blocks = b * slices;
-  const int smem = n * S * static_cast<int>(sizeof(float));
+  const int smem = n * S * static_cast<int>(sizeof(T));
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   // the blocks an SM holds by shared memory, and threads to fill it: 1,024
   // for one block, else at most 2,048 an SM with registers to spare
   const int resident = kSmBytes / (smem + 1024);
   const int threads = resident <= 1 ? 1024 : (resident == 2 ? 512 : 256);
-  auto kernel = gather_maxmin_shared_kernel<S, kVec>;
+  auto kernel = gather_maxmin_shared_kernel<T, S, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -250,33 +305,35 @@ int launch_slice(const float* q, const int* idx, float* qmax, float* qmin,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S>
-int launch_shared(const float* q, const int* idx, float* qmax, float* qmin,
+template <typename T, int S>
+int launch_shared(const T* q, const int* idx, T* qmax, T* qmin,
                   long long b, int n, int w, int k, cudaStream_t s) {
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(qmax) |
                          reinterpret_cast<uintptr_t>(qmin);
-  const bool vec = w % 4 == 0 && ptrs % 16 == 0;
-  return vec ? launch_slice<S, true>(q, idx, qmax, qmin, b, n, w, k, s)
-             : launch_slice<S, false>(q, idx, qmax, qmin, b, n, w, k, s);
+  const bool vec = w % (16 / sizeof(T)) == 0 && ptrs % 16 == 0;
+  return vec ? launch_slice<T, S, true>(q, idx, qmax, qmin, b, n, w, k, s)
+             : launch_slice<T, S, false>(q, idx, qmax, qmin, b, n, w, k, s);
 }
 
 // The L2 form: one warp a point row, reading each neighbour's row from
-// device memory in 32-channel strides, kPerLane channels a lane a pass.
+// device memory in 32-channel strides, kPerLane channels a lane a pass
+// (in f32, which holds a bf16 value exactly).
+template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-    gather_maxmin_l2_kernel(const float* __restrict__ q,
+    gather_maxmin_l2_kernel(const T* __restrict__ q,
                             const int* __restrict__ idx,
-                            float* __restrict__ qmax, float* __restrict__ qmin,
+                            T* __restrict__ qmax, T* __restrict__ qmin,
                             long long rows, int n, int w, int k) {
   const int lane = threadIdx.x & 31;
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;  // the whole warp leaves together
   const long long cloud = row / n;
-  const float* qc = q + cloud * n * w;
+  const T* qc = q + cloud * n * w;
   const int* ir = idx + row * k;
-  float* omax = qmax + row * w;
-  float* omin = qmin + row * w;
+  T* omax = qmax + row * w;
+  T* omin = qmin + row * w;
 
   for (int c0 = 0; c0 < w; c0 += 32 * kPerLane) {
     float mx[kPerLane], mn[kPerLane];
@@ -294,12 +351,12 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int cnt = min(32, k - j0);
       for (int jj = 0; jj < cnt; ++jj) {
         const int src = __shfl_sync(0xffffffffu, mine, jj);
-        const float* r = qc + static_cast<long long>(src) * w;
+        const T* r = qc + static_cast<long long>(src) * w;
 #pragma unroll
         for (int v = 0; v < kPerLane; ++v) {
           const int c = c0 + v * 32 + lane;
           if (c < w) {
-            const float x = r[c];
+            const float x = to_f32(r[c]);
             mx[v] = take_max(x, mx[v]);
             mn[v] = take_min(x, mn[v]);
           }
@@ -310,42 +367,58 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int v = 0; v < kPerLane; ++v) {
       const int c = c0 + v * 32 + lane;
       if (c < w) {
-        omax[c] = mx[v];
-        omin[c] = mn[v];
+        from_f32(mx[v], omax + c);
+        from_f32(mn[v], omin + c);
       }
     }
   }
 }
 
-}  // namespace
-
-// q: (b, n, w) f32; idx: (b, n, k) int32 in [0, n).  Writes qmax and qmin,
-// each (b, n, w) f32.  slice: the shared form's S (32, 16, 8 or 4, with n S
-// floats within a block's shared memory), or 0 for the L2 form, as
-// gather_form chose.  Returns a cudaError_t code (0 on success).
-extern "C" int pcp_gather_maxmin(const float* q, const int* idx, float* qmax,
-                                 float* qmin, long long b, int n, int w, int k,
-                                 int slice, void* stream) {
+// q: (b, n, w); idx: (b, n, k) int32 in [0, n).  Writes qmax and qmin,
+// each (b, n, w) of q's type.  slice: the shared form's S (in channels,
+// with n S elements within a block's shared memory), or 0 for the L2
+// form, as gather_form chose.  Returns a cudaError_t code (0 on success).
+template <typename T>
+int gather(const T* q, const int* idx, T* qmax, T* qmin, long long b, int n,
+           int w, int k, int slice, void* stream) {
+  constexpr int kE = sizeof(T);
   if (b == 0 || n == 0 || w == 0) return 0;
   if (b < 0 || n < 0 || w < 0 || k < 1 ||
-      static_cast<long long>(n) * slice * 4 > kSharedBytes) {
+      static_cast<long long>(n) * slice * kE > kSharedBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (slice) {
-    case 32: return launch_shared<32>(q, idx, qmax, qmin, b, n, w, k, s);
-    case 16: return launch_shared<16>(q, idx, qmax, qmin, b, n, w, k, s);
-    case 8: return launch_shared<8>(q, idx, qmax, qmin, b, n, w, k, s);
-    case 4: return launch_shared<4>(q, idx, qmax, qmin, b, n, w, k, s);
+  switch (slice * kE) {  // a slice's bytes a row
+    case 128: return launch_shared<T, 128 / kE>(q, idx, qmax, qmin, b, n, w, k, s);
+    case 64: return launch_shared<T, 64 / kE>(q, idx, qmax, qmin, b, n, w, k, s);
+    case 32: return launch_shared<T, 32 / kE>(q, idx, qmax, qmin, b, n, w, k, s);
+    case 16: return launch_shared<T, 16 / kE>(q, idx, qmax, qmin, b, n, w, k, s);
     case 0: break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long rows = b * n;
   const long long blocks = (rows + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  gather_maxmin_l2_kernel<<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
+  gather_maxmin_l2_kernel<T><<<static_cast<unsigned>(blocks), kWarps * 32, 0, s>>>(
       q, idx, qmax, qmin, rows, n, w, k);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q, qmax, qmin f32; slice 32, 16, 8, 4 or 0.
+extern "C" int pcp_gather_maxmin(const float* q, const int* idx, float* qmax,
+                                 float* qmin, long long b, int n, int w, int k,
+                                 int slice, void* stream) {
+  return gather(q, idx, qmax, qmin, b, n, w, k, slice, stream);
+}
+
+// q, qmax, qmin bf16; slice 64, 32, 16, 8 or 0.
+extern "C" int pcp_gather_maxmin_bf16(const __nv_bfloat16* q, const int* idx,
+                                      __nv_bfloat16* qmax, __nv_bfloat16* qmin,
+                                      long long b, int n, int w, int k,
+                                      int slice, void* stream) {
+  return gather(q, idx, qmax, qmin, b, n, w, k, slice, stream);
 }
 
 extern "C" const char* pcp_error_string(int code) {

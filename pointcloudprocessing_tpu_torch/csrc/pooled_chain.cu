@@ -68,18 +68,38 @@
 // transposed (a row a channel), in the same launch that splits m.  An
 // argmax outside [0, n) traps, so the next CUDA call raises instead of a
 // wrong gradient coming back.
+//
+// The bf16 forms compute what the TPU kernels compute in bf16, the form in
+// which the JAX package runs them: x and w (and, in the backward, m and
+// each winner's coef) are bf16, each product is exact and the sums are
+// f32, with one wgmma m64n128k16.f32.bf16.bf16 a k-step in place of three
+// tf32 products.  The main loop is the same template: a bf16 stage holds
+// 64 input channels, the same 128 bytes a row as f32's 32, so the x ring,
+// the fragment addresses (a 32-bit word holds a tf32 value or a bf16 pair,
+// and wgmma's register layout puts k pair 2t, 2t + 1 where tf32 has k t)
+// and the weight chunks' core-matrix layout ([k / 8][column][k % 8], 128
+// bytes a core matrix) keep their byte geometry.  The weight (or m,
+// rounded to bf16 to nearest even) is relaid once a call, with no split.
+// The forward's output is the f32 maximum with its first index, as in f32
+// (the TPU kernel's packed argmax rounds the pooled value to 23 -
+// ceil(log2 n) bits; this one does not).  The backward writes dx in bf16,
+// rounded once from its f32 sum, and dk in f32.  The forward is bound by
+// its 17 GFLOP at 989 TFLOP/s of dense bf16 (0.017 ms at 8 x 8192 x 128 ->
+// 1024), the backward by the bytes of x and dx (33.6 MB, 0.010 ms).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
 constexpr int kTileP = 128;    // points of a tile
 constexpr int kTileN = 128;    // output columns of a tile (channels; dx columns)
-constexpr int kChunk = 32;     // input channels a pipeline stage holds
+constexpr int kChunk = 32;     // input channels a pipeline stage holds (f32)
 constexpr int kStages = 4;
 constexpr int kThreads = 256;  // two warpgroups of 64 points each
 constexpr int kAcc = kTileN / 2;        // accumulators a thread: m64n128 f32
@@ -95,7 +115,10 @@ constexpr int kMaxC = 4096;  // channels the backward's winner list holds
 constexpr int kBatch = 16;   // winner rows the backward stages at a time
 static_assert((kStages * kStageX * 4) % 128 == 0, "weight slots' alignment");
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+template <bool kBf16>
+using Elem = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
@@ -178,6 +201,28 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[kAcc], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+// the same with a (64 x 16, registers: bf16 pairs) and b (16 x 128) in bf16
+__device__ __forceinline__ void wgmma_bf16(float (&d)[kAcc], const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
 // the weight operand (n_cols x k, element (j, k) at src[j * stride_n + k *
 // stride_k]) split into hi and lo, each laid out as consecutive column
 // tiles of 128 x k in chunks of 32 k as a stage holds them; zero past n_cols
@@ -210,24 +255,61 @@ __global__ void pooled_forward_split_kernel(const float* __restrict__ w,
   split_operand(w, c_in, 1, c, c_in, hi, lo, gridDim.x);
 }
 
+__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
+  return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// the bf16 forms' weight operand, laid out as split_operand lays out hi,
+// with 8 k a core-matrix row in place of 4; an f32 source rounds to bf16
+template <typename Src>
+__device__ __forceinline__ void relayout_bf16(const Src* __restrict__ src,
+                                              long long stride_n,
+                                              long long stride_k, int n_cols,
+                                              int k, __nv_bfloat16* __restrict__ out,
+                                              int blocks) {
+  const long long total = (long long)((n_cols + kTileN - 1) / kTileN) * kTileN * k;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)blocks * blockDim.x) {
+    const long long q = i / 8;  // (column tile, k / 8, column in the tile)
+    const int jj = q % kTileN;
+    const long long r = q / kTileN;
+    const int kk = (r % (k / 8)) * 8 + i % 8;
+    const int j = (r / (k / 8)) * kTileN + jj;
+    out[i] = j < n_cols ? to_bf16(src[j * stride_n + kk * stride_k])
+                        : __float2bfloat16_rn(0.0f);
+  }
+}
+
+__global__ void pooled_forward_relayout_kernel(const __nv_bfloat16* __restrict__ w,
+                                               int c, int c_in,
+                                               __nv_bfloat16* __restrict__ out) {
+  relayout_bf16(w, c_in, 1, c, c_in, out, gridDim.x);
+}
+
 // The walk of a block over its run of point tiles: the flattened (tile,
 // k-chunk) sequence streams through a ring of x stages, and epilogue(tile,
 // d) runs after each tile's last chunk (uniformly in the block; it may sync
 // only with kBlockSync).  Each warp copies and reads its own 16 rows of x,
 // so without kBlockSync the two warpgroups drift apart once the resident
-// weights are in, and one's epilogue runs beside the other's products.  w_hi / w_lo point at the block's column tile of the split weight.
-// Its chunks stay resident in the block's 4 weight slots when they fit (c_in
-// <= 128), and otherwise stream through them beside x.
-template <bool kBlockSync, typename Epilogue>
-__device__ __forceinline__ void run_tiles(const float* __restrict__ xc,
+// weights are in, and one's epilogue runs beside the other's products.
+// w_hi / w_lo point at the block's column tile of the split weight (kBf16:
+// w_hi at its bf16 relayout, w_lo unused).  Its chunks stay resident in the
+// block's 4 weight slots when they fit (c_in <= 128 in f32, 256 in bf16),
+// and otherwise stream through them beside x.
+template <bool kBf16, bool kBlockSync, typename Epilogue>
+__device__ __forceinline__ void run_tiles(const Elem<kBf16>* __restrict__ xc,
                                           const float* __restrict__ w_hi,
                                           const float* __restrict__ w_lo,
                                           int c_in, int p_begin, int p_end,
                                           float* smem, Epilogue epilogue) {
+  constexpr int kK = kBf16 ? 2 * kChunk : kChunk;  // 128 bytes of an x row
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int chunks = c_in / kChunk;
+  const int chunks = c_in / kK;
   const int tiles = (p_end - p_begin + kTileP - 1) / kTileP;
   const int total = tiles * chunks;
   const bool resident = chunks <= kStages;
@@ -237,18 +319,19 @@ __device__ __forceinline__ void run_tiles(const float* __restrict__ xc,
     if (it < total) {
       float* xs = smem + (it % kStages) * kStageX;
       const int p0 = p_begin + (it / chunks) * kTileP;
-      const int k0 = (it % chunks) * kChunk;
+      const int k0 = (it % chunks) * kK;
       // without kBlockSync each warp copies the 16 rows it reads, so x
       // needs no block barrier; with it the block's threads copy the rows
-      // in order (measured faster for the backward)
+      // in order (measured faster for the backward).  A row of a stage is
+      // 8 copies of 16 bytes.
 #pragma unroll
-      for (int i = 0; i < 16 * kChunk / 4 / 32; ++i) {
+      for (int i = 0; i < 16 * 8 / 32; ++i) {
         const int f = kBlockSync ? threadIdx.x + i * kThreads : lane + i * 32;
-        const int r = (kBlockSync ? 0 : 16 * warp) + f / (kChunk / 4);
-        const int q = (f % (kChunk / 4)) * 4;
+        const int r = (kBlockSync ? 0 : 16 * warp) + f / 8;
+        const int q = f % 8;
         const bool ok = p0 + r < p_end;
-        cp_async16(xs + r * kStrideK + q,
-                   xc + (ok ? (long long)(p0 + r) * c_in + k0 + q : 0), ok);
+        cp_async16(xs + r * kStrideK + 4 * q,
+                   xc + (ok ? (long long)(p0 + r) * c_in + k0 + q * (kK / 8) : 0), ok);
       }
       if (!resident || it < chunks) {  // resident: slot it holds chunk it
         float* bs = slots + (it % kStages) * 2 * kStageB;
@@ -257,7 +340,7 @@ __device__ __forceinline__ void run_tiles(const float* __restrict__ xc,
         for (int i = 0; i < kStageB / 4 / kThreads; ++i) {
           const int f = (threadIdx.x + i * kThreads) * 4;
           cp_async16(bs + f, w_hi + b0 + f, true);
-          cp_async16(bs + kStageB + f, w_lo + b0 + f, true);
+          if (!kBf16) cp_async16(bs + kStageB + f, w_lo + b0 + f, true);
         }
       }
     }
@@ -290,22 +373,30 @@ __device__ __forceinline__ void run_tiles(const float* __restrict__ xc,
     const unsigned b_lo = b_hi + kStageB * 4;
     const bool first = it % chunks == 0;
     const bool last = it % chunks == chunks - 1;
-    // one commit group a k-step; a k-step's fragment registers are rewritten
-    // only once its group of the chunk before is done, so up to three
-    // k-steps of products stay in flight across chunks
+    // one commit group a k-step (8 k in f32, 16 in bf16: 32 bytes of a row
+    // either way); a k-step's fragment registers are rewritten only once
+    // its group of the chunk before is done, so up to three k-steps of
+    // products stay in flight across chunks
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 8; ++kk) {
+    for (int kk = 0; kk < 4; ++kk) {
       const float* p = xs + row * kStrideK + kk * 8 + t;
       const float v[4] = {p[0], p[8 * kStrideK], p[4], p[8 * kStrideK + 4]};
-      uint32_t ah[4], al[4];
-      wgmma_wait<kChunk / 8 - 1>();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split_x(v[i], ah[i], al[i]);
-      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
       const unsigned step = kk * 2 * kCoreK;
-      wgmma_tf32(d, al, weight_desc(b_hi + step), !(first && kk == 0));
-      wgmma_tf32(d, ah, weight_desc(b_lo + step), 1);
-      wgmma_tf32(d, ah, weight_desc(b_hi + step), 1);
+      wgmma_wait<3>();
+      if constexpr (kBf16) {  // the words are the bf16 pairs wgmma takes
+        const uint32_t a[4] = {__float_as_uint(v[0]), __float_as_uint(v[1]),
+                               __float_as_uint(v[2]), __float_as_uint(v[3])};
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_bf16(d, a, weight_desc(b_hi + step), !(first && kk == 0));
+      } else {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_x(v[i], ah[i], al[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_tf32(d, al, weight_desc(b_hi + step), !(first && kk == 0));
+        wgmma_tf32(d, ah, weight_desc(b_lo + step), 1);
+        wgmma_tf32(d, ah, weight_desc(b_hi + step), 1);
+      }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     }
     if (last || !resident) wgmma_wait<0>();
@@ -334,8 +425,10 @@ __device__ __forceinline__ bool beats_earlier(float v, float bv) {
 // grid (ceil(c / 128), runs, b): one block per channel tile, run of point
 // tiles, cloud; writes the run's (value, index) best per channel.  The
 // accumulator d[4j + 2h + e] is row 16 * warp + 8h + g, column 8j + 2t + e.
+// w_split: the split weight (f32: hi, then lo) or its bf16 relayout.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
-    pooled_forward_kernel(const float* __restrict__ x,
+    pooled_forward_kernel(const Elem<kBf16>* __restrict__ x,
                           const float* __restrict__ w_split,
                           const float* __restrict__ a,
                           const float* __restrict__ c_row,
@@ -369,9 +462,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     best_i[j] = 0;
   }
 
-  const long long split_size = (long long)((c + kTileN - 1) / kTileN) * kTileN * c_in;
-  const float* w_hi = w_split + (long long)blockIdx.x * kTileN * c_in;
-  run_tiles<false>(x + (long long)cloud * n * c_in, w_hi, w_hi + split_size, c_in,
+  // words of a column tile of the operand, and of the whole hi array
+  constexpr int kWords = sizeof(Elem<kBf16>) / 2;  // 2 x words an element
+  const long long split_size =
+      (long long)((c + kTileN - 1) / kTileN) * kTileN * c_in * kWords / 2;
+  const float* w_hi = w_split + (long long)blockIdx.x * kTileN * c_in * kWords / 2;
+  run_tiles<kBf16, false>(x + (long long)cloud * n * c_in, w_hi, w_hi + split_size, c_in,
             p_begin, p_end, smem, [&](int tile, float (&d)[kAcc]) {
     // the affine in the plain version's order (no FMA contraction), then
     // the running max over this thread's two rows in increasing order
@@ -458,21 +554,46 @@ __global__ void pooled_combine_kernel(const float* __restrict__ part_v,
   argmax[t] = bi;
 }
 
+// a coefficient as the bf16 forms take it: rounded to bf16
+__device__ __forceinline__ float coef_of(float v, bool bf16) {
+  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// two neighbouring elements of a staged w row, as f32
+__device__ __forceinline__ float2 pair_of(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 pair_of(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// dx's two neighbouring columns, in its type (bf16: rounded to nearest even)
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // grid (ceil(c_in / 128), runs, b): one block per 128 columns of dx, run of
-// point tiles, cloud
+// point tiles, cloud.  m_split: m split (f32: hi, then lo) or its bf16
+// relayout.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
-    pooled_backward_dx_kernel(const float* __restrict__ x,
-                              const float* __restrict__ w,
+    pooled_backward_dx_kernel(const Elem<kBf16>* __restrict__ x,
+                              const Elem<kBf16>* __restrict__ w,
                               const float* __restrict__ coef,
                               const int* __restrict__ argmax,
                               const float* __restrict__ m_split,
                               const float* __restrict__ row,
-                              float* __restrict__ dx, int n, int c_in, int c,
+                              Elem<kBf16>* __restrict__ dx, int n, int c_in, int c,
                               int tiles_per_run) {
   extern __shared__ __align__(128) float smem[];
   __shared__ int win[kMaxC];  // (point - p0) << 16 | channel, channel order
   __shared__ int warp_count[kThreads / 32];
-  __shared__ __align__(16) float win_w[kBatch][kTileN];  // their w columns
+  // their w columns
+  __shared__ __align__(16) unsigned char win_bytes[kBatch * kTileN * sizeof(Elem<kBf16>)];
+  auto win_w = reinterpret_cast<Elem<kBf16>(*)[kTileN]>(win_bytes);
   __shared__ float win_coef[kBatch];
   __shared__ __align__(8) float row_s[kTileN];
 
@@ -538,13 +659,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     return total;
   };
-  // cp.async the w columns and coefficients of winners e0 .. e0 + rows
+  // cp.async the w columns and coefficients of winners e0 .. e0 + rows, a
+  // row in 16-byte copies of kPer elements
+  constexpr int kPer = 16 / sizeof(Elem<kBf16>);
+  constexpr int kPieces = kTileN / kPer;  // copies a row
   auto stage_rows = [&](int e0, int rows) {
 #pragma unroll
-    for (int i = 0; i < kBatch * kTileN / 4 / kThreads; ++i) {
+    for (int i = 0; i < kBatch * kPieces / kThreads; ++i) {
       const int f = threadIdx.x + i * kThreads;
-      const int e = f / (kTileN / 4);
-      const int col = (f % (kTileN / 4)) * 4;
+      const int e = f / kPieces;
+      const int col = (f % kPieces) * kPer;
       if (e < rows) {
         const int ch = win[e0 + e] & 0xffff;
         const bool ok = j0 + col < c_in;
@@ -563,11 +687,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int e = 0; e < rows; ++e) {
       const int lp = win[e0 + e] >> 16;  // row 16 * warp + 8h + g of the tile
       if (lp / 16 != warp || lp % 8 != g) continue;
-      const float s = win_coef[e];
+      const float s = coef_of(win_coef[e], kBf16);
       const bool upper = lp % 16 >= 8;
 #pragma unroll
       for (int j = 0; j < kTileN / 8; ++j) {
-        const float2 wv = *reinterpret_cast<const float2*>(&win_w[e][8 * j + 2 * t]);
+        const float2 wv = pair_of(&win_w[e][8 * j + 2 * t]);
         if (upper) {
           d[4 * j + 2] = fmaf(s, wv.x, d[4 * j + 2]);
           d[4 * j + 3] = fmaf(s, wv.y, d[4 * j + 3]);
@@ -585,10 +709,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   int winners = list_winners(p_begin);
   stage_rows(0, min(kBatch, winners));
   const int tiles = (p_end - p_begin + kTileP - 1) / kTileP;
+  constexpr int kWords = sizeof(Elem<kBf16>) / 2;  // 2 x words an element
   const long long split_size =
-      (long long)((c_in + kTileN - 1) / kTileN) * kTileN * c_in;
-  const float* m_hi = m_split + (long long)blockIdx.x * kTileN * c_in;
-  run_tiles<true>(x + (long long)cloud * n * c_in, m_hi, m_hi + split_size, c_in,
+      (long long)((c_in + kTileN - 1) / kTileN) * kTileN * c_in * kWords / 2;
+  const float* m_hi = m_split + (long long)blockIdx.x * kTileN * c_in * kWords / 2;
+  run_tiles<kBf16, true>(x + (long long)cloud * n * c_in, m_hi, m_hi + split_size, c_in,
             p_begin, p_end, smem, [&](int tile, float (&d)[kAcc]) {
     const int p0 = p_begin + tile * kTileP;
     // the staged rows' copies joined the tile's first stage group, which
@@ -613,15 +738,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int rows = min(kBatch, winners - e0);
       __syncthreads();
 #pragma unroll
-      for (int i = 0; i < kBatch * kTileN / 4 / kThreads; ++i) {
+      for (int i = 0; i < kBatch * kPieces / kThreads; ++i) {
         const int f = threadIdx.x + i * kThreads;
-        const int e = f / (kTileN / 4);
-        const int col = (f % (kTileN / 4)) * 4;
+        const int e = f / kPieces;
+        const int col = (f % kPieces) * kPer;
         if (e < rows) {
           const int ch = win[e0 + e] & 0xffff;
-          *reinterpret_cast<float4*>(&win_w[e][col]) = j0 + col < c_in
-              ? *reinterpret_cast<const float4*>(w + (long long)ch * c_in + j0 + col)
-              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          *reinterpret_cast<uint4*>(&win_w[e][col]) = j0 + col < c_in
+              ? *reinterpret_cast<const uint4*>(w + (long long)ch * c_in + j0 + col)
+              : make_uint4(0u, 0u, 0u, 0u);
         }
       }
       if ((int)threadIdx.x < rows) win_coef[threadIdx.x] = cf[win[e0 + threadIdx.x] & 0xffff];
@@ -637,8 +762,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int j = 0; j < kTileN / 8; ++j) {
           const int col = j0 + 8 * j + 2 * t;
           if (col < c_in) {
-            *reinterpret_cast<float2*>(dx + ((long long)cloud * n + p) * c_in + col) =
-                make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            store_pair(dx + ((long long)cloud * n + p) * c_in + col,
+                       d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
           }
         }
       }
@@ -655,18 +780,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ch's row of dk^T (threads over the input channels d) from the winners;
 // the winners and coefficients of 128 clouds at a time come through
 // shared memory in one round trip, so a thread's x loads do not wait on
-// each other, and the clouds are summed in order.
+// each other, and the clouds are summed in order.  kBf16: m is rounded to
+// bf16 and relaid at m_hi (m_lo unused), and each coef rounds to bf16.
+template <bool kBf16>
 __global__ void pooled_backward_prep_kernel(const float* __restrict__ m,
                                             float* __restrict__ m_hi,
                                             float* __restrict__ m_lo,
                                             int split_blocks,
-                                            const float* __restrict__ x,
+                                            const Elem<kBf16>* __restrict__ x,
                                             const float* __restrict__ coef,
                                             const int* __restrict__ argmax,
                                             float* __restrict__ dk_t, int b,
                                             int n, int c_in, int c) {
   if ((int)blockIdx.x < split_blocks) {  // column j of m is k-major
-    split_operand(m, 1, c_in, c_in, c_in, m_hi, m_lo, split_blocks);
+    if constexpr (kBf16) {
+      relayout_bf16(m, 1, c_in, c_in, c_in, reinterpret_cast<__nv_bfloat16*>(m_hi),
+                    split_blocks);
+    } else {
+      split_operand(m, 1, c_in, c_in, c_in, m_hi, m_lo, split_blocks);
+    }
     return;
   }
   __shared__ int ps[128];
@@ -682,14 +814,14 @@ __global__ void pooled_backward_prep_kernel(const float* __restrict__ m,
         const int p = argmax[o];
         if (p < 0 || p >= n) __trap();  // argmax outside [0, n)
         ps[threadIdx.x] = p;
-        cs[threadIdx.x] = coef[o];
+        cs[threadIdx.x] = coef_of(coef[o], kBf16);
       }
       __syncthreads();
       if (d < c_in) {
         const int clouds = min(128, b - b0);
 #pragma unroll 8
         for (int i = 0; i < clouds; ++i) {
-          acc = fmaf(cs[i], x[((long long)(b0 + i) * n + ps[i]) * c_in + d], acc);
+          acc = fmaf(cs[i], to_f32(x[((long long)(b0 + i) * n + ps[i]) * c_in + d]), acc);
         }
       }
     }
@@ -722,6 +854,66 @@ int split_blocks(long long total) {
   return static_cast<int>(std::min<long long>((total + 255) / 256, 4096));
 }
 
+// the forward's launches: the weight's split (or bf16 relayout), the main
+// kernel, the combine over runs
+template <bool kBf16>
+int forward(const Elem<kBf16>* x, const Elem<kBf16>* w, float* w_split,
+            const float* a, const float* c_row, float* part_v, int* part_i,
+            float* pooled, int* argmax, int b, int n, int c_in, int c, int runs,
+            int tiles_per_run, void* stream) {
+  if (!shapes_ok(b, n, c_in, c) || !runs_ok(n, runs, tiles_per_run)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr = allow_smem(pooled_forward_kernel<kBf16>);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long split_size = (long long)((c + kTileN - 1) / kTileN) * kTileN * c_in;
+  if constexpr (kBf16) {
+    pooled_forward_relayout_kernel<<<split_blocks(split_size), 256, 0, s>>>(
+        w, c, c_in, reinterpret_cast<__nv_bfloat16*>(w_split));
+  } else {
+    pooled_forward_split_kernel<<<split_blocks(split_size), 256, 0, s>>>(
+        w, c, c_in, w_split, w_split + split_size);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pooled_forward_kernel<kBf16><<<dim3((c + kTileN - 1) / kTileN, runs, b), kThreads,
+                                 kSmemBytes, s>>>(x, w_split, a, c_row, part_v,
+                                                  part_i, n, c_in, c, tiles_per_run);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long outputs = (long long)b * c;
+  pooled_combine_kernel<<<(unsigned)((outputs + 255) / 256), 256, 0, s>>>(
+      part_v, part_i, pooled, argmax, b, c, runs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the backward's launches: m's split (or bf16 relayout) beside dk, then dx
+template <bool kBf16>
+int backward(const Elem<kBf16>* x, const Elem<kBf16>* w, const float* coef,
+             const int* argmax, const float* m, float* m_split, const float* row,
+             Elem<kBf16>* dx, float* dk_t, int b, int n, int c_in, int c, int runs,
+             int tiles_per_run, void* stream) {
+  if (!shapes_ok(b, n, c_in, c) || !runs_ok(n, runs, tiles_per_run)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr = allow_smem(pooled_backward_dx_kernel<kBf16>);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long split_size =
+      (long long)((c_in + kTileN - 1) / kTileN) * kTileN * c_in;
+  const int blocks = split_blocks(split_size) * 2;  // of 128 threads
+  pooled_backward_prep_kernel<kBf16><<<blocks + c, 128, 0, s>>>(
+      m, m_split, m_split + split_size, blocks, x, coef, argmax, dk_t, b, n,
+      c_in, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pooled_backward_dx_kernel<kBf16><<<dim3((c_in + kTileN - 1) / kTileN, runs, b),
+                                     kThreads, kSmemBytes, s>>>(
+      x, w, coef, argmax, m_split, row, dx, n, c_in, c, tiles_per_run);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (b, n, c_in), w (c, c_in), a and c_row (c,) f32; w_split (2,
@@ -736,26 +928,22 @@ extern "C" int pcp_pooled_chain_forward(const float* x, const float* w,
                                         int* argmax, int b, int n, int c_in,
                                         int c, int runs, int tiles_per_run,
                                         void* stream) {
-  if (!shapes_ok(b, n, c_in, c) || !runs_ok(n, runs, tiles_per_run)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static const cudaError_t attr = allow_smem(pooled_forward_kernel);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long split_size = (long long)((c + kTileN - 1) / kTileN) * kTileN * c_in;
-  pooled_forward_split_kernel<<<split_blocks(split_size), 256, 0, s>>>(
-      w, c, c_in, w_split, w_split + split_size);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pooled_forward_kernel<<<dim3((c + kTileN - 1) / kTileN, runs, b), kThreads,
-                          kSmemBytes, s>>>(x, w_split, a, c_row, part_v,
-                                           part_i, n, c_in, c, tiles_per_run);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long outputs = (long long)b * c;
-  pooled_combine_kernel<<<(unsigned)((outputs + 255) / 256), 256, 0, s>>>(
-      part_v, part_i, pooled, argmax, b, c, runs);
-  return static_cast<int>(cudaGetLastError());
+  return forward<false>(x, w, w_split, a, c_row, part_v, part_i, pooled, argmax,
+                        b, n, c_in, c, runs, tiles_per_run, stream);
+}
+
+// The bf16 form: x (b, n, c_in) and w (c, c_in) bf16; w_split scratch of
+// ceil(c / 128) * 128 * c_in bf16 (16-byte aligned); the rest as above.
+extern "C" int pcp_pooled_chain_forward_bf16(const __nv_bfloat16* x,
+                                             const __nv_bfloat16* w,
+                                             float* w_split, const float* a,
+                                             const float* c_row, float* part_v,
+                                             int* part_i, float* pooled,
+                                             int* argmax, int b, int n,
+                                             int c_in, int c, int runs,
+                                             int tiles_per_run, void* stream) {
+  return forward<true>(x, w, w_split, a, c_row, part_v, part_i, pooled, argmax,
+                       b, n, c_in, c, runs, tiles_per_run, stream);
 }
 
 // x (b, n, c_in), w (c, c_in), coef (b, c) f32, argmax (b, c) int32,
@@ -769,24 +957,24 @@ extern "C" int pcp_pooled_chain_backward(const float* x, const float* w,
                                          float* dk_t, int b, int n, int c_in,
                                          int c, int runs, int tiles_per_run,
                                          void* stream) {
-  if (!shapes_ok(b, n, c_in, c) || !runs_ok(n, runs, tiles_per_run)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  static const cudaError_t attr = allow_smem(pooled_backward_dx_kernel);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long split_size =
-      (long long)((c_in + kTileN - 1) / kTileN) * kTileN * c_in;
-  const int blocks = split_blocks(split_size) * 2;  // of 128 threads
-  pooled_backward_prep_kernel<<<blocks + c, 128, 0, s>>>(
-      m, m_split, m_split + split_size, blocks, x, coef, argmax, dk_t, b, n,
-      c_in, c);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pooled_backward_dx_kernel<<<dim3((c_in + kTileN - 1) / kTileN, runs, b),
-                              kThreads, kSmemBytes, s>>>(
-      x, w, coef, argmax, m_split, row, dx, n, c_in, c, tiles_per_run);
-  return static_cast<int>(cudaGetLastError());
+  return backward<false>(x, w, coef, argmax, m, m_split, row, dx, dk_t, b, n,
+                         c_in, c, runs, tiles_per_run, stream);
+}
+
+// The bf16 form: x (b, n, c_in), w (c, c_in) and dx bf16; m f32, rounded to
+// bf16 into m_split (ceil(c_in / 128) * 128 * c_in bf16); coef f32, each
+// rounded to bf16 where it multiplies; dk_t f32.
+extern "C" int pcp_pooled_chain_backward_bf16(const __nv_bfloat16* x,
+                                              const __nv_bfloat16* w,
+                                              const float* coef,
+                                              const int* argmax, const float* m,
+                                              float* m_split, const float* row,
+                                              __nv_bfloat16* dx, float* dk_t,
+                                              int b, int n, int c_in, int c,
+                                              int runs, int tiles_per_run,
+                                              void* stream) {
+  return backward<true>(x, w, coef, argmax, m, m_split, row, dx, dk_t, b, n,
+                        c_in, c, runs, tiles_per_run, stream);
 }
 
 extern "C" const char* pcp_error_string(int code) {

@@ -25,6 +25,13 @@ An EdgeConv's edge MLP has two implementations over one parameter tree
 a CPU one, as the JAX package takes ``factored`` on its accelerator. kNN is
 exact (``torch.topk``) in f32 with TF32 off; the JAX package's approximate
 TPU search is not ported.
+
+``dtype=torch.bfloat16`` casts the normalized points to bf16 before the
+trunk and runs every block but the heads' last layers in bf16, as the JAX
+package does: the static graph is built from the f32 points before the
+cast, each dynamic graph from the bf16 features upcast to f32, and the
+edge block's ``U - V``, products and sums round to bf16 (``gather_maxmin``
+takes the bf16 ``q``). Every output is f32.
 """
 
 from __future__ import annotations
@@ -80,7 +87,8 @@ class EdgeConv(nn.Module):
 
     def __init__(self, in_features: int, features: int, k: int,
                  impl: str = "auto", *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if impl not in EDGE_IMPLS:
             # a typo like 'factoredd' must not silently run the slow
@@ -90,8 +98,10 @@ class EdgeConv(nn.Module):
                 f"got {impl!r}")
         self.k = k
         self.impl = impl
+        self.dtype = dtype
         self.l1 = PointwiseBlock(2 * in_features, features,
-                                 generator=generator, device=device)
+                                 generator=generator, device=device,
+                                 dtype=dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 frozen: bool = False, idx: torch.Tensor | None = None
@@ -109,6 +119,8 @@ class EdgeConv(nn.Module):
     def _factored(self, x, idx, *, train: bool, frozen: bool) -> torch.Tensor:
         c = x.shape[-1]
         weight = self.l1.conv.weight  # (w, 2c): [U ++ V] transposed
+        if self.dtype is not None:
+            x, weight = x.to(self.dtype), weight.to(self.dtype)
         u, v = weight[:, :c], weight[:, c:]
         p = torch.nn.functional.linear(x, u - v)  # (b, n, w)
         q = torch.nn.functional.linear(x, v)
@@ -152,16 +164,19 @@ class DGCNN(nn.Module):
                  edge_widths: tuple[int, ...] = (64, 64, 128, 256),
                  emb_width: int = 1024, dropout_rate: float = 0.3,
                  edge_impl: str = "auto", graph: str = "dynamic", *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if graph not in GRAPHS:
             raise ValueError(
                 f"graph must be 'dynamic' or 'static'; got {graph!r}")
         self.k = k
         self.graph = graph
+        self.dtype = dtype
         self.dropout_rate = dropout_rate
         self.edge_widths = tuple(edge_widths)
-        kw = dict(generator=generator, device=device)
+        f32 = dict(generator=generator, device=device)
+        kw = dict(f32, dtype=dtype)
         c = 3
         for i, width in enumerate(self.edge_widths):
             self.add_module(f"ec{i + 1}", EdgeConv(c, width, k, edge_impl, **kw))
@@ -173,12 +188,12 @@ class DGCNN(nn.Module):
         self.mlp_cls_2 = DenseBlock(512, 256, apply_bn=True, activation="relu",
                                     **kw)
         self.mlp_cls_out = DenseBlock(256, num_classes, activation="softmax",
-                                      **kw)
+                                      **f32)
         self.mlp_seg_1 = ConcatPointwiseBlock(local, emb_width, 256, **kw)
         self.mlp_seg_2 = PointwiseBlock(256, 256, **kw)
         self.mlp_seg_3 = PointwiseBlock(256, 128, **kw)
         self.mlp_seg_out = PointwiseBlock(128, num_parts, apply_bn=False,
-                                          activation="softmax", **kw)
+                                          activation="softmax", **f32)
 
     def forward(
         self,
@@ -194,7 +209,8 @@ class DGCNN(nn.Module):
         frozen_trunk = freeze.shared_network
         # static graph: one input-space kNN shared by every EdgeConv
         shared_idx = knn_graph(pc, self.k) if self.graph == "static" else None
-        x, layer_outs = pc, []
+        x = pc if self.dtype is None else pc.to(self.dtype)
+        layer_outs = []
         for i in range(len(self.edge_widths)):
             x = getattr(self, f"ec{i + 1}")(x, train=train, frozen=frozen_trunk,
                                             idx=shared_idx)
@@ -216,13 +232,13 @@ class DGCNN(nn.Module):
             x_cls = self.mlp_cls_2(x_cls, **cls)
             if train:
                 x_cls = dropout(x_cls, self.dropout_rate, generator)
-            outputs["classification_output"] = self.mlp_cls_out(x_cls, **cls)
+            outputs["classification_output"] = self.mlp_cls_out(x_cls.float(), **cls)
         if "segmentation_output" in heads:
             seg = dict(train=train, frozen=freeze.segmentation_head)
             d = self.mlp_seg_1(local, global_features, **seg)
             d = self.mlp_seg_2(d, **seg)
             d = self.mlp_seg_3(d, **seg)
-            outputs["segmentation_output"] = self.mlp_seg_out(d, **seg)
+            outputs["segmentation_output"] = self.mlp_seg_out(d.float(), **seg)
         return outputs
 
 

@@ -34,6 +34,14 @@ only raw points feed, runs without autograd.
 The (c_in, c_in) products ``x^T x`` and ``W (x^T x) W^T`` are
 ``torch.matmul`` outside the kernels; the JAX package pins them to full f32
 precision, so TF32 must stay off (it is off by default for matmuls).
+
+``dtype=torch.bfloat16`` follows the JAX package's bf16 chain. With batch
+statistics it is the branch that takes its Pallas kernels: x and the
+weight go to the kernels' bf16 forms, the Gram matrix and x-sum are summed
+in f32 from the bf16 x, the statistics use the f32 weight, the affine
+stays f32, and dx comes back in bf16. With running statistics it is the
+jnp branch, which rounds each step to bf16 (the pre-activation, the
+normalizing scale, the affine), and whose backward rounds dk to bf16.
 """
 
 from __future__ import annotations
@@ -56,13 +64,17 @@ def _winner_xhat(pooled, scale, bias):
 
 
 class _BatchStatsChain(torch.autograd.Function):
-    """Batch-statistics chain: Gram-matrix statistics and both kernels."""
+    """Batch-statistics chain: Gram-matrix statistics and both kernels, in
+    f32 or (``dtype``) on the kernels' bf16 forms."""
 
     @staticmethod
-    def forward(ctx, x, weight, scale, bias, eps):
+    def forward(ctx, x, weight, scale, bias, eps, dtype):
+        in_dtype = x.dtype
+        if dtype is not None:
+            x = x.to(dtype)
         b, n, c_in = x.shape
         num = b * n
-        x2 = x.reshape(num, c_in)
+        x2 = x.reshape(num, c_in).float()
         xsum = x2.sum(dim=0)
         gram = torch.matmul(x2.t(), x2)  # (c_in, c_in)
         kf = weight.t()  # the Flax kernel (c_in, c)
@@ -72,18 +84,19 @@ class _BatchStatsChain(torch.autograd.Function):
         inv = torch.rsqrt(var + eps)
         a = scale * inv
         c_row = bias - mean * a
+        w_op = weight if dtype is None else weight.to(dtype)
         pooled, argmax = pooled_chain_forward(
-            x, weight, a.contiguous(), c_row.contiguous())
+            x, w_op, a.contiguous(), c_row.contiguous())
         xhat_w = _winner_xhat(pooled, scale, bias)
-        ctx.save_for_backward(x, weight, scale, pooled, mean, var, argmax,
-                              xhat_w, xsum, gram)
-        ctx.eps = eps
+        ctx.save_for_backward(x, weight, w_op, scale, pooled, mean, var,
+                              argmax, xhat_w, xsum, gram)
+        ctx.eps, ctx.in_dtype = eps, in_dtype
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
     @staticmethod
     def backward(ctx, g_out, _g_mean, _g_var):
-        (x, weight, scale, pooled, mean, var, argmax, xhat_w, xsum,
+        (x, weight, w_op, scale, pooled, mean, var, argmax, xhat_w, xsum,
          gram) = ctx.saved_tensors
         b, n, _ = x.shape
         num = b * n
@@ -103,7 +116,7 @@ class _BatchStatsChain(torch.autograd.Function):
         const_row = torch.matmul(
             -(s * sum1) / num + mean * inv * s * sum2 / num, kernel.t())
         dx, dk_sparse = pooled_chain_backward(
-            x, weight, coef.contiguous(), argmax, m_small.contiguous(),
+            x, w_op, coef.contiguous(), argmax, m_small.contiguous(),
             const_row.contiguous())
         # dW dense part: x^T D = -(1/N) [ (x^T 1)(s sum1)^T
         #                 + (x^T x W - (x^T 1) mu^T) diag(inv s sum2) ]
@@ -113,22 +126,36 @@ class _BatchStatsChain(torch.autograd.Function):
             * (inv * s * sum2)[None, :]
         ) / num
         dweight = (dk_sparse + dk_dense).t()
-        return dx, dweight, dscale, dbias, None
+        return dx.to(ctx.in_dtype), dweight, dscale, dbias, None, None
+
+
+def _running_forward(x, weight, scale, bias, running_mean, running_var, eps,
+                     dtype):
+    """The running-statistics chain's forward in the JAX package's operation
+    order, each step in ``dtype`` (None: x's): (relu output r, xhat)."""
+    cd = dtype or x.dtype
+    pre = F.linear(x.to(cd), weight.to(cd))
+    inv = torch.rsqrt((running_var + eps).to(cd))
+    xhat = (pre - running_mean.to(cd)) * inv
+    return torch.relu(xhat * scale.to(cd) + bias.to(cd)), xhat
 
 
 class _RunningStatsChain(torch.autograd.Function):
     """Running-statistics chain with the winner-only backward."""
 
     @staticmethod
-    def forward(ctx, x, weight, scale, bias, running_mean, running_var, eps):
-        pre = F.linear(x, weight)
-        inv = torch.rsqrt(running_var + eps)
-        xhat = (pre - running_mean) * inv
-        r = torch.relu(xhat * scale + bias)
-        pooled = r.amax(dim=1)
+    def forward(ctx, x, weight, scale, bias, running_mean, running_var, eps,
+                dtype):
+        r, xhat = _running_forward(x, weight, scale, bias, running_mean,
+                                   running_var, eps, dtype)
+        pooled = r.amax(dim=1).float()
         argmax = r.argmax(dim=1)
-        xhat_w = xhat.gather(1, argmax[:, None, :]).squeeze(1)
-        ctx.save_for_backward(x, weight, scale, pooled, inv, argmax.int(), xhat_w)
+        xhat_w = xhat.gather(1, argmax[:, None, :]).squeeze(1).float()
+        inv = torch.rsqrt(running_var + eps)  # f32, as the JAX backward's
+        x_op = x if dtype is None else x.to(dtype)
+        ctx.save_for_backward(x_op, weight, scale, pooled, inv, argmax.int(),
+                              xhat_w)
+        ctx.dtype, ctx.in_dtype = dtype, x.dtype
         return pooled
 
     @staticmethod
@@ -136,11 +163,15 @@ class _RunningStatsChain(torch.autograd.Function):
         x, weight, scale, pooled, inv, argmax, xhat_w = ctx.saved_tensors
         c_in = x.shape[-1]
         dy_w = g_out * (pooled > 0)
+        w_op = weight if ctx.dtype is None else weight.to(ctx.dtype)
         dx, dk = pooled_chain_backward(
-            x, weight, (dy_w * (scale * inv)).contiguous(), argmax,
-            x.new_zeros((c_in, c_in)), x.new_zeros(c_in))
-        return (dx, dk.t(), (dy_w * xhat_w).sum(dim=0), dy_w.sum(dim=0),
-                None, None, None)
+            x, w_op, (dy_w * (scale * inv)).contiguous(), argmax,
+            x.new_zeros((c_in, c_in), dtype=torch.float32),
+            x.new_zeros(c_in, dtype=torch.float32))
+        if ctx.dtype is not None:  # the JAX einsum's bf16 result
+            dk = dk.to(ctx.dtype).float()
+        return (dx.to(ctx.in_dtype), dk.t(), (dy_w * xhat_w).sum(dim=0),
+                dy_w.sum(dim=0), None, None, None, None)
 
 
 def dense_bn_relu_max(
@@ -152,19 +183,21 @@ def dense_bn_relu_max(
     running_var: torch.Tensor,
     eps: float,
     use_running: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (b, n, c_in), weight (c, c_in) -> (pooled (b, c), batch_mean,
-    batch_var). With ``use_running`` the running statistics normalize and
-    come back unchanged; otherwise the batch's own statistics do, and the
-    caller updates its running statistics from the returned ones."""
+    """x (b, n, c_in), weight (c, c_in) -> (pooled (b, c) f32, batch_mean,
+    batch_var), computed in ``dtype`` (None: f32; or bf16). With
+    ``use_running`` the running statistics normalize and come back
+    unchanged; otherwise the batch's own statistics do, and the caller
+    updates its running statistics from the returned ones."""
     if not use_running:
-        return _BatchStatsChain.apply(x, weight, scale, bias, eps)
+        return _BatchStatsChain.apply(x, weight, scale, bias, eps, dtype)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, weight, scale, bias)):
         pooled = _RunningStatsChain.apply(
-            x, weight, scale, bias, running_mean, running_var, eps)
+            x, weight, scale, bias, running_mean, running_var, eps, dtype)
     else:  # inference: no winner bookkeeping
-        pre = F.linear(x, weight)
-        xhat = (pre - running_mean) * torch.rsqrt(running_var + eps)
-        pooled = torch.relu(xhat * scale + bias).amax(dim=1)
+        r, _ = _running_forward(x, weight, scale, bias, running_mean,
+                                running_var, eps, dtype)
+        pooled = r.amax(dim=1).float()
     return pooled, running_mean, running_var

@@ -16,6 +16,13 @@ over every axis but the last, and then updates its running statistics in
 place as ``m * old + (1 - m) * batch`` with m = 0.99. A frozen block uses
 its running statistics even in train mode and never updates them, as Keras
 ``trainable=False`` does.
+
+``dtype=torch.bfloat16`` runs a block's math in bf16 as Flax's
+``dtype=jnp.bfloat16`` does, while parameters and running statistics stay
+f32: a Dense casts its input, kernel and bias to bf16, multiplies (bf16
+products, f32 sums, one rounding) and adds the bias in bf16; a BatchNorm
+takes its statistics in f32 from the bf16 input, normalizes in f32 and
+rounds the result to bf16 once. ``dtype=None`` is full f32.
 """
 
 from __future__ import annotations
@@ -73,11 +80,14 @@ def apply_activation(x: torch.Tensor, activation: Optional[str]) -> torch.Tensor
 
 
 class Dense(nn.Module):
-    """Dense layer with ``weight`` (out, in) (Flax ``kernel`` transposed)."""
+    """Dense layer with ``weight`` (out, in) (Flax ``kernel`` transposed),
+    computed in ``dtype`` (None: f32)."""
 
     def __init__(self, in_features: int, features: int, bias: bool = True, *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(glorot_uniform(
             (features, in_features), in_features, features, generator, device
         ))
@@ -87,22 +97,30 @@ class Dense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if self.dtype is None:
+            return F.linear(x, self.weight, self.bias)
+        x, weight = x.to(self.dtype), self.weight.to(self.dtype)
+        y = F.linear(x, weight)  # then the bias, in Flax's order
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis:
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, Flax's order, with
-    the running statistics or (``use_running=False``) the batch's own."""
+    the running statistics or (``use_running=False``) the batch's own, in
+    f32; the result is rounded to ``dtype`` where one is set."""
 
-    def __init__(self, features: int, *, device=None):
+    def __init__(self, features: int, *, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor, *, use_running: bool) -> torch.Tensor:
+        x = x.float()
         if use_running:
             mean, var = self.running_mean, self.running_var
         else:
@@ -112,7 +130,8 @@ class BatchNorm(nn.Module):
                               min=0.0)
             self.update_running(mean, var)
         mul = torch.rsqrt(var + KERAS_BN_EPSILON) * self.weight
-        return (x - mean) * mul + self.bias
+        y = (x - mean) * mul + self.bias
+        return y if self.dtype is None else y.to(self.dtype)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
@@ -131,13 +150,14 @@ class PointwiseBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, apply_bn: bool = True,
                  activation: Optional[str] = "relu", *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.add_module(self._dense_name, Dense(
             in_features, features, bias=not apply_bn, generator=generator,
-            device=device,
+            device=device, dtype=dtype,
         ))
-        self.bn = BatchNorm(features, device=device) if apply_bn else None
+        self.bn = BatchNorm(features, device=device, dtype=dtype) if apply_bn else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
@@ -156,22 +176,26 @@ class DenseBlock(PointwiseBlock):
 
     def __init__(self, in_features: int, features: int, apply_bn: bool = False,
                  activation: Optional[str] = None, *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__(in_features, features, apply_bn, activation,
-                         generator=generator, device=device)
+                         generator=generator, device=device, dtype=dtype)
 
 
 class _SplitKernelDense(nn.Module):
     """Dense over a virtual concat [local ++ broadcast(global)] without
     building the concat: ``local @ W[:, :d]^T + global @ W[:, d:]^T``. One
     (features, d_local + d_global) weight, as Dense over the concat would
-    hold; the per-point matmul is only d_local wide."""
+    hold; the per-point matmul is only d_local wide. In ``dtype`` both
+    products and their sum round to it, as in the JAX package."""
 
     def __init__(self, d_local: int, d_global: int, features: int,
                  bias: bool = True, *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.d_local = d_local
+        self.dtype = dtype
         d_in = d_local + d_global
         self.weight = nn.Parameter(glorot_uniform(
             (features, d_in), d_in, features, generator, device
@@ -182,11 +206,16 @@ class _SplitKernelDense(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, local: torch.Tensor, global_feats: torch.Tensor) -> torch.Tensor:
-        per_point = F.linear(local, self.weight[:, : self.d_local])
-        per_cloud = F.linear(global_feats, self.weight[:, self.d_local:])
+        weight, bias = self.weight, self.bias
+        if self.dtype is not None:
+            local, global_feats = local.to(self.dtype), global_feats.to(self.dtype)
+            weight = weight.to(self.dtype)
+            bias = None if bias is None else bias.to(self.dtype)
+        per_point = F.linear(local, weight[:, : self.d_local])
+        per_cloud = F.linear(global_feats, weight[:, self.d_local:])
         out = per_point + per_cloud[..., None, :]
-        if self.bias is not None:
-            out = out + self.bias
+        if bias is not None:
+            out = out + bias
         return out
 
 
@@ -196,13 +225,14 @@ class ConcatPointwiseBlock(nn.Module):
 
     def __init__(self, d_local: int, d_global: int, features: int,
                  apply_bn: bool = True, activation: Optional[str] = "relu", *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.conv = _SplitKernelDense(
             d_local, d_global, features, bias=not apply_bn,
-            generator=generator, device=device,
+            generator=generator, device=device, dtype=dtype,
         )
-        self.bn = BatchNorm(features, device=device) if apply_bn else None
+        self.bn = BatchNorm(features, device=device, dtype=dtype) if apply_bn else None
         self.activation = activation
 
     def forward(self, local: torch.Tensor, global_feats: torch.Tensor, *,
@@ -216,11 +246,13 @@ class ConcatPointwiseBlock(nn.Module):
 class PooledPointwiseBlock(nn.Module):
     """``PointwiseBlock(features, BN, relu)`` + global max over points
     (models/fused_pool.py). Same parameters as that block: ``conv.weight``
-    and ``bn``."""
+    and ``bn``. The pooled output is f32 in either dtype."""
 
     def __init__(self, in_features: int, features: int, *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.conv = Dense(in_features, features, bias=False,
                           generator=generator, device=device)
         self.bn = BatchNorm(features, device=device)
@@ -231,7 +263,7 @@ class PooledPointwiseBlock(nn.Module):
         use_running = (not train) or frozen
         pooled, mean, var = dense_bn_relu_max(
             x, self.conv.weight, bn.weight, bn.bias, bn.running_mean,
-            bn.running_var, KERAS_BN_EPSILON, use_running,
+            bn.running_var, KERAS_BN_EPSILON, use_running, self.dtype,
         )
         if not use_running:
             bn.update_running(mean, var)

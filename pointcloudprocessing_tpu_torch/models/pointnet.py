@@ -14,6 +14,11 @@ place, and applies dropout with keep masks drawn from an explicit
 ``1 / (1 - rate)``, as Flax does). :meth:`PointNet.forward_with_reg` also
 returns the T-Net orthogonality regularizers the training step adds to its
 loss.
+
+``dtype=torch.bfloat16`` runs the trunk, the T-Nets and the heads' hidden
+layers in bf16 (parameters stay f32); the transforms, the pooled features
+and the heads' last layers and softmaxes stay f32, so every output is f32,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -115,11 +120,13 @@ class PointNet(nn.Module):
                  *, dropout_rate: float = 0.3,
                  regularize_input_transform: bool = False,
                  regularize_feature_transform: bool = False,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.vanilla = vanilla
         self.dropout_rate = dropout_rate
-        kw = dict(generator=generator, device=device)
+        f32 = dict(generator=generator, device=device)
+        kw = dict(f32, dtype=dtype)
         if not vanilla:
             self.input_transform = TNet(3, regularize_input_transform, **kw)
         self.mlp_1_1 = PointwiseBlock(3, 64, **kw)
@@ -131,13 +138,13 @@ class PointNet(nn.Module):
         self.mlp_2_3 = PooledPointwiseBlock(128, 1024, **kw)
         self.mlp_cls_1 = DenseBlock(1024, 512, apply_bn=True, activation="relu", **kw)
         self.mlp_cls_2 = DenseBlock(512, 256, apply_bn=True, activation="relu", **kw)
-        self.mlp_cls_3 = DenseBlock(256, num_classes, activation="softmax", **kw)
+        self.mlp_cls_3 = DenseBlock(256, num_classes, activation="softmax", **f32)
         self.mlp_seg_1 = ConcatPointwiseBlock(64, 1024, 512, **kw)
         self.mlp_seg_2 = PointwiseBlock(512, 256, **kw)
         self.mlp_seg_3 = PointwiseBlock(256, 128, **kw)
         self.mlp_seg_4 = PointwiseBlock(128, 128, **kw)
         self.mlp_seg_5 = PointwiseBlock(
-            128, num_parts, apply_bn=False, activation="softmax", **kw
+            128, num_parts, apply_bn=False, activation="softmax", **f32
         )
 
     def forward(
@@ -190,7 +197,7 @@ class PointNet(nn.Module):
             r64 = self.feature_transform(x, **shared)
             if self.feature_transform.add_regularization:
                 reg = reg + orthogonality_loss(r64)
-            x_64 = x @ r64
+            x_64 = x.float() @ r64
         else:
             x_64 = x
         x = self.mlp_2_1(x_64, **shared)
@@ -208,12 +215,12 @@ class PointNet(nn.Module):
             x_cls = self.mlp_cls_2(x_cls, **cls)
             if train:
                 x_cls = dropout(x_cls, self.dropout_rate, generator)
-            outputs["classification_output"] = self.mlp_cls_3(x_cls, **cls)
+            outputs["classification_output"] = self.mlp_cls_3(x_cls.float(), **cls)
         if "segmentation_output" in heads:
             seg = dict(train=train, frozen=freeze.segmentation_head)
             x_seg = self.mlp_seg_1(x_64, global_features, **seg)
             x_seg = self.mlp_seg_2(x_seg, **seg)
             x_seg = self.mlp_seg_3(x_seg, **seg)
             x_seg = self.mlp_seg_4(x_seg, **seg)
-            outputs["segmentation_output"] = self.mlp_seg_5(x_seg, **seg)
+            outputs["segmentation_output"] = self.mlp_seg_5(x_seg.float(), **seg)
         return outputs, reg

@@ -13,6 +13,10 @@ package's ``precision=HIGHEST``, since the radius mask and the kNN sets
 flip on a rounding. kNN is the exact ``torch.topk``: the JAX package's
 approximate TPU search (its default ``exact_knn=False``) is not ported, and
 on the CPU it returns the exact set.
+
+``dtype=torch.bfloat16`` runs the SA, FP and head blocks in bf16 as the JAX
+package does (FPS, grouping and interpolation weights stay on the f32
+coordinates; the heads' last layers and every output are f32).
 """
 
 from __future__ import annotations
@@ -23,7 +27,6 @@ import torch
 from torch import nn
 
 from pointcloudprocessing_tpu_torch.models.layers import (
-    ConcatPointwiseBlock,
     DenseBlock,
     PointwiseBlock,
     require_device,
@@ -144,7 +147,7 @@ def interpolate_features(fine_xyz: torch.Tensor, coarse_xyz: torch.Tensor,
     w = 1.0 / (sq_d + eps)
     w = w / w.sum(dim=-1, keepdim=True)
     nbr = gather_rows(coarse_feats, idx)  # (b, n, 3, c)
-    return (nbr * w[..., None]).sum(dim=2)
+    return (nbr * w[..., None].to(nbr.dtype)).sum(dim=2)
 
 
 class _GlobalAbstraction(nn.Module):
@@ -152,13 +155,14 @@ class _GlobalAbstraction(nn.Module):
     feats], max over all points."""
 
     def __init__(self, in_features: int, mlp: tuple[int, ...], *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.depth = len(mlp)
         c = 3 + in_features
         for i, width in enumerate(mlp):
             self.add_module(f"l{i + 1}", PointwiseBlock(
-                c, width, generator=generator, device=device))
+                c, width, generator=generator, device=device, dtype=dtype))
             c = width
 
     def mlp(self, x, *, train: bool, frozen: bool):
@@ -176,8 +180,10 @@ class _SetAbstraction(_GlobalAbstraction):
 
     def __init__(self, in_features: int, num_centroids: int, k: int,
                  radius: float, mlp: tuple[int, ...], *,
-                 generator: torch.Generator | None = None, device=None):
-        super().__init__(in_features, mlp, generator=generator, device=device)
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
+        super().__init__(in_features, mlp, generator=generator, device=device,
+                         dtype=dtype)
         self.num_centroids, self.k, self.radius = num_centroids, k, radius
 
     def forward(self, xyz, feats, *, train: bool, frozen: bool = False):
@@ -203,10 +209,12 @@ class PointNet2(nn.Module):
                  sa1: tuple = (512, 32, 0.2, (64, 64, 128)),
                  sa2: tuple = (128, 64, 0.4, (128, 128, 256)),
                  sa3_mlp: tuple[int, ...] = (256, 512, 1024), *,
-                 generator: torch.Generator | None = None, device=None):
+                 generator: torch.Generator | None = None, device=None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.dropout_rate = dropout_rate
-        kw = dict(generator=generator, device=device)
+        f32 = dict(generator=generator, device=device)
+        kw = dict(f32, dtype=dtype)
         m1, k1, r1, mlp1 = sa1
         m2, k2, r2, mlp2 = sa2
         self.sa1 = _SetAbstraction(0, m1, k1, r1, tuple(mlp1), **kw)
@@ -215,17 +223,17 @@ class PointNet2(nn.Module):
         g = sa3_mlp[-1]
         self.mlp_cls_1 = DenseBlock(g, 512, apply_bn=True, activation="relu", **kw)
         self.mlp_cls_2 = DenseBlock(512, 256, apply_bn=True, activation="relu", **kw)
-        self.mlp_cls_out = DenseBlock(256, num_classes, activation="softmax", **kw)
+        self.mlp_cls_out = DenseBlock(256, num_classes, activation="softmax", **f32)
         # feature propagation: [f2 ++ tiled global] at the SA2 centroids, then
         # [f1 ++ interpolated] at the SA1 centroids, then the input points
-        self.mlp_seg_fp2_l1 = ConcatPointwiseBlock(mlp2[-1], g, 256, **kw)
+        self.mlp_seg_fp2_l1 = PointwiseBlock(mlp2[-1] + g, 256, **kw)
         self.mlp_seg_fp2_l2 = PointwiseBlock(256, 256, **kw)
         self.mlp_seg_fp1_l1 = PointwiseBlock(mlp1[-1] + 256, 256, **kw)
         self.mlp_seg_fp1_l2 = PointwiseBlock(256, 128, **kw)
         self.mlp_seg_l1 = PointwiseBlock(128, 128, **kw)
         self.mlp_seg_l2 = PointwiseBlock(128, 128, **kw)
         self.mlp_seg_out = PointwiseBlock(128, num_parts, apply_bn=False,
-                                          activation="softmax", **kw)
+                                          activation="softmax", **f32)
 
     def forward(
         self,
@@ -256,10 +264,11 @@ class PointNet2(nn.Module):
             x_cls = self.mlp_cls_2(x_cls, **cls)
             if train:
                 x_cls = dropout(x_cls, self.dropout_rate, generator)
-            outputs["classification_output"] = self.mlp_cls_out(x_cls, **cls)
+            outputs["classification_output"] = self.mlp_cls_out(x_cls.float(), **cls)
         if "segmentation_output" in heads:
             seg = dict(train=train, frozen=freeze.segmentation_head)
-            d2 = self.mlp_seg_fp2_l1(f2, global_features, **seg)
+            g2 = global_features[:, None, :].expand(-1, f2.shape[1], -1)
+            d2 = self.mlp_seg_fp2_l1(torch.cat([f2, g2], dim=-1), **seg)
             d2 = self.mlp_seg_fp2_l2(d2, **seg)
             d1 = torch.cat([f1, interpolate_features(xyz1, xyz2, d2)], dim=-1)
             d1 = self.mlp_seg_fp1_l1(d1, **seg)
@@ -267,5 +276,5 @@ class PointNet2(nn.Module):
             d0 = interpolate_features(pc, xyz1, d1)  # (b, n, 128)
             d0 = self.mlp_seg_l1(d0, **seg)
             d0 = self.mlp_seg_l2(d0, **seg)
-            outputs["segmentation_output"] = self.mlp_seg_out(d0, **seg)
+            outputs["segmentation_output"] = self.mlp_seg_out(d0.float(), **seg)
         return outputs

@@ -11,6 +11,9 @@ With ``add_regularization`` the training step adds the orthogonality
 regularizer :func:`orthogonality_loss` of the transform to its loss (the
 JAX package sows it into a ``reg_losses`` collection; here the model hands
 the value back to the step).
+
+In ``dtype`` (bf16) the blocks and ``h @ w`` run in it; the transform is
+assembled in f32.
 """
 
 from __future__ import annotations
@@ -49,12 +52,14 @@ class TNet(nn.Module):
         *,
         generator: torch.Generator | None = None,
         device=None,
+        dtype: torch.dtype | None = None,
     ):
         super().__init__()
         w = layer_widths
         self.k = k
+        self.dtype = dtype
         self.add_regularization = add_regularization
-        kw = dict(generator=generator, device=device)
+        kw = dict(generator=generator, device=device, dtype=dtype)
         self.conv_layer_1 = PointwiseBlock(k, w[0], conv_apply_bn, conv_activation, **kw)
         self.conv_layer_2 = PointwiseBlock(w[0], w[1], conv_apply_bn, conv_activation, **kw)
         self.pooled = conv_apply_bn and conv_activation == "relu"
@@ -84,4 +89,7 @@ class TNet(nn.Module):
             h = h.amax(dim=-2)  # symmetric global feature (b, 1024)
         h = self.dense_layer_1(h, **flags)
         h = self.dense_layer_2(h, **flags)
-        return (h @ self.w).reshape(-1, self.k, self.k) + self.b
+        if self.dtype is None:
+            return (h @ self.w).reshape(-1, self.k, self.k) + self.b
+        out = h.to(self.dtype) @ self.w.to(self.dtype)
+        return out.float().reshape(-1, self.k, self.k) + self.b

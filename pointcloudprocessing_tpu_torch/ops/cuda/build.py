@@ -49,11 +49,16 @@ _ENTRY = {
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "pcp_pooled_chain_backward":
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "pcp_pooled_chain_forward_bf16":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "pcp_pooled_chain_backward_bf16":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "window_normals": {
         "pcp_window_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "gather_maxmin": {
-        "pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
+        "pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+        "pcp_gather_maxmin_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

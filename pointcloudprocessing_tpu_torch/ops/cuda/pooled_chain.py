@@ -8,6 +8,10 @@ mantissa bits of the pooled value; on the H100 both run their GEMM on the
 tensor cores (``wgmma``) in 3xTF32, which keeps f32 accuracy
 (``csrc/pooled_chain.cu`` says why and how), and the forward gives the
 exact f32 maximum with its first index, so n has no index-field bound.
+Each kernel has a bf16 form too (:func:`kernel_form`), the form in which the
+JAX package runs them: x and the weight in bf16, single-pass bf16 products
+with f32 sums; the backward rounds m and each winner's coef to bf16 as the
+TPU kernel does and writes dx in bf16.
 
 Weights are in the port's layout: ``weight`` is (c, c_in), the Flax
 ``kernel`` transposed.
@@ -79,14 +83,33 @@ def tf32_split_x(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, _bits_to_f32(lo_bits)
 
 
+def kernel_form(x_dtype: torch.dtype, weight_dtype: torch.dtype) -> str:
+    """The kernels' form for x and weight of these types: "tf32x3" for f32
+    (3xTF32 products, f32 accuracy), "bf16" for bf16 (the TPU kernels' own
+    precision). Any other pair raises."""
+    if x_dtype == weight_dtype == torch.float32:
+        return "tf32x3"
+    if x_dtype == weight_dtype == torch.bfloat16:
+        return "bf16"
+    raise TypeError(
+        f"the pooled-chain kernels take x and weight both f32 or both bf16, "
+        f"got {x_dtype} and {weight_dtype}")
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def pooled_chain_forward_reference(
     x: torch.Tensor, weight: torch.Tensor, a: torch.Tensor, c_row: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: ``r = relu((x @ weight^T) * a + c_row)`` materialised,
-    then its max and first-index argmax over the points. x (b, n, c_in),
-    weight (c, c_in), a and c_row (c,) -> (pooled (b, c) f32, argmax (b, c)
+    """Plain version: ``r = relu((x @ weight^T) * a + c_row)`` materialised
+    in f32 (bf16 operands are exact in it), then its max and first-index
+    argmax over the points. x (b, n, c_in), weight (c, c_in), both f32 or
+    both bf16; a and c_row (c,) f32 -> (pooled (b, c) f32, argmax (b, c)
     int32)."""
-    r = torch.relu(torch.matmul(x, weight.t()) * a + c_row)
+    kernel_form(x.dtype, weight.dtype)
+    r = torch.relu(torch.matmul(x.float(), weight.float().t()) * a + c_row)
     return r.amax(dim=1), r.argmax(dim=1).int()
 
 
@@ -100,14 +123,20 @@ def pooled_chain_backward_reference(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version, through the winners' dense one-hot ``A = onehot(argmax)
     * coef`` (b, n, c): ``dx = A @ weight + x @ m_small + const_row`` and
-    ``dk = x^T A`` summed over the clouds. Returns (dx (b, n, c_in),
-    dk (c_in, c) f32)."""
+    ``dk = x^T A`` summed over the clouds, in f32. In the bf16 form (x and
+    weight bf16) coef and m_small are rounded to bf16 first, as the TPU
+    kernel rounds them, and dx is rounded to bf16 at the end. Returns (dx
+    (b, n, c_in) in x's type, dk (c_in, c) f32)."""
+    bf16 = kernel_form(x.dtype, weight.dtype) == "bf16"
+    if bf16:
+        coef, m_small = _bf16_round(coef), _bf16_round(m_small)
+    xf = x.float()
     n = x.shape[1]
     points = torch.arange(n, device=x.device)[None, :, None]
     a_mat = torch.where(points == argmax[:, None, :].long(), coef[:, None, :], 0.0)
-    dx = torch.matmul(a_mat, weight) + torch.matmul(x, m_small) + const_row
-    dk = torch.einsum("bnd,bnc->dc", x, a_mat)
-    return dx, dk
+    dx = torch.matmul(a_mat, weight.float()) + torch.matmul(xf, m_small) + const_row
+    dk = torch.einsum("bnd,bnc->dc", xf, a_mat)
+    return dx.to(x.dtype), dk
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
@@ -123,6 +152,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
 
 
 def _check_widths(x: torch.Tensor, weight: torch.Tensor) -> tuple[int, ...]:
+    """(b, n, c_in, c) of the kernels' operands, after checking them."""
     if x.dim() != 3 or weight.dim() != 2:
         raise ValueError(
             f"x must be (b, n, c_in) and weight (c, c_in), got "
@@ -135,8 +165,9 @@ def _check_widths(x: torch.Tensor, weight: torch.Tensor) -> tuple[int, ...]:
             f"the pooled-chain kernels take b, n >= 1 and c_in, c multiples "
             f"of {TILE} (c <= {MAX_CHANNELS}); got b={b}, n={n}, "
             f"c_in={c_in}, c={c}")
-    _check("x", x, (b, n, c_in), torch.float32, x.device)
-    _check("weight", weight, (c, c_in), torch.float32, x.device)
+    kernel_form(x.dtype, weight.dtype)
+    _check("x", x, (b, n, c_in), x.dtype, x.device)
+    _check("weight", weight, (c, c_in), x.dtype, x.device)
     return b, n, c_in, c
 
 
@@ -144,11 +175,15 @@ def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _split_scratch(cols: int, c_in: int, device: torch.device) -> torch.Tensor:
-    """Room for the kernels' tf32 hi and lo copies of the weight operand,
-    its columns padded to whole 128-column tiles."""
-    return torch.empty((2, -(-cols // COLUMN_TILE) * COLUMN_TILE * c_in),
-                       dtype=torch.float32, device=device)
+def _split_scratch(cols: int, c_in: int, device: torch.device,
+                   bf16: bool) -> torch.Tensor:
+    """Room for the kernels' tf32 hi and lo copies of the weight operand
+    (bf16: its one bf16 copy), its columns padded to whole 128-column
+    tiles."""
+    size = -(-cols // COLUMN_TILE) * COLUMN_TILE * c_in
+    if bf16:
+        return torch.empty(size, dtype=torch.bfloat16, device=device)
+    return torch.empty((2, size), dtype=torch.float32, device=device)
 
 
 def pooled_chain_forward(
@@ -157,10 +192,11 @@ def pooled_chain_forward(
     """``relu((x @ weight^T) * a + c_row)``, then max and first-index argmax
     over the points, without writing the (b, n, c) activation.
 
-    x (b, n, c_in) f32; weight (c, c_in) f32; a, c_row (c,) f32 (the
-    BatchNorm affine folded per channel). Returns (pooled (b, c) f32,
-    argmax (b, c) int32). The pooled value is the exact f32 maximum of the
-    kernel's own GEMM; a channel that is 0 at every point gives 0, argmax 0.
+    x (b, n, c_in) and weight (c, c_in), both f32 or both bf16
+    (:func:`kernel_form`); a, c_row (c,) f32 (the BatchNorm affine folded
+    per channel). Returns (pooled (b, c) f32, argmax (b, c) int32). The
+    pooled value is the exact f32 maximum of the kernel's own GEMM; a
+    channel that is 0 at every point gives 0, argmax 0.
     """
     if x.device.type == "cpu":
         return pooled_chain_forward_reference(x, weight, a, c_row)
@@ -169,8 +205,9 @@ def pooled_chain_forward(
     b, n, c_in, c = _check_widths(x, weight)
     _check("a", a, (c,), torch.float32, x.device)
     _check("c_row", c_row, (c,), torch.float32, x.device)
+    bf16 = x.dtype == torch.bfloat16
     runs, per_run = launch_grid(b, n, c, _sms(x.device))
-    w_split = _split_scratch(c, c_in, x.device)
+    w_split = _split_scratch(c, c_in, x.device, bf16)
     part_v = torch.empty((b, runs, c), dtype=torch.float32, device=x.device)
     part_i = torch.empty((b, runs, c), dtype=torch.int32, device=x.device)
     pooled = torch.empty((b, c), dtype=torch.float32, device=x.device)
@@ -178,19 +215,26 @@ def pooled_chain_forward(
     lib = build.load("pooled_chain")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pcp_pooled_chain_forward(
+        entry = (lib.pcp_pooled_chain_forward_bf16 if bf16
+                 else lib.pcp_pooled_chain_forward)
+        code = entry(
             x.data_ptr(), weight.data_ptr(), w_split.data_ptr(), a.data_ptr(),
             c_row.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
             pooled.data_ptr(), argmax.data_ptr(), b, n, c_in, c, runs,
             per_run, stream,
         )
     build.check(lib, code, "pooled_chain_forward launch")
-    pooled_chain_forward.launches += 1
+    if bf16:
+        pooled_chain_forward.launches_bf16 += 1
+    else:
+        pooled_chain_forward.launches += 1
     return pooled, argmax
 
 
-#: kernel launches in this process (CPU calls and refusals do not count)
+#: kernel launches in this process, f32 and bf16 forms (CPU calls and
+#: refusals do not count)
 pooled_chain_forward.launches = 0
+pooled_chain_forward.launches_bf16 = 0
 
 
 def pooled_chain_backward(
@@ -205,9 +249,11 @@ def pooled_chain_backward(
     plus, for each (cloud, channel), ``coef[b, c] * weight[c, :]`` into row
     ``argmax[b, c]``; and ``dk[d, c] = sum_b coef[b, c] * x[b, argmax[b, c], d]``.
 
-    x (b, n, c_in), weight (c, c_in), coef (b, c) f32, argmax (b, c) int32,
-    m_small (c_in, c_in), const_row (c_in,) f32. Returns (dx (b, n, c_in),
-    dk (c_in, c)) f32, both deterministic; on CUDA dk is the transposed view
+    x (b, n, c_in) and weight (c, c_in), both f32 or both bf16; coef (b, c)
+    f32, argmax (b, c) int32, m_small (c_in, c_in), const_row (c_in,) f32
+    (the bf16 form rounds coef and m_small to bf16). Returns (dx (b, n,
+    c_in) in x's type, dk (c_in, c) f32), both deterministic; on CUDA dk is
+    the transposed view
     of the (c, c_in) array the kernel writes a row a channel. The kernel checks argmax on the
     device: a value outside [0, n) traps, and the next CUDA call raises (the
     CUDA context is then lost).
@@ -222,23 +268,31 @@ def pooled_chain_backward(
     _check("argmax", argmax, (b, c), torch.int32, x.device)
     _check("m_small", m_small, (c_in, c_in), torch.float32, x.device)
     _check("const_row", const_row, (c_in,), torch.float32, x.device)
+    bf16 = x.dtype == torch.bfloat16
     runs, per_run = launch_grid(b, n, c_in, _sms(x.device))
-    m_split = _split_scratch(c_in, c_in, x.device)
+    m_split = _split_scratch(c_in, c_in, x.device, bf16)
     dx = torch.empty_like(x)
     dk_t = torch.empty((c, c_in), dtype=torch.float32, device=x.device)
     lib = build.load("pooled_chain")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pcp_pooled_chain_backward(
+        entry = (lib.pcp_pooled_chain_backward_bf16 if bf16
+                 else lib.pcp_pooled_chain_backward)
+        code = entry(
             x.data_ptr(), weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(),
             m_small.data_ptr(), m_split.data_ptr(), const_row.data_ptr(),
             dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, runs, per_run,
             stream,
         )
     build.check(lib, code, "pooled_chain_backward launch")
-    pooled_chain_backward.launches += 1
+    if bf16:
+        pooled_chain_backward.launches_bf16 += 1
+    else:
+        pooled_chain_backward.launches += 1
     return dx, dk_t.t()
 
 
-#: kernel launches in this process (CPU calls and refusals do not count)
+#: kernel launches in this process, f32 and bf16 forms (CPU calls and
+#: refusals do not count)
 pooled_chain_backward.launches = 0
+pooled_chain_backward.launches_bf16 = 0

@@ -17,16 +17,19 @@
 
 Every model family that ``model_from_config`` builds trains through the
 port's step (``train/steps.py``) on ``device``: CUDA unless the caller asks
-for the CPU, and without CUDA the default raises. Every random draw comes
+for the CPU, and without CUDA the default raises. ``params.compute_dtype``
+and ``params.optimizer_moment_dtype`` (``bfloat16``/``bf16`` or
+``float32``/``f32``/empty; anything else raises) set the model's compute
+dtype and Adam's stored moments, as in the JAX driver; the checkpoints hold
+f32 parameters either way. Every random draw comes
 from an explicit generator seeded from the config: the model's weights,
 the steps' jitter and dropout (from the seed and the step count), each
 validation batch's jitter (from the seed and
 ``epoch * validation_steps + i``) and the loaders' order.
 
 Not ported here (``ROADMAP.md``): the scanned multi-step form and
-``steps_per_dispatch``, meshes and ``parallel_mode``, the StableHLO and ONNX
-export at the end of a stage, and bf16 compute or Adam moments (a config
-asking for either raises).
+``steps_per_dispatch``, meshes and ``parallel_mode``, and the StableHLO and
+ONNX export at the end of a stage.
 """
 
 from __future__ import annotations
@@ -72,9 +75,6 @@ HISTORY_KEYS = [
     "segmentation_output_loss",
     "segmentation_output_sparse_categorical_accuracy",
 ]
-
-F32_NAMES = ("", "float32", "f32")
-
 
 # copied from pointcloudprocessing_tpu/train/profile.py::_epoch_metrics
 def _epoch_metrics(batch_logs: list[dict]) -> dict[str, float]:
@@ -127,18 +127,6 @@ def val_seed(seed: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, index]).generate_state(1)[0])
 
 
-def check_f32(cfg: TrainConfig) -> None:
-    """The port trains in f32 only: a bf16 setting raises, not trains in f32."""
-    for field in ("compute_dtype", "optimizer_moment_dtype"):
-        value = getattr(cfg, field)
-        if value not in F32_NAMES:
-            raise NotImplementedError(
-                f"params.{field}={value!r}: the PyTorch port trains in f32 "
-                "only (bf16 compute and Adam moments are not ported yet); "
-                f"remove the key or set it to 'float32'"
-            )
-
-
 class TrainProfile:
     def __init__(self, config_file: str | TrainConfig, log_to_file: bool = True,
                  device="cuda"):
@@ -150,7 +138,13 @@ class TrainProfile:
             self._config_file = config_file
             self.config = load_config(config_file)
         cfg = self.config
-        check_f32(cfg)
+        from pointcloudprocessing_tpu_torch.models.factory import (
+            compute_dtype_of,
+            moment_dtype_of,
+        )
+
+        self._compute_dtype = compute_dtype_of(cfg)  # an unknown name raises
+        self._moment_dtype = moment_dtype_of(cfg)
 
         # -- path validation (pointnet_train.py:115-122) -------------------
         for path, what in [
@@ -266,14 +260,15 @@ class TrainProfile:
         model = model_from_config(
             cfg, training=True,
             generator=torch.Generator().manual_seed(cfg.random_seed),
-            device=self.device,
+            device=self.device, dtype=self._compute_dtype,
         )
         freeze = freeze_flags_from_trainable(stage.trainable)
         if self._pretrained_model:
             ckpt_dir = f"{cfg.model_path}{self._pretrained_model}"
             self._log.info(f"Continuing training on model {self._pretrained_model}")
             model.load_state_dict(load_checkpoint(ckpt_dir, self.device))
-        state, optimizer = steps_lib.init_train_state(model, cfg.learning, freeze)
+        state, optimizer = steps_lib.init_train_state(
+            model, cfg.learning, freeze, self._moment_dtype)
         return model, state, optimizer, freeze
 
     def train(self) -> dict[str, dict]:

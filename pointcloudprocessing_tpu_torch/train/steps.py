@@ -5,7 +5,13 @@
 - Optimizer: Adam with Keras's epsilon 1e-7 on a continuous exponential
   learning-rate decay, in optax's operation order (``optax.adam`` and
   ``optax.exponential_decay``, non-staircase; the rate is taken at the step
-  count before its increment, so the first step uses ``rate``).
+  count before its increment, so the first step uses ``rate``). With a
+  ``moment_dtype`` (bf16) both moments are stored in it, as the JAX
+  package's ``scale_by_adam_moments`` stores them: the update runs in f32
+  from the upcast moments and only the stored moments are rounded. A bf16
+  nu can stall: with b2 = 0.999 an EMA step (~1e-3 of nu) is under half a
+  bf16 ulp (~4e-3), so nu may stick and follow a decaying gradient scale
+  poorly; keep nu in f32 if a run's quality drops.
 - Freeze/thaw: a stage's switches label each top-level submodule "train" or
   "freeze" by its name (``input_transform``, ``feature_transform``,
   ``mlp_cls*``, ``mlp_seg*``; everything else, ``mlp_1_*``, ``sa*``,
@@ -27,8 +33,8 @@
 - Metrics: per-batch correct counts and sums, so a host can rebuild Keras's
   streaming epoch metrics exactly.
 
-The scanned multi-step forms (K steps per dispatch), the shard_map
-data-parallel step and bf16 Adam moments are not ported (ROADMAP).
+The scanned multi-step forms (K steps per dispatch) and the shard_map
+data-parallel step are not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -77,7 +83,7 @@ def freeze_label_tree(params: Mapping[str, object], freeze: FreezeFlags) -> dict
 @dataclasses.dataclass
 class AdamState:
     """Adam's step count and first and second moments, for the trained
-    parameters only."""
+    parameters only, stored in the optimizer's moment dtype."""
 
     count: int
     mu: dict[str, torch.Tensor]
@@ -86,15 +92,20 @@ class AdamState:
 
 class Optimizer:
     """``optax.multi_transform({"train": adam(schedule, eps=1e-7),
-    "freeze": set_to_zero()}, labels)`` over named parameters, in f32."""
+    "freeze": set_to_zero()}, labels)`` over named parameters, in f32; with
+    ``moment_dtype`` the JAX package's ``scale_by_adam_moments`` chained
+    with the same schedule (moments stored in that dtype)."""
 
-    def __init__(self, learning: LearningConfig, labels: Mapping[str, str]):
+    def __init__(self, learning: LearningConfig, labels: Mapping[str, str],
+                 moment_dtype: torch.dtype | None = None):
         self.learning = learning
         self.labels = dict(labels)
+        self.moment_dtype = moment_dtype
 
     def init(self, params: Mapping[str, torch.Tensor]) -> AdamState:
         trained = [n for n in params if self.labels[n] == "train"]
-        zeros = {n: torch.zeros_like(params[n]) for n in trained}
+        zeros = {n: torch.zeros_like(params[n], dtype=self.moment_dtype)
+                 for n in trained}
         return AdamState(0, zeros, {n: z.clone() for n, z in zeros.items()})
 
     def learning_rate(self, count: int) -> np.float32:
@@ -123,6 +134,10 @@ class Optimizer:
         grads = [p.grad for p in ps]
         mus = [state.mu[n] for n in names]
         nus = [state.nu[n] for n in names]
+        stored = None
+        if self.moment_dtype is not None:  # the math in f32 from upcasts
+            stored = mus, nus
+            mus, nus = [m.float() for m in mus], [v.float() for v in nus]
         # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
         torch._foreach_mul_(mus, ADAM_B1)
         torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - ADAM_B1))
@@ -138,11 +153,15 @@ class Optimizer:
         torch._foreach_div_(upd, denom)
         torch._foreach_mul_(upd, -lr)
         torch._foreach_add_(ps, upd)
+        if stored is not None:  # only the stored moments are rounded
+            torch._foreach_copy_(stored[0], mus)
+            torch._foreach_copy_(stored[1], nus)
 
 
 def make_optimizer(learning: LearningConfig, params: Mapping[str, torch.Tensor],
-                   freeze: FreezeFlags = NOTHING_FROZEN) -> Optimizer:
-    return Optimizer(learning, freeze_label_tree(params, freeze))
+                   freeze: FreezeFlags = NOTHING_FROZEN,
+                   moment_dtype: torch.dtype | None = None) -> Optimizer:
+    return Optimizer(learning, freeze_label_tree(params, freeze), moment_dtype)
 
 
 @dataclasses.dataclass
@@ -156,11 +175,13 @@ def init_train_state(
     model: nn.Module,
     learning: LearningConfig,
     freeze: FreezeFlags = NOTHING_FROZEN,
+    moment_dtype: torch.dtype | None = None,
 ) -> tuple[TrainState, Optimizer]:
     """Wrap a built model (its weights seeded or loaded) into a TrainState,
-    with ``requires_grad`` on exactly the trained parameters."""
+    with ``requires_grad`` on exactly the trained parameters and Adam's
+    moments in ``moment_dtype`` (None: f32)."""
     params = dict(model.named_parameters())
-    optimizer = make_optimizer(learning, params, freeze)
+    optimizer = make_optimizer(learning, params, freeze, moment_dtype)
     for name, p in params.items():
         p.requires_grad_(optimizer.labels[name] == "train")
     return TrainState(0, model, optimizer.init(params)), optimizer

@@ -17,6 +17,28 @@ from pointcloudprocessing_tpu_torch.utils import native
 WIDTH = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_library(tmp_path_factory):
+    """The JAX package's native library, built by this module alone.
+
+    The JAX loader compiles onto the shared ``native/libpcp_native.so``,
+    and the linker rewrites that file in place. Under a parallel run one
+    worker may load it while another worker's build is still writing it:
+    ``ctypes`` then raises, and the loader records the failure for the
+    rest of that worker's life, so every JAX native entry returns None.
+    Here the JAX loader builds (with its own flags) into a directory of
+    this module's own, which no other process writes, and its ``_lib`` is
+    that library while the module runs; the loader's state comes back
+    afterwards."""
+    so = tmp_path_factory.mktemp("jax_native") / "libpcp_native.so"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", str(so))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_build_failed", False)
+        if native.native_available():
+            assert jax_native.native_available(), "the JAX native library did not build"
+        yield
+
 
 @pytest.fixture
 def with_native():

@@ -208,10 +208,12 @@ def test_guards(tmp_path):
     json.dump(config, open(path, "w"))
     with pytest.raises(RuntimeError, match="has no data"):
         TrainProfile(path, log_to_file=False, device="cpu").train()
+    # the dtype keys take the JAX package's names (bf16 configs train:
+    # tests/test_torch_bf16_train.py); any other name raises
     for key in ("compute_dtype", "optimizer_moment_dtype"):
-        with pytest.raises(NotImplementedError, match=key):
+        with pytest.raises(ValueError, match=key):
             TrainProfile(make_config(tmp_path, stages=("final",), name=key,
-                                     **{key: "bfloat16"}), log_to_file=False,
+                                     **{key: "float16"}), log_to_file=False,
                          device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
