@@ -4,7 +4,9 @@ NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
 the PointNet training step, the preprocess with windowed PCA normals, DGCNN
 inference, PointNet++ inference and serving at a scan width that takes
 the any-rank segment sum, the staged trainer from AFTR frames to
-checkpoints for all three model families, and the bf16 compute path.
+checkpoints for all three model families, the bf16 compute path, and
+synthesized LiDAR frames trained on, with hidden-point removal, ICP, the
+legacy models and the hyperparameter grid.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -141,9 +143,28 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    config with ``compute_dtype`` and ``optimizer_moment_dtype`` bfloat16
    through the CLI over phase 10's collects, and ``serve`` over its stage;
    ``graft_entry.entry()`` on the card.
+12. synthesis, legacy models, ops, grid: (a) the kc46 config's four
+   collects synthesized from ``kc46_like_mesh`` by ``MeshSampler`` at
+   ``examples/make_kc46_like_data.py``'s settings (20,000 dense points,
+   frames of 8,192; 16 frames a collect), frames/s and Qhull's share;
+   ``write_collect``; the config's ``final`` stage for 2 epochs on them
+   through the CLI in a subprocess that reports its launch counts: exit 0,
+   finite history, kernels 4 and 5 at phase 6 case A's rate a train step.
+   (b) ``hidden_point_removal_mask`` on 64 of those frames from their
+   viewpoints against a CPU copy (equal but within one ulp of a window
+   edge), device ms. (c) ICP, 8,192 vs 8,192 points, 5 deg / 0.2 m, 20
+   iterations: rmse < 1e-4, R and t within 1e-4 of the CPU copy's; ms an
+   iteration. (d) ``PointNetClassifier(23)`` at 32x1024, 10 steps of the
+   classifier example's step (the loss falls), its eval forward within
+   1e-4 of a CPU copy; ``TNetRegressor`` on ``random_so3_rotation``
+   batches (the MSE falls, det 1 within 1e-5); clouds/s. (e) ``run_grid``
+   at full width (23/12, 32x1024, vanilla, 3x3 grid, 4 steps a cell):
+   finite histories, kernels 4 and 5 counted against the route's rule (36
+   each), ``HyperTune`` over the result; seconds a cell.
 
 The second-to-last line is a JSON object with each of the seven kernels'
-and the three bf16 forms' launches on their paths, error against the plain
+and the three bf16 forms' launches on their paths (kernels 4 and 5 count
+phase 12's CLI run and grid too), error against the plain
 version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
 function, where there is one) are device times from ``torch.profiler``, or
@@ -3100,6 +3121,405 @@ def phase_bf16(torch, rng, trained: dict, dgcnn: dict, pn2: dict,
                          "gather": dg["launches"]}}
 
 
+# --------------------------- phase 12: synthesis, legacy models, ops, the grid
+
+#: examples/make_kc46_like_data.py's settings: the dense surface sample and
+#: the frame width; frames a collect here (the example makes 2,400)
+SYNTH_DENSE, SYNTH_PAD, SYNTH_FRAMES = 20_000, 8_192, 16
+#: the CLI run on the synthesized collects, in a fresh process whose launch
+#: counts start at 0; it prints them after the run
+COUNTED_CLI = """
+import json, runpy, sys
+from pointcloudprocessing_tpu_torch.ops.cuda import pooled_chain
+code = 0
+try:
+    runpy.run_module("pointcloudprocessing_tpu_torch.train.cli", run_name="__main__")
+except SystemExit as exit_:
+    code = exit_.code
+print("LAUNCHES " + json.dumps({"fwd": pooled_chain.pooled_chain_forward.launches,
+                                "bwd": pooled_chain.pooled_chain_backward.launches}))
+sys.exit(code)
+"""
+#: phase 12's device; a CPU rehearsal sets it to "cpu" with smaller sizes
+PHASE12_DEVICE = "cuda"
+GRID_STEPS, LEGACY_STEPS = 4, 10
+
+
+def sync(torch) -> None:
+    if PHASE12_DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed_qhull(spent: list):
+    """``scipy.spatial.ConvexHull`` timed while the block runs: each call's
+    seconds are appended to ``spent``."""
+    import scipy.spatial
+
+    real = scipy.spatial.ConvexHull
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        hull = real(*args, **kwargs)
+        spent.append(time.perf_counter() - t0)
+        return hull
+    with patched(scipy.spatial, "ConvexHull", timed):
+        yield spent
+
+
+def synthesize_collects(root: str) -> dict:
+    """The kc46 config's collects from the procedural KC-46-like mesh, as
+    ``examples/make_kc46_like_data.py`` makes them (a sampler a collect,
+    seeded 42 + 1000 c; 20,000 dense points, frames of 8,192), with
+    ``SYNTH_FRAMES`` frames each, written by ``write_collect``."""
+    from pointcloudprocessing_tpu_torch.synthesis import MeshSampler, write_collect
+    from pointcloudprocessing_tpu_torch.synthesis.procedural import kc46_like_mesh
+
+    with open(os.path.join(REPO, KC46_CONFIG)) as f:
+        stage = next(iter(json.load(f)["info"]["training_profiles"].values()))
+    names = list(stage["datasets"].values())
+    mesh, triangle_parts = kc46_like_mesh()
+    out = {"names": names, "obs": [], "pos": [], "qhull": []}
+    synth_s = write_s = 0.0
+    with timed_qhull(out["qhull"]):
+        for c, name in enumerate(names):
+            t0 = time.perf_counter()
+            sampler = MeshSampler(None, "kc-46", mesh=mesh, random_seed=42 + 1000 * c,
+                                  device=PHASE12_DEVICE)
+            obs, parts, pos, dcms = sampler.create_labeled_viewpoint_observations(
+                n=SYNTH_FRAMES, p=SYNTH_DENSE, pad=SYNTH_PAD,
+                triangle_parts=triangle_parts)
+            synth_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            write_collect(os.path.join(root, "input", name), obs, "kc-46", parts,
+                          dcms=dcms, positions=pos, fast=True)
+            write_s += time.perf_counter() - t0
+            if obs.shape != (SYNTH_FRAMES, SYNTH_PAD, 3) or not np.isfinite(obs).all() \
+                    or dcms.dtype != np.float32:
+                raise AssertionError(f"synthesis: observations {obs.shape}, dcms "
+                                     f"{dcms.dtype}")
+            out["obs"].append(obs)
+            out["pos"].append(pos)
+    frames = len(names) * SYNTH_FRAMES
+    qhull_s = sum(out["qhull"])
+    log(f"[12 synthesis] {len(names)} collects x {SYNTH_FRAMES} frames of {SYNTH_PAD} "
+        f"points from kc46_like_mesh ({SYNTH_DENSE} dense points, "
+        f"MeshSampler.create_labeled_viewpoint_observations): {synth_s:.2f} s, "
+        f"{frames / synth_s:.2f} frames/s, Qhull {qhull_s:.2f} s of it "
+        f"({qhull_s / synth_s:.4f}, {len(out['qhull'])} hulls); write_collect "
+        f"{write_s:.2f} s")
+    out["frames_per_s"], out["qhull_share"] = frames / synth_s, qhull_s / synth_s
+    return out
+
+
+def synth_training(torch, root: str, synth: dict, trained: dict) -> dict:
+    """(a) the kc46 config's ``final`` stage for 2 epochs on the synthesized
+    collects through the CLI (``python -m ...train.cli`` by ``runpy``, in a
+    subprocess that prints its launch counts): exit 0, finite histories,
+    kernels 4 and 5 launching as phase 6 counts for the same freeze flags."""
+    from pointcloudprocessing_tpu_torch.data.pointcloudset import load_from_file
+
+    with open(os.path.join(REPO, KC46_CONFIG)) as f:
+        kc46 = json.load(f)
+    name, batch = kc46["info"]["name"], kc46["params"]["batch_size"]
+    stage = "final"
+    cfg_path = trainer_config(root, synth["names"], "models", epochs=2, stages=[stage])
+    extra = [] if PHASE12_DEVICE == "cuda" else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    # ---- the main path (the CLI on synthesized frames): a fresh process,
+    # its counts 0 at the start, printed at its end
+    run = subprocess.run([sys.executable, "-c", COUNTED_CLI, cfg_path, *extra],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    # ---- the main path ends here
+    cli_s = time.perf_counter() - t0
+    if run.returncode != 0 or "Model training completed successfully." not in run.stdout:
+        raise AssertionError(f"synthesis CLI exited {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    launches = json.loads(next(line for line in run.stdout.splitlines()
+                               if line.startswith("LAUNCHES "))[len("LAUNCHES "):])
+    stage_dir = os.path.join(root, "models", name, stage)
+    with open(os.path.join(stage_dir, f"{name}_{stage}_history.json")) as f:
+        hist = json.load(f)
+    check_histories("synthesis CLI", hist, None, 2, {})
+    pc = load_from_file(os.path.join(root, "data", f"{name}_{stage}", "pc_set.joblib"))
+    counts = {s: pc.split_count(s) for s in ("train", "val", "test")}
+    if sum(counts.values()) != len(synth["names"]) * SYNTH_FRAMES:
+        raise AssertionError(f"synthesis CLI: ingested {counts}")
+    train_steps = 2 * (counts["train"] // batch)
+    per_step = {k: trained["A"]["launches"][k] / trained["A"]["steps"]
+                for k in ("fwd", "bwd")}
+    want = {k: train_steps * per_step[k] for k in ("fwd", "bwd")}
+    if launches != want:
+        raise AssertionError(f"synthesis CLI: pooled launches {launches}, want {want} "
+                             f"({train_steps} train steps x phase 6 case A's rate)")
+    log(f"[12 synthesis] CLI kc46 stage {stage} on the synthesized collects "
+        f"({batch}x{kc46['params']['input_width']}, 2 epochs; splits {counts}): "
+        f"exit 0 in {cli_s:.1f} s; history with the 14 Keras keys, finite; loss "
+        f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}, val segmentation accuracy "
+        f"{hist['val_segmentation_output_sparse_categorical_accuracy'][-1]:.4f}; "
+        f"pooled launches {launches['fwd']} / {launches['bwd']} = {train_steps} "
+        f"train steps x {per_step['fwd']:g} / {per_step['bwd']:g} (phase 6 case A, "
+        f"the same freeze flags; val steps take the running-statistics route)")
+    return launches
+
+
+def hpr_mask_on_card(torch, synth: dict) -> None:
+    """(b) ``hidden_point_removal_mask`` on 64 of the synthesized frames and
+    their viewpoints, against the same call on a CPU copy: equal but for
+    points whose distance lies within one f32 ulp of their bin's (1 + tol)
+    window edge (counted)."""
+    from pointcloudprocessing_tpu_torch.ops import hpr
+
+    grid, tol = 64, 0.05
+    pts = torch.tensor(np.concatenate(synth["obs"])[:64], dtype=torch.float32)
+    cams = torch.tensor(np.concatenate(synth["pos"])[:64], dtype=torch.float32)
+    want = hpr.hidden_point_removal_mask(pts, cams, grid=grid, tol=tol)
+    pd, cd = pts.to(PHASE12_DEVICE), cams.to(PHASE12_DEVICE)
+    got = hpr.hidden_point_removal_mask(pd, cd, grid=grid, tol=tol)
+    sync(torch)
+    # each point's distance against its bin's window edge, on the CPU
+    rel = pts - cams[:, None]
+    r = hpr._norm3(rel)
+    bins = hpr._octahedral_bins(rel / torch.clamp(r, min=1e-12)[..., None], grid).long()
+    nearest = torch.full((pts.shape[0], grid * grid), float("inf")).scatter_reduce(
+        1, bins, r, "amin")
+    edge = nearest.gather(1, bins) * (1.0 + tol)
+    at_edge = (r - edge).abs() <= torch.nextafter(r, torch.tensor(float("inf"))) - r
+    diff = got.cpu() != want
+    if bool((diff & ~at_edge).any()):
+        raise AssertionError(f"hpr mask: {int((diff & ~at_edge).sum())} points differ "
+                             "from the CPU copy away from the window edge")
+    ms = device_ms(torch, lambda: hpr.hidden_point_removal_mask(pd, cd, grid=grid, tol=tol),
+                   5) if PHASE12_DEVICE == "cuda" else None
+    log(f"[12 hpr] hidden_point_removal_mask on {tuple(pts.shape)} synthesized frames "
+        f"(their viewpoints, grid {grid}, tol {tol}): equal to the CPU copy but "
+        f"{int(diff.sum())} points ({int(at_edge.sum())} lie within one ulp of their "
+        f"window edge); {float(want.float().mean()):.4f} of points visible; device ms a "
+        f"batch {fmt(ms)}")
+
+
+def icp_on_card(torch) -> None:
+    """(c) ICP, 8,192 source points against 8,192 target points (a seeded
+    uniform 4 m box) under a known 5 degree / 0.2 m transform, 20
+    iterations: rmse under 1e-4, R and t within 1e-4 of the truth's
+    recovery on the CPU copy."""
+    from pointcloudprocessing_tpu_torch.ops.icp import icp
+
+    axis = np.array([1.0, 2.0, 2.0]) / 3.0
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                  [-axis[1], axis[0], 0]])
+    theta = np.deg2rad(5.0)
+    r_true = np.eye(3) + np.sin(theta) * k + (1 - np.cos(theta)) * k @ k
+    t_true = 0.2 * axis
+    target = np.random.default_rng(12).uniform(-2, 2, (8192, 3)).astype(np.float32)
+    source = ((target - t_true) @ r_true).astype(np.float32)
+    src, tgt = (torch.tensor(a, device=PHASE12_DEVICE) for a in (source, target))
+    r, t, rmse = icp(src, tgt, iterations=20, device=PHASE12_DEVICE)
+    sync(torch)
+    r_cpu, t_cpu, rmse_cpu = icp(source, target, iterations=20, device="cpu")
+    err_r = (r.cpu() - r_cpu).abs().max().item()
+    err_t = (t.cpu() - t_cpu).abs().max().item()
+    if not (float(rmse) < 1e-4 and err_r <= 1e-4 and err_t <= 1e-4):
+        raise AssertionError(f"icp: rmse {float(rmse)}, R {err_r} and t {err_t} from "
+                             "the CPU copy's")
+    truth = max(np.abs(r.cpu().numpy() - r_true).max(), np.abs(t.cpu().numpy() - t_true).max())
+    if PHASE12_DEVICE == "cuda":
+        ms = device_ms(torch, lambda: icp(src, tgt, iterations=20), 1)
+        wall = call_ms(torch, lambda: icp(src, tgt, iterations=20), 1, repeats=3)
+        timing = f"device ms an iteration {fmt(None if ms is None else ms / 20)}, " \
+                 f"wall {wall / 20:.4f}"
+    else:
+        timing = "not timed"
+    log(f"[12 icp] 8192 vs 8192 points, 5 deg / 0.2 m, 20 iterations: rmse "
+        f"{float(rmse):.3e} (CPU copy {float(rmse_cpu):.3e}); R, t within {err_r:.2e}, "
+        f"{err_t:.2e} of the CPU copy's and {truth:.2e} of the truth; {timing}")
+
+
+def shape_batch(rng, b: int, n: int):
+    """``examples/classifier_example.py``'s clouds: random sphere, cube and
+    cylinder surfaces, and their class (0, 1, 2)."""
+    kinds = rng.integers(0, 3, b)
+    clouds = np.empty((b, n, 3), np.float32)
+    for i, kind in enumerate(kinds):
+        if kind == 0:
+            v = rng.normal(size=(n, 3))
+            clouds[i] = v / np.linalg.norm(v, axis=1, keepdims=True)
+        elif kind == 1:
+            face, sign = rng.integers(0, 3, n), rng.choice([-1.0, 1.0], n)
+            pts = rng.uniform(-1, 1, (n, 3))
+            pts[np.arange(n), face] = sign
+            clouds[i] = pts
+        else:
+            theta = rng.uniform(0, 2 * np.pi, n)
+            clouds[i] = np.stack([np.cos(theta), np.sin(theta), rng.uniform(-1, 1, n)], 1)
+    return clouds, kinds
+
+
+def legacy_models(torch, b: int = 32, n: int = 1024) -> None:
+    """(d) ``PointNetClassifier(23)`` at b x n: 10 steps of the classifier
+    example's step (Adam eps 1e-7, sparse cross-entropy, dropout 0.3) on one
+    batch, the loss falling; the eval forward within 1e-4 of a CPU copy;
+    ``TNetRegressor``: 10 steps on ``random_so3_rotation`` batches, the MSE
+    falling, every det within 1e-5 of 1. Clouds/s of both steps (steps 2 to
+    10)."""
+    from pointcloudprocessing_tpu_torch.models.classifier import (
+        PointNetClassifier,
+        TNetRegressor,
+    )
+    from pointcloudprocessing_tpu_torch.ops.augment import random_so3_rotation
+    from pointcloudprocessing_tpu_torch.train.losses import sparse_categorical_crossentropy
+    from pointcloudprocessing_tpu_torch.train.steps import adam
+
+    dev = PHASE12_DEVICE
+    rng = np.random.default_rng(4)
+    clouds, kinds = shape_batch(rng, b, n)
+    x, y = torch.tensor(clouds, device=dev), torch.tensor(kinds, device=dev)
+
+    def train(model, loss_fn):
+        params = dict(model.named_parameters())
+        opt = adam(1e-3)
+        state = opt.init(params)
+        losses = []
+        for step in range(LEGACY_STEPS):
+            if step == 1:  # the rate leaves out the first step's warm-up
+                sync(torch)
+                t0 = time.perf_counter()
+            model.zero_grad(set_to_none=True)
+            loss = loss_fn(step)
+            loss.backward()
+            opt.update_(params, state)
+            losses.append(loss.detach())
+        sync(torch)
+        rate = (LEGACY_STEPS - 1) * b / (time.perf_counter() - t0)
+        losses = [float(v) for v in losses]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"legacy {type(model).__name__}: loss {losses}")
+        return losses, rate
+
+    clf = PointNetClassifier(NUM_CLASSES, generator=torch.Generator().manual_seed(0),
+                             device=dev).train()
+    dropout_g = torch.Generator(device=dev).manual_seed(0)
+    losses, rate = train(clf, lambda _: sparse_categorical_crossentropy(
+        clf(x, train=True, generator=dropout_g), y).mean())
+    clf.eval()
+    with torch.no_grad():
+        got = clf(x).cpu()
+        twin = PointNetClassifier(NUM_CLASSES, device="cpu")
+        twin.load_state_dict({k: v.cpu() for k, v in clf.state_dict().items()})
+        want = twin.eval()(x.cpu())
+    err = (got - want).abs().max().item()
+    if err > 1e-4:
+        raise AssertionError(f"legacy classifier: eval forward {err} from the CPU copy")
+    log(f"[12 legacy] PointNetClassifier({NUM_CLASSES}) at {b}x{n}: {LEGACY_STEPS} "
+        f"steps (Adam eps 1e-7, sparse cross-entropy, dropout 0.3) loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, {rate:.1f} clouds/s; eval forward "
+        f"within {err:.2e} of a CPU copy (bar 1e-4)")
+
+    reg = TNetRegressor(generator=torch.Generator().manual_seed(1), device=dev).train()
+    rot_g = torch.Generator(device=dev).manual_seed(1)
+    dets = []
+
+    def mse(_):
+        rots = random_so3_rotation(rot_g, (b,), device=dev)
+        dets.append(torch.linalg.det(rots).detach())
+        return torch.mean(torch.square(reg(x @ rots, train=True) - rots.transpose(-1, -2)))
+
+    losses, rate = train(reg, mse)
+    det_err = torch.stack(dets).sub(1.0).abs().max().item()
+    if det_err > 1e-5:
+        raise AssertionError(f"random_so3_rotation: det {det_err} from 1")
+    log(f"[12 legacy] TNetRegressor at {b}x{n}: {LEGACY_STEPS} steps on "
+        f"random_so3_rotation batches, MSE {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"{rate:.1f} clouds/s; every det within {det_err:.1e} of 1")
+
+
+def grid_batches(rng, b: int, n: int):
+    """Train and val batches for the grid: class c shifts x by 3c, a point's
+    part is its azimuth sector; se3 targets the identity."""
+    def make():
+        x = rng.normal(size=(b, n, 3)).astype(np.float32)
+        cls = rng.integers(0, NUM_CLASSES, b).astype(np.int32)
+        x[:, :, 0] += cls[:, None] * 3.0
+        sector = (np.arctan2(x[..., 1], x[..., 2]) + np.pi) / (2 * np.pi) * NUM_PARTS
+        return x, {"classification_output": cls,
+                   "segmentation_output": np.minimum(sector.astype(np.int32), NUM_PARTS - 1),
+                   "se3": np.tile(np.eye(3, dtype=np.float32), (b, 1, 1))}
+    return make(), make()
+
+
+def grid_on_card(torch, b: int = 32, n: int = 1024) -> dict:
+    """(e) ``run_grid`` at full width (23/12, vanilla, the 3x3 grid, 1 epoch
+    of ``GRID_STEPS`` steps a cell): finite histories with the notebook's
+    keys, kernels 4 and 5 counted (once a train step each for the one
+    chain; eval steps run without autograd, where the running-statistics
+    chain takes the plain forward and no kernel), and HyperTune over it."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward,
+        pooled_chain_forward,
+    )
+    from pointcloudprocessing_tpu_torch.train import hypertune
+
+    train, val = grid_batches(np.random.default_rng(5), b, n)
+    cells = len(hypertune.OPTIMIZERS) * len(hypertune.LEARNING_RATES)
+    pooled_chain_forward.launches = pooled_chain_backward.launches = 0
+    t0 = time.perf_counter()
+    # ---- the main path (the grid): counted launches
+    results = hypertune.run_grid(train, val, NUM_CLASSES, NUM_PARTS, n, epochs=1,
+                                 steps_per_epoch=GRID_STEPS, vanilla=True,
+                                 print_func=lambda *_: None, device=PHASE12_DEVICE)
+    sync(torch)
+    launches = {"fwd": pooled_chain_forward.launches, "bwd": pooled_chain_backward.launches}
+    # ---- the main path ends here
+    seconds = time.perf_counter() - t0
+    keys = {"loss", "val_loss", "val_classification_output_sparse_categorical_accuracy",
+            "val_segmentation_output_sparse_categorical_accuracy",
+            "val_root_mean_squared_error"}
+    if len(results) != cells or any(
+            set(h) != keys or not all(np.isfinite(v).all() and len(v) == 1
+                                      for v in h.values()) for h in results.values()):
+        raise AssertionError(f"grid: {len(results)} cells, histories {results}")
+    # the route's rule: the vanilla model's one chain launches kernels 4 and
+    # 5 once a train step (batch statistics); an eval step runs without
+    # autograd on running statistics, the plain forward, and launches neither
+    train_steps, val_steps = cells * GRID_STEPS, cells
+    rule = {"fwd": train_steps * 1 + val_steps * 0, "bwd": train_steps * 1}
+    if PHASE12_DEVICE != "cuda":
+        rule = {"fwd": 0, "bwd": 0}  # a CPU rehearsal runs the plain versions
+    if launches != rule:
+        raise AssertionError(f"grid: pooled launches {launches}, the rule says {rule}")
+    tune = hypertune.HyperTune("val_classification_output_sparse_categorical_accuracy")
+    tune.add_data({"Model": "vanilla", **results})
+    table, overview, latex = tune.get_table(), tune.get_overview(), tune.to_latex()
+    if list(overview) != list(results) or len(table["vanilla"]) != cells or \
+            latex.count("\\\\") != cells + 1:
+        raise AssertionError(f"grid: HyperTune over the grid: {overview}")
+    best = min(overview, key=lambda k: overview[k]["val_loss"])
+    log(f"[12 grid] run_grid vanilla {NUM_CLASSES}/{NUM_PARTS} at {b}x{n}, {cells} cells "
+        f"x 1 epoch of {GRID_STEPS} steps: {seconds:.1f} s, {seconds / cells:.2f} s a "
+        f"cell; histories finite with the notebook's 5 keys; pooled launches "
+        f"{launches['fwd']} / {launches['bwd']}, the rule's {rule['fwd']} / "
+        f"{rule['bwd']} ({train_steps} train steps x 1 chain + {val_steps} val steps "
+        f"x 0); HyperTune table, overview and LaTeX over {cells} configurations "
+        f"(lowest val_loss: {best}, {overview[best]['val_loss']:.4f})")
+    return launches
+
+
+def phase_synthesis(torch, trained: dict) -> dict:
+    """Phase 12: synthesis to training, HPR and ICP on the card, the legacy
+    models and the hyperparameter grid."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        synth = synthesize_collects(root)
+        cli = synth_training(torch, root, synth, trained)
+        hpr_mask_on_card(torch, synth)
+    icp_on_card(torch)
+    legacy_models(torch)
+    grid = grid_on_card(torch)
+    log(f"[12 synthesis] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {k: cli[k] + grid[k] for k in ("fwd", "bwd")},
+            "frames_per_s": synth["frames_per_s"]}
+
+
 def main() -> int:
     import torch
 
@@ -3139,9 +3559,11 @@ def main() -> int:
         trainer = phase_trainer(torch, rng, trained, trainer_root)
         log(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
         bf16 = phase_bf16(torch, rng, trained, dgcnn, pn2, trainer, trainer_root)
+    log(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
+    synthesis = phase_synthesis(torch, trained)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
-        + trainer["launches"][k] for k in ("fwd", "bwd")}
+        + trainer["launches"][k] + synthesis["launches"][k] for k in ("fwd", "bwd")}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None) -> dict:
@@ -3154,7 +3576,7 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
-    log(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-12 took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
               sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],

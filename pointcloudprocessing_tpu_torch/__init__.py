@@ -9,21 +9,27 @@ schema, constants, the native helpers' loader, the TFRecord codec, the
 dataset manager) are its own copies.
 
 - ``core``:   the config schema and constants.
-- ``ops``:    normalization, jitter, Morton keys, voxel downsample, FPS and
-              the stride sampler, kNN, PCA normals (exact and windowed),
-              row gathers; ``ops/cuda/`` binds the hand-written kernels in
+- ``ops``:    normalization, jitter and random rotations, Morton keys,
+              voxel downsample, FPS and the stride sampler, kNN, PCA
+              normals (exact and windowed), row gathers, fixed-width
+              resampling, SO(3)/SE(3) math, ICP, hidden-point removal;
+              ``ops/cuda/`` binds the hand-written kernels in
               ``csrc/`` (segment sum, FPS, pooled chain, window moments,
               gather max/min) and their plain versions.
 - ``models``: the multi-head PointNet (inference and train mode), its
               T-Nets and blocks, DGCNN (inference and train-mode forward),
-              ``model_from_config`` (on CUDA unless asked for the CPU) and
-              ``PointCloudPipeline`` (scans -> voxel -> sampler -> model).
+              ``model_from_config`` (on CUDA unless asked for the CPU),
+              ``PointCloudPipeline`` (scans -> voxel -> sampler -> model),
+              and the legacy classifier and T-Net regressor.
 - ``train``:  the losses, the single-device train, eval and predict steps
               for every family (Adam with freeze masks), the callbacks on
               torch checkpoints, the staged trainer ``TrainProfile`` and
-              its CLI (``python -m pointcloudprocessing_tpu_torch.train.cli``).
+              its CLI (``python -m pointcloudprocessing_tpu_torch.train.cli``),
+              and the optimizer-by-rate grid (``train/hypertune.py``).
 - ``data``:   AftrBurner frames and pose logs, the TFRecord codec,
               ``PointCloudSet`` (ingest, splits) and the batch loaders.
+- ``synthesis``: meshes, procedural shapes, viewpoint observations with
+              hidden-point removal (``MeshSampler``) and collect writing.
 - ``utils``:  the loader of the repo's C++ runtime helpers, and the
               profiling hooks.
 - ``convert``: Flax variables <-> PyTorch ``state_dict``.

@@ -13,7 +13,8 @@ channels at dim 1, and its running variance is the unbiased one) with
 Flax's conventions: in train mode a block that is not frozen normalizes by
 the batch's mean and biased variance ``E[x^2] - E[x]^2``, clamped at 0,
 over every axis but the last, and then updates its running statistics in
-place as ``m * old + (1 - m) * batch`` with m = 0.99. A frozen block uses
+place as ``m * old + (1 - m) * batch`` with m = 0.99 (a block's
+``bn_momentum``). A frozen block uses
 its running statistics even in train mode and never updates them, as Keras
 ``trainable=False`` does.
 
@@ -108,12 +109,14 @@ class BatchNorm(nn.Module):
     """BatchNorm over the last axis:
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, Flax's order, with
     the running statistics or (``use_running=False``) the batch's own, in
-    f32; the result is rounded to ``dtype`` where one is set."""
+    f32; the result is rounded to ``dtype`` where one is set. ``momentum``
+    is the running statistics' EMA factor (Keras's 0.99 by default)."""
 
-    def __init__(self, features: int, *, device=None,
-                 dtype: torch.dtype | None = None):
+    def __init__(self, features: int, *, momentum: float = KERAS_BN_MOMENTUM,
+                 device=None, dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
@@ -136,7 +139,7 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """``running = m * running + (1 - m) * batch``, in place."""
-        m = KERAS_BN_MOMENTUM
+        m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
@@ -150,6 +153,7 @@ class PointwiseBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, apply_bn: bool = True,
                  activation: Optional[str] = "relu", *,
+                 bn_momentum: float = KERAS_BN_MOMENTUM,
                  generator: torch.Generator | None = None, device=None,
                  dtype: torch.dtype | None = None):
         super().__init__()
@@ -157,7 +161,8 @@ class PointwiseBlock(nn.Module):
             in_features, features, bias=not apply_bn, generator=generator,
             device=device, dtype=dtype,
         ))
-        self.bn = BatchNorm(features, device=device, dtype=dtype) if apply_bn else None
+        self.bn = BatchNorm(features, momentum=bn_momentum, device=device,
+                            dtype=dtype) if apply_bn else None
         self.activation = activation
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
@@ -176,10 +181,12 @@ class DenseBlock(PointwiseBlock):
 
     def __init__(self, in_features: int, features: int, apply_bn: bool = False,
                  activation: Optional[str] = None, *,
+                 bn_momentum: float = KERAS_BN_MOMENTUM,
                  generator: torch.Generator | None = None, device=None,
                  dtype: torch.dtype | None = None):
         super().__init__(in_features, features, apply_bn, activation,
-                         generator=generator, device=device, dtype=dtype)
+                         bn_momentum=bn_momentum, generator=generator,
+                         device=device, dtype=dtype)
 
 
 class _SplitKernelDense(nn.Module):
@@ -249,13 +256,14 @@ class PooledPointwiseBlock(nn.Module):
     and ``bn``. The pooled output is f32 in either dtype."""
 
     def __init__(self, in_features: int, features: int, *,
+                 bn_momentum: float = KERAS_BN_MOMENTUM,
                  generator: torch.Generator | None = None, device=None,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         self.conv = Dense(in_features, features, bias=False,
                           generator=generator, device=device)
-        self.bn = BatchNorm(features, device=device)
+        self.bn = BatchNorm(features, momentum=bn_momentum, device=device)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 frozen: bool = False) -> torch.Tensor:

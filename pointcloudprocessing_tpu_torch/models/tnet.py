@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pointcloudprocessing_tpu_torch.core.constants import KERAS_BN_MOMENTUM
 from pointcloudprocessing_tpu_torch.models.layers import (
     DenseBlock,
     PointwiseBlock,
@@ -50,6 +51,7 @@ class TNet(nn.Module):
         conv_activation: Optional[str] = "relu",
         w_init_zeros: bool = False,
         *,
+        bn_momentum: float = KERAS_BN_MOMENTUM,
         generator: torch.Generator | None = None,
         device=None,
         dtype: torch.dtype | None = None,
@@ -59,7 +61,8 @@ class TNet(nn.Module):
         self.k = k
         self.dtype = dtype
         self.add_regularization = add_regularization
-        kw = dict(generator=generator, device=device, dtype=dtype)
+        kw = dict(bn_momentum=bn_momentum, generator=generator, device=device,
+                  dtype=dtype)
         self.conv_layer_1 = PointwiseBlock(k, w[0], conv_apply_bn, conv_activation, **kw)
         self.conv_layer_2 = PointwiseBlock(w[0], w[1], conv_apply_bn, conv_activation, **kw)
         self.pooled = conv_apply_bn and conv_activation == "relu"

@@ -12,6 +12,9 @@
   nu can stall: with b2 = 0.999 an EMA step (~1e-3 of nu) is under half a
   bf16 ulp (~4e-3), so nu may stick and follow a decaying gradient scale
   poorly; keep nu in f32 if a run's quality drops.
+- The hyperparameter grid's optimizers: :func:`sgd`, :func:`adagrad` and
+  :func:`adam` are optax's at a constant rate, over every parameter with
+  ``requires_grad``, with the same ``init`` / ``update_`` interface.
 - Freeze/thaw: a stage's switches label each top-level submodule "train" or
   "freeze" by its name (``input_transform``, ``feature_transform``,
   ``mlp_cls*``, ``mlp_seg*``; everything else, ``mlp_1_*``, ``sa*``,
@@ -125,43 +128,136 @@ class Optimizer:
         bound the step on the host."""
         lr = float(self.learning_rate(state.count))
         state.count += 1
-        bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(state.count))
-        bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(state.count))
         names = list(state.mu)
         if not names:
             return
         ps = [params[n] for n in names]
-        grads = [p.grad for p in ps]
         mus = [state.mu[n] for n in names]
         nus = [state.nu[n] for n in names]
         stored = None
         if self.moment_dtype is not None:  # the math in f32 from upcasts
             stored = mus, nus
             mus, nus = [m.float() for m in mus], [v.float() for v in nus]
-        # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(mus, ADAM_B1)
-        torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - ADAM_B1))
-        sq = torch._foreach_mul(grads, grads)
-        torch._foreach_mul_(sq, 1.0 - ADAM_B2)
-        torch._foreach_mul_(nus, ADAM_B2)
-        torch._foreach_add_(nus, sq)
-        # p += -lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
-        denom = torch._foreach_div(nus, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, ADAM_EPS)
-        upd = torch._foreach_div(mus, bc1)
-        torch._foreach_div_(upd, denom)
-        torch._foreach_mul_(upd, -lr)
-        torch._foreach_add_(ps, upd)
+        _adam_step_(ps, mus, nus, state.count, lr)
         if stored is not None:  # only the stored moments are rounded
             torch._foreach_copy_(stored[0], mus)
             torch._foreach_copy_(stored[1], nus)
+
+
+@torch.no_grad()
+def _adam_step_(ps: list, mus: list, nus: list, count: int, lr: float) -> None:
+    """``p += -lr * (mu_hat / (sqrt(nu_hat) + eps))`` from each ``p.grad``,
+    with the moments updated in place, in optax's operations and order
+    (``count`` is the step count after its increment)."""
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(count))
+    grads = [p.grad for p in ps]
+    # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+    torch._foreach_mul_(mus, ADAM_B1)
+    torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - ADAM_B1))
+    sq = torch._foreach_mul(grads, grads)
+    torch._foreach_mul_(sq, 1.0 - ADAM_B2)
+    torch._foreach_mul_(nus, ADAM_B2)
+    torch._foreach_add_(nus, sq)
+    # p += -lr * (mu / bc1) / (sqrt(nu / bc2) + eps)
+    denom = torch._foreach_div(nus, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, ADAM_EPS)
+    upd = torch._foreach_div(mus, bc1)
+    torch._foreach_div_(upd, denom)
+    torch._foreach_mul_(upd, -lr)
+    torch._foreach_add_(ps, upd)
 
 
 def make_optimizer(learning: LearningConfig, params: Mapping[str, torch.Tensor],
                    freeze: FreezeFlags = NOTHING_FROZEN,
                    moment_dtype: torch.dtype | None = None) -> Optimizer:
     return Optimizer(learning, freeze_label_tree(params, freeze), moment_dtype)
+
+
+# ---- optax's plain optimizers at a constant rate (the hyperparameter grid's)
+
+ADAGRAD_INITIAL_ACCUMULATOR, ADAGRAD_EPS = 0.1, 1e-7  # optax.adagrad's defaults
+
+
+@dataclasses.dataclass
+class PlainState:
+    """A constant-rate optimizer's step count and its per-parameter slots
+    (``slots[k][name]``: Adagrad's sum of squares, Adam's two moments)."""
+
+    count: int
+    slots: tuple[dict[str, torch.Tensor], ...]
+
+
+class _ConstantRate:
+    """An optax optimizer at a constant rate over every parameter that has
+    ``requires_grad`` (``init_train_state`` sets it on the trained ones),
+    with ``Optimizer``'s interface: ``init(params)`` and ``update_(params,
+    state)`` from each parameter's ``.grad``, in ``_foreach`` ops."""
+
+    initial_slots: tuple[float, ...] = ()
+
+    def __init__(self, lr: float):
+        self.lr = float(lr)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> PlainState:
+        trained = [n for n, p in params.items() if p.requires_grad]
+        return PlainState(0, tuple(
+            {n: torch.full_like(params[n], v) for n in trained}
+            for v in self.initial_slots))
+
+    @torch.no_grad()
+    def update_(self, params: Mapping[str, torch.Tensor], state: PlainState) -> None:
+        state.count += 1
+        names = [n for n, p in params.items() if p.requires_grad]
+        if names:
+            ps = [params[n] for n in names]
+            self._step_(ps, [[slot[n] for n in names] for slot in state.slots],
+                        state.count)
+
+    def _step_(self, ps: list, slots: list, count: int) -> None:
+        raise NotImplementedError
+
+
+class SGD(_ConstantRate):
+    """``optax.sgd(lr)`` with no momentum: ``p += g * -lr``."""
+
+    def _step_(self, ps, slots, count):
+        torch._foreach_add_(ps, torch._foreach_mul([p.grad for p in ps], -self.lr))
+
+
+class Adagrad(_ConstantRate):
+    """``optax.adagrad(lr)``: the sum of squares starts at 0.1, and the
+    update is ``g / sqrt(sum + 1e-7)`` where ``sum > 0``, 0 elsewhere
+    (``scale_by_rss``), times ``-lr``. Not ``torch.optim.Adagrad``, which
+    starts at 0 and adds eps outside the root."""
+
+    initial_slots = (ADAGRAD_INITIAL_ACCUMULATOR,)
+
+    def _step_(self, ps, slots, count):
+        (sums,) = slots
+        grads = [p.grad for p in ps]
+        torch._foreach_add_(sums, torch._foreach_mul(grads, grads))
+        inv = torch._foreach_add(sums, ADAGRAD_EPS)
+        torch._foreach_sqrt_(inv)
+        torch._foreach_reciprocal_(inv)
+        torch._foreach_mul_(inv, torch._foreach_sign(sums))  # 0 where sum == 0
+        upd = torch._foreach_mul(inv, grads)
+        torch._foreach_mul_(upd, -self.lr)
+        torch._foreach_add_(ps, upd)
+
+
+class Adam(_ConstantRate):
+    """``optax.adam(lr, eps=1e-7)``: Keras's epsilon, no decay schedule."""
+
+    initial_slots = (0.0, 0.0)
+
+    def _step_(self, ps, slots, count):
+        _adam_step_(ps, slots[0], slots[1], count, self.lr)
+
+
+# optax's names: ``sgd(lr)``, ``adagrad(lr)``, ``adam(lr)``
+sgd, adagrad, adam = SGD, Adagrad, Adam
 
 
 @dataclasses.dataclass
