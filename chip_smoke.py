@@ -4,9 +4,10 @@ NVIDIA GPU: the serving slice voxel -> FPS / stride -> multi-head PointNet,
 the PointNet training step, the preprocess with windowed PCA normals, DGCNN
 inference, PointNet++ inference and serving at a scan width that takes
 the any-rank segment sum, the staged trainer from AFTR frames to
-checkpoints for all three model families, the bf16 compute path, and
+checkpoints for all three model families, the bf16 compute path,
 synthesized LiDAR frames trained on, with hidden-point removal, ICP, the
-legacy models and the hyperparameter grid.
+legacy models and the hyperparameter grid, and the trained stages leaving
+the port as ``.pt2`` and ONNX artifacts, with the sensor toolkit.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -121,7 +122,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    step, with kernels 4 and 5 launching as often a step as phase 6 counts
    for the same freeze flags (counted launches); the trainer's train
    steps/s beside phase 6's bare step, val steps/s, the seconds an epoch
-   takes, and the busy share over one epoch; ``serve.main --model
+   takes, and the busy share over one epoch and its stage-end export
+   (the export's seconds beside it); ``serve.main --model
    <stage>`` answers scans from the trainer's checkpoint. PointNet++ and
    DGCNN train one stage of 2 epochs at 8x8192 through the same trainer
    (FPS twice a forward; kernel 7 four times a DGCNN val forward, counted;
@@ -161,10 +163,31 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    at full width (23/12, 32x1024, vanilla, 3x3 grid, 4 steps a cell):
    finite histories, kernels 4 and 5 counted against the route's rule (36
    each), ``HyperTune`` over the result; seconds a cell.
+13. export and toolkit: (a) every stage phases 10 and 11 trained to its end
+   (phase 12 checks its own) holds ``{name}_{stage}.pt2`` and ``.onnx``
+   (the trainer's end-of-stage export, PointNet++'s FPS a ``while_loop`` in
+   the program; its seconds from the trainer's log). For the PointNet (CLI), PointNet++
+   and DGCNN stages (23/12, 8,192 points), on the stage's 8 test clouds:
+   the ``.pt2`` programs in one fresh process that imports no port module
+   (checked in its ``sys.modules``), each on the card at batch 1 and 8 with its kNN sets
+   recorded (``aten.topk``), timed at batch 8 (clouds/s beside the eager
+   forward's); the ``.onnx`` through the port's ``parse_model`` /
+   ``run_onnx`` at batch 1, its kNN sets and PointNet++'s FPS picks as
+   extra outputs. Both against the eager forward of ``best/model.pt`` on
+   the card: classification and se3 within 1e-4; a kNN row whose set
+   differs is counted and must be a float64 tie (``TIE_REL``), and only
+   then may segmentation rows pass 1e-4 (at most 1e-3 of them); the FPS
+   picks equal kernel 2's. Kernels 2 and 7 launch 2 and 4 times an eager
+   forward (counted). ``python -m pointcloudprocessing_tpu_torch.export.cli``
+   on the PointNet stage: exit 0, its ``.onnx`` byte-equal to the
+   trainer's. (b) The toolkit on the card: ``solve_kabsch`` against a numpy
+   float64 SVD (R within 1e-5), the radar-truth calibration, the reflector
+   analysis and the OptiTrack sync offsets against CPU copies (1e-5).
 
 The second-to-last line is a JSON object with each of the seven kernels'
 and the three bf16 forms' launches on their paths (kernels 4 and 5 count
-phase 12's CLI run and grid too), error against the plain
+phase 12's CLI run and grid too, kernels 2 and 7 phase 13's eager
+reference forwards), error against the plain
 version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
 function, where there is one) are device times from ``torch.profiler``, or
@@ -182,6 +205,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import datetime
 import functools
 import itertools
 import json
@@ -2743,6 +2767,25 @@ def stage_log(name: str):
     return logging.getLogger(f"train.{name}"), handler, messages
 
 
+def stage_artifacts(run_dir: str, name: str) -> list:
+    """The ``.pt2`` and ``.onnx`` files of every stage under a trainer run's
+    directory; fails if a stage lacks either (the trainer logs a failed
+    export and goes on, so this is where such a fault shows)."""
+    written = []
+    for stage in sorted(os.listdir(run_dir)):
+        stage_dir = os.path.join(run_dir, stage)
+        if not os.path.isdir(stage_dir):
+            continue
+        for ext in (".pt2", ".onnx"):
+            path = os.path.join(stage_dir, f"{name}_{stage}{ext}")
+            if not os.path.isfile(path) or os.path.getsize(path) == 0:
+                raise AssertionError(f"export: {path} missing after its stage")
+            written.append(path)
+    if not written:
+        raise AssertionError(f"export: no stage under {run_dir}")
+    return written
+
+
 def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     """Phase 10: the staged trainer end to end on the card, its collects,
     sets and stages in ``root`` (phase 11 reuses the collects and sets)."""
@@ -2814,6 +2857,9 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         raise AssertionError(f"trainer: the CLI exited {run.returncode}:\n"
                              f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
     stage_dirs = {s: os.path.join(root, "models", name, s) for s in stages}
+    out["export"] = {"pointnet": {"cfg": cfg_path, "stage_dir": stage_dirs[stages[-1]],
+                                  "stage": stages[-1],
+                                  "seconds": export_seconds(run.stderr.splitlines())}}
     histories = {}
     for s, d in stage_dirs.items():
         with open(os.path.join(d, f"{name}_{s}_history.json")) as f:
@@ -2930,10 +2976,19 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     # (e) the device's busy share over one epoch of the trainer
     busy_cfg = trainer_config(root, datasets, "models_busy", epochs=1,
                              stages=[stages[-1]])
-    share = busy_share(torch, lambda: TrainProfile(busy_cfg, log_to_file=False).train())
+    logger, handler, messages = stage_log(name)
+    logger.addHandler(handler)
+    try:
+        share = busy_share(torch, lambda: TrainProfile(busy_cfg, log_to_file=False).train())
+    finally:
+        logger.removeHandler(handler)
+    exported = export_seconds(messages)
     log(f"[10 trainer] device busy share over one epoch of stage {stages[-1]} "
         f"(model build, {steps_per_epoch} train and {val_steps} val steps, "
-        f"checkpoints): {share}")
+        f"checkpoints, the stage's export): {share}; of that window the export "
+        f"took {sum(exported.values()):.2f} s ("
+        + ", ".join(f"{os.path.splitext(p)[1]} {t:.2f} s" for p, t in exported.items())
+        + ", the trainer's log lines; the trace runs on the CPU)")
 
     # (f) serve.main over the trainer's own checkpoint
     pred = os.path.join(root, "pred.jsonl")
@@ -2957,15 +3012,26 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         gathers: list = []
         recording = record_gather(gathers, 4) if family == "dgcnn" else \
             contextlib.nullcontext()
+        logger, handler, messages = stage_log(name)
+        logger.addHandler(handler)
         reset()
         t0 = time.perf_counter()
         # ---- the main path (a family through the trainer): counted launches
-        with recording:
-            hist = TrainProfile(fam_cfg, log_to_file=False).train()[stages[-1]]
+        try:
+            with recording:
+                hist = TrainProfile(fam_cfg, log_to_file=False).train()[stages[-1]]
+        finally:
+            logger.removeHandler(handler)
         torch.cuda.synchronize()
         got = read()
         # ---- the main path ends here
-        seconds = time.perf_counter() - t0
+        out["export"][family] = {
+            "cfg": fam_cfg, "stage": stages[-1],
+            "stage_dir": os.path.join(root, f"models_{family}", name, stages[-1]),
+            "seconds": export_seconds(messages)}
+        # the stage's own time: its export (phase 13) is logged apart
+        seconds = (time.perf_counter() - t0
+                   - sum(out["export"][family]["seconds"].values()))
         check_histories(family, hist, None, 2, {})
         forwards = 2 * (steps_per_epoch + val_steps) if family == "pointnet2" \
             else 2 * val_steps  # DGCNN's train forward gathers rows instead
@@ -2973,7 +3039,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
             raise AssertionError(f"trainer {family}: {kernel} launches "
                                  f"{got[kernel]}, want {per_forward} x {forwards}")
         log(f"[10 trainer] {family} 23/12 at {batch}x{width} (stage {stages[-1]}, "
-            f"2 epochs) in {seconds:.1f} s: loss {hist['loss'][0]:.4f} -> "
+            f"2 epochs) in {seconds:.1f} s (its export apart): loss {hist['loss'][0]:.4f} -> "
             f"{hist['loss'][-1]:.4f}; kernel {'2 (FPS)' if kernel == 'fps' else '7'} "
             f"launches {got[kernel]} = {per_forward} x {forwards} "
             f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}")
@@ -3241,6 +3307,7 @@ def synth_training(torch, root: str, synth: dict, trained: dict) -> dict:
     with open(os.path.join(stage_dir, f"{name}_{stage}_history.json")) as f:
         hist = json.load(f)
     check_histories("synthesis CLI", hist, None, 2, {})
+    stage_artifacts(os.path.join(root, "models", name), name)
     pc = load_from_file(os.path.join(root, "data", f"{name}_{stage}", "pc_set.joblib"))
     counts = {s: pc.split_count(s) for s in ("train", "val", "test")}
     if sum(counts.values()) != len(synth["names"]) * SYNTH_FRAMES:
@@ -3254,7 +3321,8 @@ def synth_training(torch, root: str, synth: dict, trained: dict) -> dict:
                              f"({train_steps} train steps x phase 6 case A's rate)")
     log(f"[12 synthesis] CLI kc46 stage {stage} on the synthesized collects "
         f"({batch}x{kc46['params']['input_width']}, 2 epochs; splits {counts}): "
-        f"exit 0 in {cli_s:.1f} s; history with the 14 Keras keys, finite; loss "
+        f"exit 0 in {cli_s:.1f} s; history with the 14 Keras keys, finite; .pt2 "
+        f"and .onnx written; loss "
         f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}, val segmentation accuracy "
         f"{hist['val_segmentation_output_sparse_categorical_accuracy'][-1]:.4f}; "
         f"pooled launches {launches['fwd']} / {launches['bwd']} = {train_steps} "
@@ -3520,6 +3588,543 @@ def phase_synthesis(torch, trained: dict) -> dict:
             "frames_per_s": synth["frames_per_s"]}
 
 
+# ------------------------------------------- phase 13: export and the toolkit
+
+#: a trainer log line: an artifact written at a stage's end and its seconds
+EXPORT_LINE = re.compile(r"Exported (\S+) in ([\d.]+) s$")
+#: where two computations' kNN sets of a row differ, each set must be a
+#: float64 kNN set of that computation's own queries and points up to ties:
+#: every neighbour in its symmetric difference with the exact float64 set
+#: lies within this share of (|q|^2 + |p_j|^2) of the k-th float64 distance
+#: (the f32 expansion rounds each of its terms; 2^-16 is 2^8 of their ulps)
+TIE_REL = 2.0 ** -16
+#: the .pt2 programs in one fresh process that imports nothing of the port:
+#: for each (family, program, result file) it loads the program, runs it on
+#: the card at batch 1 and 8 with every kNN set (``aten.topk``) recorded and
+#: times batch 8; it reports each load's seconds and its own imports
+PT2_LOADER = """
+import json, sys, time
+import numpy as np
+import torch
+import torch.fx
+
+data_path, jobs = sys.argv[1], json.loads(sys.argv[2])
+points = torch.from_numpy(np.load(data_path)).cuda()
+aten = torch.ops.aten
+VIEWS = {aten.transpose.int, aten.permute.default, aten.expand.default,
+         aten.view.default, aten.reshape.default, aten._unsafe_view.default,
+         aten.clone.default, aten.alias.default}
+
+
+def base(node):
+    while node.op == "call_function" and node.target in VIEWS:
+        node = node.args[0]
+    return node
+
+
+def operands(topk):
+    # the distance product feeding a kNN set: its queries and its points
+    frontier = [topk]
+    for _ in range(12):
+        frontier = [a for f in frontier for a in f.all_input_nodes]
+        for node in frontier:
+            if node.op == "call_function" and node.target in (
+                    aten.matmul.default, aten.bmm.default):
+                return base(node.args[0]), base(node.args[1])
+    raise RuntimeError(f"no distance product above {topk.name}")
+
+
+class Recorder(torch.fx.Interpreter):
+    def __init__(self, gm, wanted):
+        super().__init__(gm)
+        self.wanted, self.values = wanted, {}
+
+    def run_node(self, node):
+        out = super().run_node(node)
+        if node in self.wanted:
+            value = out[1] if node.target is aten.topk.default else out
+            self.values[node] = value.cpu().numpy()
+        return out
+
+
+report = {}
+for family, pt2_path, out_path in jobs:
+    t0 = time.perf_counter()
+    module = torch.export.load(pt2_path).module()
+    load_s = time.perf_counter() - t0
+    topks = [n for n in module.graph.nodes
+             if n.op == "call_function" and n.target is aten.topk.default]
+    wanted = set(topks) | {node for t in topks for node in operands(t)}
+    saved = {}
+    with torch.no_grad():
+        for b in (1, 8):
+            rec = Recorder(module, wanted)
+            heads = rec.run(points[:b])
+            for i, h in enumerate(heads):
+                saved[f"b{b}_head{i}"] = h.cpu().numpy()
+            for i, t in enumerate(topks):
+                q, p = operands(t)
+                saved[f"b{b}_knn{i}"] = rec.values[t]
+                saved[f"b{b}_q{i}"] = rec.values[q]
+                saved[f"b{b}_p{i}"] = rec.values[p]
+        x = points[:8]
+        module(x)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                module(x)
+            torch.cuda.synchronize()
+            rates.append(8 * 5 / (time.perf_counter() - t0))
+    np.savez(out_path, **saved)
+    report[family] = {"load_s": load_s, "rates": rates, "knn_sets": len(topks)}
+report["imported"] = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "pointcloudprocessing_tpu_torch", "pointcloudprocessing_tpu", "jax", "flax"))
+print(json.dumps(report))
+"""
+
+
+def export_seconds(lines) -> dict:
+    """{artifact path: seconds} from the trainer's ``Exported ... in`` lines."""
+    found = (EXPORT_LINE.search(line.strip()) for line in lines)
+    return {m.group(1): float(m.group(2)) for m in found if m}
+
+
+@contextlib.contextmanager
+def record_eager_knn(family: str):
+    """Record (queries, points, neighbour indices, kind) of every kNN set
+    the eager model builds in the block: DGCNN's graphs and PointNet++'s
+    groupings (kind "topk", as the ``.pt2`` program records them) and
+    PointNet++'s 3-NN interpolations (kind "three"; the program builds them
+    by argmin, the ONNX graph by TopK)."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+    from pointcloudprocessing_tpu_torch.models import pointnet2 as pn2_mod
+
+    met: list = []
+    real_graph = dgcnn_mod.knn_graph
+    real_group, real_three = pn2_mod._grouping_knn, pn2_mod._three_nearest
+
+    def graph(feats, k):
+        idx = real_graph(feats, k)
+        met.append((feats, feats, idx, "topk"))
+        return idx
+
+    def group(queries, points, k):
+        idx, sq = real_group(queries, points, k)
+        met.append((queries, points, idx, "topk"))
+        return idx, sq
+
+    def three(fine, coarse):
+        idx, sq = real_three(fine, coarse)
+        met.append((fine, coarse, idx, "three"))
+        return idx, sq
+
+    if family == "dgcnn":
+        dgcnn_mod.knn_graph = graph
+    elif family == "pointnet2":
+        pn2_mod._grouping_knn, pn2_mod._three_nearest = group, three
+    try:
+        yield met
+    finally:
+        dgcnn_mod.knn_graph = real_graph
+        pn2_mod._grouping_knn, pn2_mod._three_nearest = real_group, real_three
+
+
+def tied_set(torch, q, p, idx, row) -> tuple[float, float]:
+    """(gap, bar): how far the kNN set ``idx[row]`` of queries q (b, m, c)
+    over points p (b, n, c) strays from the exact float64 set: the largest
+    distance of a neighbour in their symmetric difference from the k-th
+    float64 distance, and ``TIE_REL`` x (|q|^2 + |p_j|^2) there."""
+    b, r = row
+    qd, pd = q[b, r].double(), p[b].double()
+    d = ((pd - qd) ** 2).sum(-1)
+    k = idx.shape[-1]
+    order = d.sort()
+    exact = set(order.indices[:k].tolist())
+    swapped = sorted(exact ^ set(idx[b, r].tolist()))
+    if not swapped:
+        return 0.0, 0.0
+    sym = torch.tensor(swapped, device=d.device)
+    gap = (d[sym] - order.values[k - 1]).abs()
+    bar = TIE_REL * ((qd * qd).sum() + (pd[sym] ** 2).sum(-1))
+    worst = int((gap / bar).argmax())
+    return gap[worst].item(), bar[worst].item()
+
+
+def knn_ties(torch, label: str, eager: list, other: list) -> int:
+    """The rows whose kNN set differs between the eager forward's records
+    and another computation's, each (queries, points, indices): at every
+    such row both sets must be float64 kNN sets of their own operands up to
+    ties (``tied_set``); a flip that is no tie fails. Returns the number
+    of rows flipped."""
+    if len(eager) != len(other):
+        raise AssertionError(f"{label}: {len(other)} kNN sets, the eager "
+                             f"forward built {len(eager)}")
+    flips = 0
+    for layer, (mine, theirs) in enumerate(zip(eager, other)):
+        sides = [tuple(torch.as_tensor(t).to(mine[0].device) for t in side[:3])
+                 for side in (mine, theirs)]
+        idx_e, idx_o = sides[0][2].long(), sides[1][2].long()
+        if idx_o.shape != idx_e.shape:
+            raise AssertionError(f"{label} set {layer}: shapes {tuple(idx_o.shape)}"
+                                 f" and {tuple(idx_e.shape)}")
+        rows = (idx_e.sort(-1).values != idx_o.sort(-1).values).any(-1).nonzero()
+        for row in rows.tolist():
+            for side, (q, p, idx) in zip(("eager", "other"), sides):
+                gap, bar = tied_set(torch, q, p, idx.long(), row)
+                if gap > bar:
+                    raise AssertionError(
+                        f"{label} kNN set {layer}, cloud {row[0]}, row {row[1]}: "
+                        f"the {side} set strays {gap:.3e} from the k-th float64 "
+                        f"distance of its own operands, past the tie bar "
+                        f"{bar:.3e}: not a tie")
+        flips += len(rows)
+    return flips
+
+
+def onnx_knn_operands(parsed: dict) -> list:
+    """(queries, points, indices) value names of each kNN set (TopK) of a
+    parsed ONNX graph: the operands of the distance MatMul above it (the
+    points under their Transpose)."""
+    producer = {o: n for n in parsed["nodes"] for o in n["outputs"]}
+    found = []
+    for topk in (n for n in parsed["nodes"] if n["op"] == "TopK"):
+        frontier = [topk]
+        for _ in range(12):
+            frontier = [producer[i] for f in frontier for i in f["inputs"]
+                        if i in producer]
+            matmuls = [n for n in frontier if n["op"] == "MatMul"]
+            if matmuls:
+                q, pt = matmuls[0]["inputs"]
+                found.append((q, producer[pt]["inputs"][0], topk["outputs"][1]))
+                break
+        else:
+            raise AssertionError("no distance MatMul above an ONNX TopK")
+    return found
+
+
+def held_heads(label: str, got: list, want: dict, flips: int) -> str:
+    """Heads against the eager forward's: classification and se3 within
+    1e-4; segmentation rows beyond 1e-4 only where kNN rows flipped (each a
+    proven tie), and then at most 1e-3 of them (phase 8's bar)."""
+    names = ("classification_output", "segmentation_output", "se3")
+    diffs = {}
+    for name, g in zip(names, got):
+        w = want[name].float().cpu().numpy()
+        if np.shape(g) != w.shape or not np.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: shape {np.shape(g)} against "
+                                 f"{w.shape}, or non-finite values")
+        diffs[name] = np.abs(g - w)
+    seg_rows = float((diffs["segmentation_output"].max(-1) > 1e-4).mean())
+    worst = {k: float(v.max()) for k, v in diffs.items()}
+    if (worst["classification_output"] > 1e-4 or worst["se3"] > 1e-4
+            or (flips == 0 and worst["segmentation_output"] > 1e-4)
+            or seg_rows > 1e-3):
+        raise AssertionError(f"{label}: heads differ from the eager forward by "
+                             f"{worst}, {seg_rows:.5f} of the segmentation rows "
+                             f"beyond 1e-4, {flips} kNN rows flipped")
+    return (", ".join(f"{k.split('_')[0]} {v:.2e}" for k, v in worst.items())
+            + f"; seg rows beyond 1e-4 {seg_rows:.5f}; kNN rows flipped (proven "
+            f"float64 ties) {flips}")
+
+
+def load_programs(card: str, exports: dict, points: np.ndarray, work: str) -> dict:
+    """Each family's ``.pt2`` in one process that never imports the port
+    (``PT2_LOADER``): its report, and per family the recorded heads and kNN
+    sets at batch 1 and 8."""
+    data = os.path.join(work, "points.npy")
+    np.save(data, points)
+    jobs = [(family, os.path.join(info["stage_dir"], f"{name_of(info)}_{info['stage']}.pt2"),
+             os.path.join(work, f"{family}_pt2.npz")) for family, info in exports.items()]
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", PT2_LOADER, data, json.dumps(jobs)],
+                         cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    process_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"export: the .pt2 loader exited {run.returncode}:\n"
+                             f"{run.stderr[-3000:]}")
+    report = json.loads(run.stdout.strip().splitlines()[-1])
+    if report["imported"]:
+        raise AssertionError(f"export: the .pt2 loader imported {report['imported']}")
+    for family, _, result in jobs:
+        with np.load(result) as got:
+            report[family]["out"] = {b: (
+                [got[f"b{b}_head{i}"] for i in range(3)],
+                [(got[f"b{b}_q{i}"], got[f"b{b}_p{i}"], got[f"b{b}_knn{i}"])
+                 for i in range(report[family]["knn_sets"])]) for b in (1, 8)}
+    log(f"[13 export] the three .pt2 programs in one process that imports no port "
+        f"module ({card}): {process_s:.1f} s in all (process start, torch and CUDA "
+        f"start, each program loaded, run at b1 and b8 with its kNN sets recorded, "
+        f"timed at b8); torch.export.load "
+        + ", ".join(f"{f} {report[f]['load_s']:.2f} s" for f, _, _ in jobs)
+        + " (the first load imports the deserializer)")
+    return report
+
+
+def name_of(info: dict) -> str:
+    """The config name of a phase-10 stage (its run directory's name)."""
+    return os.path.basename(os.path.dirname(info["stage_dir"]))
+
+
+def export_family(torch, card: str, family: str, info: dict, points: np.ndarray,
+                  loaded: dict) -> dict:
+    """One family's stage artifacts on the card: the ``.pt2`` as the clean
+    process ran it at batch 1 and 8 (``loaded``, from ``load_programs``),
+    the ONNX file through the port's interpreter at batch 1, both against
+    the eager forward of ``best/model.pt``."""
+    from pointcloudprocessing_tpu_torch.core.config import load_config
+    from pointcloudprocessing_tpu_torch.export.onnx_native import parse_model, run_onnx
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.train.callbacks import load_checkpoint
+
+    cfg = load_config(info["cfg"])
+    prefix = os.path.join(info["stage_dir"], f"{cfg.name}_{info['stage']}")
+    # on the card, f32, as the stage trained
+    model = model_from_config(cfg, device="cuda")
+    model.load_state_dict(load_checkpoint(info["stage_dir"]))
+    model.eval()
+    x = torch.from_numpy(points).cuda()
+    fps_picks: list = []
+    with torch.inference_mode():
+        with record_eager_knn(family) as met1, (
+                pointnet2_fps("auto", fps_picks) if family == "pointnet2"
+                else contextlib.nullcontext()):
+            want1 = model(x[:1])
+        with record_eager_knn(family) as met8:
+            want8 = model(x)
+        model(x)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(5):
+                model(x)
+            torch.cuda.synchronize()
+            rates.append(len(x) * 5 / (time.perf_counter() - t0))
+    forwards = 3 + 3 * 5
+
+    lines = {}
+    for b, met, want in ((1, met1, want1), (8, met8, want8)):
+        heads, knn = loaded["out"][b]
+        flips = knn_ties(torch, f"export {family} .pt2 b{b}",
+                         [m for m in met if m[3] == "topk"], knn)
+        lines[b] = held_heads(f"export {family} .pt2 b{b}", heads, want, flips)
+
+    # the ONNX file through the port's interpreter, with its kNN sets and
+    # (PointNet++) its FPS picks as extra outputs
+    parsed = parse_model(open(f"{prefix}.onnx", "rb").read())
+    knn_names = onnx_knn_operands(parsed)
+    fps_sizes = [p.shape[1] for p in fps_picks]
+    fps_names = [n["outputs"][0] for n in parsed["nodes"] if n["op"] == "Concat"
+                 and n["attrs"].get("axis") == 1 and len(n["inputs"]) in fps_sizes]
+    t0 = time.perf_counter()
+    onnx_out = run_onnx(dict(parsed, outputs=parsed["outputs"] + fps_names + [
+        name for names in knn_names for name in names]), {"points": points[:1]})
+    onnx_s = time.perf_counter() - t0
+    if len(fps_names) != len(fps_picks) or any(
+            not np.array_equal(onnx_out[n], p.cpu().numpy())
+            for n, p in zip(fps_names, fps_picks)):
+        raise AssertionError(f"export {family}: the ONNX graph's FPS picks differ "
+                             "from the FPS kernel's")
+    flips = knn_ties(torch, f"export {family} .onnx", met1,
+                     [tuple(onnx_out[n] for n in names) for names in knn_names])
+    onnx_line = held_heads(f"export {family} .onnx", [
+        onnx_out[n] for n in parsed["outputs"]], want1, flips)
+
+    seconds = {os.path.splitext(p)[1]: s for p, s in info["seconds"].items()
+               if p.startswith(prefix)}
+    sizes = {ext: os.path.getsize(prefix + ext) / 2**20 for ext in (".pt2", ".onnx")}
+    eager_rate, pt2_rate = float(np.median(rates)), float(np.median(loaded["rates"]))
+    log(f"[13 export] {family} 23/12 at {cfg.input_width} points (stage "
+        f"{info['stage']}, {card}): the trainer wrote {prefix}.pt2 "
+        f"({sizes['.pt2']:.1f} MiB, {seconds.get('.pt2', float('nan')):.2f} s: "
+        f"CPU trace + move to the card) and .onnx ({sizes['.onnx']:.1f} MiB, "
+        f"{seconds.get('.onnx', float('nan')):.2f} s)")
+    log(f"[13 export] {family} .pt2 in the process that imports no port module "
+        f"(torch.export.load {loaded['load_s']:.2f} s): b1 {lines[1]}; b8 {lines[8]}")
+    log(f"[13 export] {family} .onnx through the port's interpreter at b1 "
+        f"({onnx_s:.2f} s, numpy on the host): {onnx_line}"
+        + (f"; FPS picks equal to the kernel's ({', '.join(map(str, fps_sizes))})"
+           if fps_picks else ""))
+    log(f"[13 export] {family} clouds/s at 8x{cfg.input_width} ({card}): .pt2 "
+        + ", ".join(f"{r:.1f}" for r in loaded["rates"]) + f" (median {pt2_rate:.1f});"
+        f" eager " + ", ".join(f"{r:.1f}" for r in rates)
+        + f" (median {eager_rate:.1f}); .pt2 / eager {pt2_rate / eager_rate:.3f}")
+    return {"forwards": forwards, "pt2_rate": pt2_rate, "eager_rate": eager_rate}
+
+
+def kabsch64(truth: np.ndarray, measured: np.ndarray):
+    """Kabsch in numpy float64 (SVD, the reflection fixed on Vt's last row)."""
+    tm, mm = truth.mean(0), measured.mean(0)
+    u, _, vt = np.linalg.svd((measured - mm).T @ (truth - tm))
+    if np.linalg.det(vt.T @ u.T) < 0:
+        vt[2] *= -1
+    r = vt.T @ u.T
+    return r, tm - r @ mm
+
+
+def toolkit_on_card(torch, card: str) -> None:
+    """Phase 13 (b): the toolkit's device paths on the card: Kabsch against
+    a numpy float64 SVD, and the radar-truth calibration, the reflector
+    analysis and the OptiTrack sync offsets against CPU copies."""
+    from pointcloudprocessing_tpu_torch.toolkit import (
+        CalibrationAccumulator,
+        compute_centroid,
+        lookup_truth_position,
+        reflector_pose,
+        solve_kabsch,
+        trace_reflections,
+    )
+    from pointcloudprocessing_tpu_torch.toolkit import mat_ops as tk_mat_ops
+    from pointcloudprocessing_tpu_torch.toolkit.optitrack import compute_sync_offsets
+
+    rng = np.random.default_rng(13)
+    dev = "cuda"
+    r_true = tk_mat_ops.get_dcm(12.0, -34.0, 56.0, device=dev).astype(np.float64)
+    measured = rng.uniform(-5, 5, (500, 3))
+    truth = measured @ r_true.T + np.array([0.4, -1.2, 2.5]) + rng.normal(0, 1e-3, (500, 3))
+    solve_kabsch(truth, measured, device=dev)  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(20):
+        r, t, rmse = solve_kabsch(truth, measured, device=dev)
+    kabsch_ms = (time.perf_counter() - t0) / 20 * 1e3
+    r64, t64 = kabsch64(truth, measured)
+    err_r, err_t = float(np.abs(r - r64).max()), float(np.abs(t - t64).max())
+    if err_r > 1e-5:
+        raise AssertionError(f"toolkit: Kabsch R {err_r:.3e} from float64")
+
+    # radar truth: OptiTrack poses, returns around the reflector, centroids
+    # accumulated on the card and on the CPU, then the Kabsch solve
+    start = datetime.datetime(2026, 1, 1, tzinfo=datetime.timezone.utc)
+    stamps = [start + datetime.timedelta(seconds=i) for i in range(12)]
+    truth_log = {}
+    for s in stamps:
+        radar, target = np.eye(4), np.eye(4)
+        radar[:3, :3] = tk_mat_ops.get_dcm(*rng.uniform(-20, 20, 3), device=dev)
+        radar[:3, 3] = rng.uniform(-1, 1, 3)
+        target[:3, 3] = rng.uniform(-6, 6, 3)
+        truth_log[s] = {"mmwave": radar, "corner_reflector": target}
+    offset = tk_mat_ops.get_dcm(2.0, -1.5, 3.0, device=dev).astype(np.float64)
+    with tempfile.TemporaryDirectory() as work:
+        solved = {}
+        for device in (dev, "cpu"):
+            acc = CalibrationAccumulator(os.path.join(work, f"{device}.pkl"),
+                                         print_func=log, device=device)
+            for s in stamps:
+                pos = lookup_truth_position(truth_log, s)
+                returns = (offset @ pos + np.array([0.05, -0.02, 0.1])
+                           + np.random.default_rng(s.second).normal(0, 0.01, (40, 3)))
+                acc.add(compute_centroid(returns, pos))
+            solved[device] = acc.calibrate()
+    truth_err = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                    for a, b in zip(solved[dev], solved["cpu"]))
+    if truth_err > 1e-5:
+        raise AssertionError(f"toolkit: radar-truth calibration {truth_err:.3e} "
+                             "from the CPU copy")
+
+    # the reflector analysis: poses and traced rays, card against CPU
+    reflector_err, returned = 0.0, 0
+    for roll, pitch, yaw in rng.uniform(-15, 15, (16, 3)):
+        rays = {}
+        for device in (dev, "cpu"):
+            pose = reflector_pose(0.3, roll, pitch, yaw, device=device)
+            rays[device] = (pose, trace_reflections(np.array([0.01, 0.02, 1.0]), pose))
+        (pc, tc), (pp, tp) = rays[dev], rays["cpu"]
+        if tc["rays"].shape != tp["rays"].shape or \
+                tc["returned_to_source"] != tp["returned_to_source"]:
+            raise AssertionError("toolkit: reflector traces differ in shape")
+        reflector_err = max(reflector_err, float(np.abs(pc["corners"] - pp["corners"]).max()),
+                            float(np.abs(tc["rays"] - tp["rays"]).max()),
+                            abs(tc["total_distance"] - tp["total_distance"]))
+        returned += tc["returned_to_source"]
+    if reflector_err > 1e-5:
+        raise AssertionError(f"toolkit: reflector analysis {reflector_err:.3e} from "
+                             "the CPU copy")
+    sync = {d: compute_sync_offsets(truth_log, "mmwave", "corner_reflector", device=d)
+            for d in (dev, "cpu")}
+    sync_err = max(abs(sync[dev][a][k] - sync["cpu"][a][k])
+                   for a in sync["cpu"] for k in ("mean", "var"))
+    if sync_err > 1e-5:
+        raise AssertionError(f"toolkit: sync offsets {sync_err:.3e} from the CPU copy")
+    log(f"[13 toolkit] on the card ({card}): solve_kabsch 500 pairs "
+        f"{kabsch_ms:.3f} ms a call (host clock, numpy in and out), R "
+        f"{err_r:.2e} / t {err_t:.2e} from numpy's float64 SVD (rmse {rmse:.2e}); "
+        f"radar-truth calibration over 12 OptiTrack samples {truth_err:.2e} from "
+        f"the CPU copy; 16 reflector poses traced ({returned} returned to source) "
+        f"{reflector_err:.2e} from it; sync offsets {sync_err:.2e}")
+
+
+def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
+    """Phase 13: phase 10's stages leave the port as artifacts; the toolkit
+    on the card. Returns the kernel launches of the eager reference
+    forwards."""
+    from pointcloudprocessing_tpu_torch.data.pointcloudset import load_from_file
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
+    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
+
+    t_phase = time.perf_counter()
+    exports = trainer["export"]
+    name = name_of(exports["pointnet"])
+    # every stage phases 10 and 11 trained to its end wrote both artifacts
+    # (phase 12 checks its own before its directory goes)
+    written = [path for model_dir in (
+        "models", "models_resume", "models_busy", "models_pointnet2", "models_dgcnn",
+        "models_stream", "models_bf16") for path in stage_artifacts(
+            os.path.join(root, model_dir, name), name)]
+    stage = exports["pointnet"]["stage"]
+    test = load_from_file(os.path.join(root, "data", f"{name}_{stage}", "pc_set.joblib")
+                          ).load_split_arrays("test")["observations"]
+    if len(test) < 8:
+        raise AssertionError(f"export: {len(test)} test clouds")
+    points = np.ascontiguousarray(test[:8], dtype=np.float32)
+    log(f"[13 export] {len(written)} artifacts (.pt2 and .onnx) in every stage phases "
+        f"10 and 11 trained (f32 and bf16 compute); held on the {len(points)} test clouds of stage {stage}")
+
+    per_forward = {"pointnet": {}, "pointnet2": {"fps": 2}, "dgcnn": {"gather": 4}}
+    launches = {"fps": 0, "gather": 0}
+    with tempfile.TemporaryDirectory() as work:
+        loaded = load_programs(card, exports, points, work)
+        for family in ("pointnet", "pointnet2", "dgcnn"):
+            fps_with_points.launches = gather_maxmin.launches = 0
+            # ---- the export path (eager references on the card): counted launches
+            got = export_family(torch, card, family, exports[family], points,
+                                loaded[family])
+            torch.cuda.synchronize()
+            counts = {"fps": fps_with_points.launches, "gather": gather_maxmin.launches}
+            # ---- the export path ends here
+            want = {k: per_forward[family].get(k, 0) * got["forwards"]
+                    for k in counts}
+            if counts != want:
+                raise AssertionError(f"export {family}: launches {counts}, want {want}")
+            for k in counts:
+                launches[k] += counts[k]
+
+        # the export CLI on the PointNet stage, in a process of its own
+        info = exports["pointnet"]
+        prefix = os.path.join(info["stage_dir"], f"{name}_{info['stage']}")
+        out_onnx, out_pt2 = os.path.join(work, "cli.onnx"), os.path.join(work, "cli.pt2")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "pointcloudprocessing_tpu_torch.export.cli",
+             info["stage_dir"], info["cfg"], out_onnx, out_pt2],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"export CLI exited {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}\n{run.stderr[-3000:]}")
+        with open(out_onnx, "rb") as f, open(f"{prefix}.onnx", "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError("export CLI: its .onnx differs from the trainer's")
+        log(f"[13 export] python -m pointcloudprocessing_tpu_torch.export.cli on "
+            f"stage {info['stage']}: exit 0 in {cli_s:.1f} s ({card}; process start, "
+            f"ONNX and .pt2 to the card), .onnx byte-equal to the trainer's")
+    toolkit_on_card(torch, card)
+    log(f"[13 export] phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3538,7 +4143,7 @@ def main() -> int:
         return 1
     from pointcloudprocessing_tpu_torch.models.pointnet import PointNet
 
-    phase_device(torch)
+    card = phase_device(torch)
     phase_build()
     rng = np.random.default_rng(0)
     kernels = phase_kernels(torch, rng)
@@ -3559,8 +4164,11 @@ def main() -> int:
         trainer = phase_trainer(torch, rng, trained, trainer_root)
         log(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
         bf16 = phase_bf16(torch, rng, trained, dgcnn, pn2, trainer, trainer_root)
-    log(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
-    synthesis = phase_synthesis(torch, trained)
+        log(f"chip_smoke: phases 1-11 took {time.perf_counter() - t_start:.1f} s")
+        synthesis = phase_synthesis(torch, trained)
+        log(f"chip_smoke: phases 1-12 took {time.perf_counter() - t_start:.1f} s")
+        # phase 13 reads phase 10's stages
+        exported = phase_export(torch, card, trainer_root, trainer)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
         + trainer["launches"][k] + synthesis["launches"][k] for k in ("fwd", "bwd")}
@@ -3576,7 +4184,7 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
-    log(f"chip_smoke: phases 1-12 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
               sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],
@@ -3584,7 +4192,7 @@ def main() -> int:
               kernels["seg_library_ms"]),
         entry("fps_with_points", FPS_SRC, FPS_TPU,
               sliced["launches"]["fps"] + pn2["fps_launches"]
-              + trainer["launches"]["fps"],
+              + trainer["launches"]["fps"] + exported["fps"],
               kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
               kernels["fps_bound"]),
         entry("pooled_chain_forward", POOLED_SRC, POOLED_FWD_TPU,
@@ -3596,7 +4204,7 @@ def main() -> int:
         entry("windowed_moment_sums", WINDOW_SRC, WINDOW_TPU, normals["launches"],
               window["err"], window["ms"], window["plain_ms"], window["bound"]),
         entry("gather_maxmin", GATHER_SRC, GATHER_TPU,
-              dgcnn["launches"] + trainer["launches"]["gather"],
+              dgcnn["launches"] + trainer["launches"]["gather"] + exported["gather"],
               max(gather["err"], trainer["gather_err"]), gather["ms"],
               gather["plain_ms"], gather["bound"]),
         entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU, pn2["any_launches"],

@@ -1,0 +1,26 @@
+"""Model export: the native opset-13 ONNX writer and interpreter, a
+``torch.export`` program, Keras weight interop and the export CLI."""
+
+from pointcloudprocessing_tpu_torch.export.keras_compat import (
+    state_dict_from_keras_classifier,
+    state_dict_from_keras_pointnet,
+    state_dict_from_keras_tnet_regressor,
+)
+from pointcloudprocessing_tpu_torch.export.onnx_bridge import (
+    export_onnx,
+    verify_onnx,
+)
+from pointcloudprocessing_tpu_torch.export.pt2 import (
+    export_program,
+    load_program,
+)
+
+__all__ = [
+    "state_dict_from_keras_pointnet",
+    "state_dict_from_keras_classifier",
+    "state_dict_from_keras_tnet_regressor",
+    "export_program",
+    "load_program",
+    "export_onnx",
+    "verify_onnx",
+]

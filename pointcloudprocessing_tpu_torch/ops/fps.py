@@ -55,6 +55,39 @@ def _distmat_fps(
     return torch.stack(picks, dim=1).int()
 
 
+def _loop_fps(
+    points: torch.Tensor, num_samples: int, valid_mask: torch.Tensor,
+    start: torch.Tensor,
+) -> torch.Tensor:
+    """The kernel's plain version (``fps_with_points_reference``), the same
+    arithmetic, as one ``while_loop`` for ``torch.export``: the traced
+    program keeps FPS as a loop, as the JAX package's export keeps its
+    ``fori_loop``, where the Python loop would unroll num_samples steps into
+    the graph. Not for eager use (``while_loop`` then compiles)."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    neg = torch.tensor(float("-inf"), dtype=points.dtype, device=points.device)
+    slots = torch.arange(num_samples, device=points.device)
+    cur = start.long()
+
+    def more(i, cur, min_dist, picks):
+        return i < num_samples
+
+    def step(i, cur, min_dist, picks):
+        # the closure holds whole tensors only: while_loop refuses two views
+        # of one tensor as inputs
+        diff = points - points.gather(1, cur[:, None, None].expand(-1, 1, 3))
+        dx, dy, dz = diff.unbind(-1)
+        min_dist = torch.minimum(min_dist, dx * dx + dy * dy + dz * dz)
+        cur = torch.where(valid_mask, min_dist, neg).argmax(dim=1)
+        return i + 1, cur, min_dist, torch.where(slots == i, cur[:, None], picks)
+
+    carry = (torch.ones((), dtype=torch.long, device=points.device), cur,
+             torch.full_like(points[..., 0], float("inf")),
+             cur[:, None].expand(-1, num_samples).clone())
+    return while_loop(more, step, carry)[3].int()
+
+
 def farthest_point_sample_batch(
     points: torch.Tensor,
     num_samples: int,
@@ -69,8 +102,9 @@ def farthest_point_sample_batch(
       start_index: seed index (the first valid point of a cloud whose seed
         row is invalid).
       method: 'auto' (the kernel on a CUDA tensor; on the CPU 'distmat'
-        while b*n*n*4 bytes fit ``_MAX_DISTMAT_BYTES``, else 'stream'),
-        'distmat' or 'stream'.
+        while b*n*n*4 bytes fit ``_MAX_DISTMAT_BYTES``, else 'stream', and
+        under ``torch.export`` the stream form as one loop), 'distmat' or
+        'stream'.
 
     With fewer valid points than num_samples, picks repeat.
     """
@@ -81,7 +115,12 @@ def farthest_point_sample_batch(
     if method == "auto":
         if points.is_cuda:
             return fps(points, num_samples, valid_mask, start)
-        method = "distmat" if b * n * n * 4 <= _MAX_DISTMAT_BYTES else "stream"
+        if torch.compiler.is_exporting():
+            # a traced program (export/pt2.py): the byte budget would pin a
+            # symbolic batch, and the Python loop would unroll
+            return _loop_fps(points, num_samples, valid_mask, start)
+        method = ("distmat" if b * n * n * 4 <= _MAX_DISTMAT_BYTES
+                  else "stream")
     if method == "distmat":
         return _distmat_fps(points, num_samples, valid_mask, start)
     if method == "stream":

@@ -10,8 +10,12 @@
 - ``continue_training_model`` starts the first stage from an earlier stage
   directory's best checkpoint.
 - Artifacts per stage directory: ``best/model.pt`` (the model's
-  ``state_dict``), ``{name}_{stage}_history.json`` and a copy of the config;
-  ``resume/`` while the stage runs (``train/callbacks.py``).
+  ``state_dict``), ``{name}_{stage}_history.json``, a copy of the config,
+  and the best weights exported as ``{name}_{stage}.pt2`` (a
+  ``torch.export`` program on the trainer's device, ``export/pt2.py``) and
+  ``{name}_{stage}.onnx`` (opset 13, ``export/onnx_native.py``); a failed
+  export is logged and does not fail the stage; ``resume/`` while the
+  stage runs (``train/callbacks.py``).
 - A completed stage (history JSON and ``best/`` on disk, no ``resume/``) is
   skipped on a rerun; a killed stage resumes from its last epoch.
 
@@ -28,8 +32,7 @@ validation batch's jitter (from the seed and
 ``epoch * validation_steps + i``) and the loaders' order.
 
 Not ported here (``ROADMAP.md``): the scanned multi-step form and
-``steps_per_dispatch``, meshes and ``parallel_mode``, and the StableHLO and
-ONNX export at the end of a stage.
+``steps_per_dispatch``, meshes and ``parallel_mode``.
 """
 
 from __future__ import annotations
@@ -464,7 +467,36 @@ class TrainProfile:
         # config copy for provenance (pointnet_train.py:251)
         if self._config_file and os.path.isfile(self._config_file):
             shutil.copy(self._config_file, stage_dir)
+
+        self._export(model, f"{stage_dir}{cfg.name}_{stage.name}")
         return history
+
+    def _export(self, model, prefix: str) -> None:
+        """The stage's artifacts, as the JAX trainer writes its StableHLO and
+        ONNX files: ``{prefix}.pt2`` (``export/pt2.py``, placed on the
+        trainer's device) and ``{prefix}.onnx`` (the native opset-13
+        writer). A failed export is logged and never kills a finished
+        run."""
+        cfg = self.config
+        try:
+            from pointcloudprocessing_tpu_torch.export.pt2 import export_pointnet
+
+            t0 = time.perf_counter()
+            path = export_pointnet(model, cfg.input_width, prefix, device=self.device)
+            self._log.info(f"Exported {path} in {time.perf_counter() - t0:.2f} s")
+        except Exception as e:  # export must never kill a finished run
+            self._log.info(f".pt2 export skipped: {type(e).__name__}: {e}")
+        try:
+            from pointcloudprocessing_tpu_torch.export.onnx_bridge import export_onnx
+
+            # opset-13 ONNX like the reference (pointnet_train.py:237-248)
+            t0 = time.perf_counter()
+            if export_onnx(model, cfg.input_width, f"{prefix}.onnx",
+                           print_func=self._log.info):
+                self._log.info(f"Exported {prefix}.onnx in "
+                               f"{time.perf_counter() - t0:.2f} s")
+        except Exception as e:
+            self._log.info(f"ONNX export skipped: {type(e).__name__}: {e}")
 
 
 def train_pointnet(argv: list[str], device="cuda") -> bool:

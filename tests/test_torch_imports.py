@@ -18,7 +18,22 @@ import importlib, json, pkgutil, sys
 sys.path.insert(0, REPO)
 import pointcloudprocessing_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+# the Qt views raise the GUI's advisory without PyQt6, by design; import
+# them again under the Qt test double so that their imports are checked too
+gated = [n for n in names if n.endswith((".gui.views", ".gui.main_app"))]
+refused = []
 for name in names:
+    try:
+        importlib.import_module(name)
+    except ImportError as e:
+        if name not in gated or "requires PyQt6" not in str(e):
+            raise
+        refused.append(name)
+sys.path.insert(0, REPO + "/tests")
+import qt_stub
+sys.modules.update(qt_stub.install())
+for name in gated:
+    sys.modules.pop(name, None)
     importlib.import_module(name)
 spec = importlib.util.spec_from_file_location("chip_smoke", REPO + "/chip_smoke.py")
 smoke = importlib.util.module_from_spec(spec)
@@ -26,14 +41,16 @@ spec.loader.exec_module(smoke)
 names.append("chip_smoke")
 forbidden = ("jax", "jaxlib", "flax", "pointcloudprocessing_tpu")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in forbidden)
-print(json.dumps({"names": names, "bad": bad}))
+print(json.dumps({"names": names, "bad": bad, "gated": gated,
+                  "refused": refused}))
 """
 
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port, and chip_smoke.py imported as a module,
     leave no module of jax, jaxlib, flax or pointcloudprocessing_tpu in
-    sys.modules."""
+    sys.modules. The GUI's Qt views refuse to import without PyQt6 (the
+    GUI's advisory) and are imported under the Qt test double."""
     code = f"REPO = {REPO!r}\n" + _CHECK
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -50,6 +67,18 @@ def test_port_imports_nothing_of_jax():
                  "models.dgcnn", "models.pointnet2", "ops.cuda.voxel_reduce"):
         assert f"pointcloudprocessing_tpu_torch.{name}" in report["names"], name
     assert "chip_smoke" in report["names"]
+    gui = "pointcloudprocessing_tpu_torch.toolkit.gui"
+    assert sorted(report["gated"]) == [f"{gui}.main_app", f"{gui}.views"]
+    # without PyQt6 exactly those two refuse, with the GUI's advisory
+    try:
+        import PyQt6  # noqa: F401
+    except ImportError:
+        assert sorted(report["refused"]) == sorted(report["gated"])
+    for name in ("export.onnx_native", "export.pt2", "export.cli",
+                 "export.keras_compat", "export.onnx_bridge", "toolkit.mat_ops",
+                 "toolkit.calibration", "toolkit.radar_truth",
+                 "toolkit.reflector_analysis", "toolkit.gui.views"):
+        assert f"pointcloudprocessing_tpu_torch.{name}" in report["names"], name
 
 
 def test_no_import_statement_names_jax():
