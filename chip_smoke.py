@@ -6,8 +6,9 @@ inference, PointNet++ inference and serving at a scan width that takes
 the any-rank segment sum, the staged trainer from AFTR frames to
 checkpoints for all three model families, the bf16 compute path,
 synthesized LiDAR frames trained on, with hidden-point removal, ICP, the
-legacy models and the hyperparameter grid, and the trained stages leaving
-the port as ``.pt2`` and ONNX artifacts, with the sensor toolkit.
+legacy models and the hyperparameter grid, the trained stages leaving
+the port as ``.pt2`` and ONNX artifacts, with the sensor toolkit, and the
+multi-device training and serving forms and the last FPS forms.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -183,11 +184,38 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    trainer's. (b) The toolkit on the card: ``solve_kabsch`` against a numpy
    float64 SVD (R within 1e-5), the radar-truth calibration, the reflector
    analysis and the OptiTrack sync offsets against CPU copies (1e-5).
+14. multi-device and FPS forms (one card: no multi-GPU speed): (a) cases
+   A and B in a one-rank NCCL group: the shard_map step bit for bit the
+   bare step (state and logs), the global step within phase 6's bars of
+   the bare step with its tie rule (the one-ulp change taken both ways,
+   ties proven on the bare step's own inputs), kernels 4 and 5 once a
+   chain a step, ms a step beside the bare step's and phase 6's. (b) gloo
+   ranks sharing the card, each a process: case B's shard_map step on
+   identical 16-row halves (dropout and jitter off) bit for bit the 16-row
+   single step; its global step (dropout 0.3, jitter 0.01: the whole
+   batch's draws) on 2 ranks (16/16) and 3 (10/11/11) within phase 6's bars
+   of the 32-row single-device step (the reference's change is the larger
+   of its one-ulp moves up and down and of the same step on the clouds in
+   reverse order, which sums the batch in another order, as the ranks do),
+   the ranks' pooled calls joined into whole-batch calls for the tie rule;
+   parameters equal across ranks;
+   DGCNN and PointNet++ (23/12, 8x1024) one global step each within the
+   same bars (each DGCNN kNN row whose set differs from the ranks' a proven
+   float64 tie, the single-device steps taking the ranks' sets there),
+   DGCNN's global eval step (kernel 7 four times a rank) within
+   1e-5 of the single-device one, PointNet++'s FPS twice a rank. (c)
+   ``PointCloudPipeline(mesh=[cuda] * 2)`` at 256x2048 -> voxel 0.4 -> FPS
+   -> 1024: FPS picks identical to the single-device pipeline's, heads
+   within 1e-4, kernels 1 and 2 once a shard. (d) ``chains=4`` on the
+   path's voxel output (one launch over 1,024 clouds of 512) and
+   single-cloud FPS at 65,536 points, identical to the plain version. (e)
+   ``graft_entry.dryrun_multichip(2)`` on the card.
 
 The second-to-last line is a JSON object with each of the seven kernels'
 and the three bf16 forms' launches on their paths (kernels 4 and 5 count
 phase 12's CLI run and grid too, kernels 2 and 7 phase 13's eager
-reference forwards), error against the plain
+reference forwards, kernels 1, 2, 4, 5 and 7 phase 14's steps, serving and
+FPS forms in this process and its ranks), error against the plain
 version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
 function, where there is one) are device times from ``torch.profiler``, or
@@ -207,6 +235,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import functools
+import io
 import itertools
 import json
 import os
@@ -1158,7 +1187,7 @@ def phase_slice(torch, rng, model) -> dict:
         "fps": lambda: farthest_point_sample_and_gather(
             vox, k, vmask, layout="bcn"),
         "pointnet": lambda: model(sampled),
-        "pipeline": lambda: fps_pipe._run(x),
+        "pipeline": lambda: fps_pipe._run([x]),
     }
     with torch.inference_mode():
         stage_ms = {name: (device_ms(torch, fn, 5), call_ms(torch, fn, 5))
@@ -1259,13 +1288,14 @@ def route_pooled(forward, backward):
         fused_pool.pooled_chain_forward, fused_pool.pooled_chain_backward = saved
 
 
-def train_batch(torch, rng, b: int, n: int, classes: int, parts: int):
+def train_batch(torch, rng, b: int, n: int, classes: int, parts: int,
+                device: str = "cuda"):
     """(b, n, 3) clouds in metres, each stretched along its own axes, with a
     part label per point that follows from its position (the azimuth
     sector), a random class per cloud and identity SE(3) targets."""
     x = rng.normal(size=(b, n, 3)) * rng.uniform(1.0, 15.0, (b, 1, 3))
     sector = (np.arctan2(x[..., 1], x[..., 0]) + np.pi) / (2 * np.pi) * parts
-    dev = torch.device("cuda")
+    dev = torch.device(device)
     targets = {
         "classification_output": torch.from_numpy(
             rng.integers(0, classes, b).astype(np.int64)).to(dev),
@@ -1313,26 +1343,34 @@ def proven_ties(torch, label, calls) -> list:
     ties = []
     for i, (x, w, a, c_row, _, argmax) in enumerate(calls):
         _, plain_arg = pooled_chain_forward_reference(x, w, a, c_row)
-        flips = argmax != plain_arg
-        if bool(flips.any()):
-            cloud, ch = flips.nonzero(as_tuple=True)
-            rows = [x[cloud, idx[cloud, ch].long()].double()
-                    for idx in (argmax, plain_arg)]  # (flips, c_in) each
-            wd, ad, cd = w[ch].double(), a[ch].double(), c_row[ch].double()
-            y = [(r * wd).sum(-1) * ad + cd for r in rows]
-            bar = [x.shape[-1] * 2.0 ** -23 * (r.abs() * wd.abs()).sum(-1) * ad.abs()
-                   for r in rows]
-            gap = (y[0] - y[1]).abs()
-            if not bool((gap <= bar[0] + bar[1]).all()):
-                worst = int((gap / (bar[0] + bar[1])).argmax())
-                raise AssertionError(
-                    f"train {label}: chain {i}'s argmax differs from the plain "
-                    f"version's at cloud {int(cloud[worst])}, channel "
-                    f"{int(ch[worst])} by {gap[worst].item():.3e} in float64, past "
-                    f"the GEMM-rounding bar {(bar[0] + bar[1])[worst].item():.3e}: "
-                    f"not a tie")
-        ties.append((flips, argmax))
+        ties.append((prove_ties(torch, label, i, x, w, a, c_row, argmax, plain_arg),
+                     argmax))
     return ties
+
+
+def prove_ties(torch, label, i, x, w, a, c_row, argmax, plain_arg):
+    """The mask where two argmaxes of chain call ``i`` differ, each such
+    pair of winners proven a tie in float64 on these inputs (within the
+    GEMM-rounding bar); a flip that is no tie fails the phase."""
+    flips = argmax != plain_arg
+    if bool(flips.any()):
+        cloud, ch = flips.nonzero(as_tuple=True)
+        rows = [x[cloud, idx[cloud, ch].long()].double()
+                for idx in (argmax, plain_arg)]  # (flips, c_in) each
+        wd, ad, cd = w[ch].double(), a[ch].double(), c_row[ch].double()
+        y = [(r * wd).sum(-1) * ad + cd for r in rows]
+        bar = [x.shape[-1] * 2.0 ** -23 * (r.abs() * wd.abs()).sum(-1) * ad.abs()
+               for r in rows]
+        gap = (y[0] - y[1]).abs()
+        if not bool((gap <= bar[0] + bar[1]).all()):
+            worst = int((gap / (bar[0] + bar[1])).argmax())
+            raise AssertionError(
+                f"train {label}: chain {i}'s argmax differs from the plain "
+                f"version's at cloud {int(cloud[worst])}, channel "
+                f"{int(ch[worst])} by {gap[worst].item():.3e} in float64, past "
+                f"the GEMM-rounding bar {(bar[0] + bar[1])[worst].item():.3e}: "
+                f"not a tie")
+    return flips
 
 
 def following_ties(torch, ties):
@@ -1358,17 +1396,45 @@ def following_ties(torch, ties):
     return forward
 
 
-def ulp_up(torch, x, dtype):
-    """x moved up by one ulp: of f32, or (``dtype`` bf16) of bf16, the
-    precision the model's first layer rounds the points to."""
+def following_winners(torch, label, ties, counted: list, forward_fn):
+    """As :func:`following_ties`, for a reference step whose own inputs
+    differ from the step under test by rounding (another split of the
+    statistics over ranks), its forward ``forward_fn`` (a kernel or its
+    plain version): wherever its argmax differs from the tested step's
+    winners on its own inputs, the pair is proven a tie there
+    (:func:`prove_ties`), and it takes the tested step's winner;
+    ``counted`` gets the number of flips."""
+    count = itertools.count()
+
+    def forward(x, w, a, c_row):
+        i = next(count)
+        pooled, argmax = forward_fn(x, w, a, c_row)
+        kernel_arg = ties[i][1]
+        flips = prove_ties(torch, label, i, x, w, a, c_row, kernel_arg, argmax)
+        counted.append(int(flips.sum()))
+        if bool(flips.any()):
+            r = torch.relu(torch.matmul(x.float(), w.float().t()) * a + c_row)
+            at_kernel = r.gather(1, kernel_arg.long()[:, None, :]).squeeze(1)
+            argmax = torch.where(flips, kernel_arg, argmax)
+            pooled = torch.where(flips, at_kernel, pooled)
+        return pooled, argmax
+
+    return forward
+
+
+def ulp_up(torch, x, dtype, sign: float = 1.0):
+    """x moved up (``sign`` -1: down) by one ulp: of f32, or (``dtype``
+    bf16) of bf16, the precision the model's first layer rounds the points
+    to."""
     if dtype is None:
-        return torch.nextafter(x, torch.full_like(x, float("inf")))
+        return torch.nextafter(x, torch.full_like(x, sign * float("inf")))
     exp = torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny)))
-    return x + torch.exp2(exp - 7)
+    return x + sign * torch.exp2(exp - 7)
 
 
 def check_step_against_plain(torch, label, models, run_step, x, lr,
-                             dtype=None) -> dict:
+                             dtype=None, kernel=None, own_ties=False,
+                             reference_kernels=False, permuted=None) -> dict:
     """One step of ``models[0]`` through the kernels and one of
     ``models[1]`` (a copy) through the plain versions, from the same state,
     batch and seed; ``models[2]``, a third copy, takes the plain step on
@@ -1378,29 +1444,76 @@ def check_step_against_plain(torch, label, models, run_step, x, lr,
     and both plain steps take the kernel's winners at exactly those ties.
     Bars: each loss, gradient leaf, parameter and running statistic within
     8x that one-ulp change plus a floor (a parameter whose gradient sign
-    the one-ulp step leaves uncertain may differ by Adam's 2 lr)."""
+    the one-ulp step leaves uncertain may differ by Adam's 2 lr). A fourth
+    model, where given, takes the plain step on the batch moved one ulp
+    down, and the one-ulp change is the larger of the two moves (as
+    ``tests/test_torch_train_step.py`` takes it).
+    ``kernel``, where the kernels' step ran elsewhere (other ranks), returns
+    its (logs, recorded pooled-forward calls) and ``models[0]`` holds its
+    result. ``own_ties``: the plain steps prove and follow the ties on their
+    own inputs (:func:`following_winners`), where their statistics round
+    otherwise than the kernels' step's. ``reference_kernels``: the
+    reference steps run the kernels too (a multi-device step against the
+    single-device one, both on the kernels). ``permuted``: a fifth model
+    takes the reference step on the clouds in this order (``run_step(4,
+    x)`` permutes them and their draws), which measures the rounding of the
+    batch sums in another order; the change counts with the one-ulp ones."""
     from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward,
         pooled_chain_backward_reference,
+        pooled_chain_forward,
+        pooled_chain_forward_reference,
     )
 
+    backward = (pooled_chain_backward if reference_kernels
+                else pooled_chain_backward_reference)
+
     calls: list = []
-    with record_pooled_forward(calls):
-        logs_k = run_step(0, x)
+    if kernel is not None:
+        logs_k, calls = kernel()
+    else:
+        with record_pooled_forward(calls):
+            logs_k = run_step(0, x)
     ties = proven_ties(torch, label, calls)
     del calls
-    log(f"    {label}: {sum(int(f.sum()) for f, _ in ties)} argmax flips of the "
-        f"forward kernel, each a proven tie")
-    with route_pooled(following_ties(torch, ties), pooled_chain_backward_reference):
+    flipped = [sum(int(f.sum()) for f, _ in ties)]
+
+    def follow(ties=ties):
+        if not own_ties:
+            return following_ties(torch, ties)
+        flipped.append(0)
+        counted: list = []
+        forward = following_winners(
+            torch, label, ties, counted,
+            pooled_chain_forward if reference_kernels else pooled_chain_forward_reference)
+
+        def counting(*args):
+            out = forward(*args)
+            flipped[-1] = sum(counted)
+            return out
+        return counting
+
+    with route_pooled(follow(), backward):
         logs_p = run_step(1, x)
-    with route_pooled(following_ties(torch, ties), pooled_chain_backward_reference):
-        logs_u = run_step(2, ulp_up(torch, x, dtype))
+    with route_pooled(follow(), backward):
+        logs_u = [run_step(2, ulp_up(torch, x, dtype))]
+    if len(models) > 3:
+        with route_pooled(follow(), backward):
+            logs_u.append(run_step(3, ulp_up(torch, x, dtype, -1.0)))
+    if permuted is not None:
+        with route_pooled(follow([(f[permuted], a[permuted]) for f, a in ties]),
+                          backward):
+            logs_u.append(run_step(4, x))
+    ties_n = flipped[1] if own_ties else flipped[0]
+    log(f"    {label}: {ties_n} argmax flips of the forward kernel, each a proven tie")
     worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "stat": 0.0, "ulp": {},
-             "ties": sum(int(f.sum()) for f, _ in ties)}
+             "ties": ties_n}
     for key in ("loss", "classification_output_loss", "segmentation_output_loss",
                 "se3_loss"):
-        k, p, u = (float(logs[key]) for logs in (logs_k, logs_p, logs_u))
-        worst["ulp"][key] = abs(p - u)
-        bound = 8 * abs(p - u) + 1e-6 * abs(p) + 1e-7
+        k, p = float(logs_k[key]), float(logs_p[key])
+        change = max(abs(p - float(logs[key])) for logs in logs_u)
+        worst["ulp"][key] = change
+        bound = 8 * change + 1e-6 * abs(p) + 1e-7
         if abs(k - p) > bound:
             raise AssertionError(f"train {label}: {key} {k} through the kernels, "
                                  f"{p} plain (bar {bound:.3e})")
@@ -1414,7 +1527,7 @@ def check_step_against_plain(torch, label, models, run_step, x, lr,
                 raise AssertionError(f"train {label}: frozen {name} took a "
                                      f"gradient or moved")
             continue
-        sens = (gp - gu).abs().max()
+        sens = max((gp - nm[name].grad).abs().max() for nm in named[2:])
         bound = 8 * sens + 1e-5 * gp.abs().max() + 1e-12
         err = (gk - gp).abs().max()
         if err > bound:
@@ -1432,8 +1545,9 @@ def check_step_against_plain(torch, label, models, run_step, x, lr,
         worst["param"] = max(worst["param"], perr.max().item() / lr)
     buffers = [dict(m.named_buffers()) for m in models]
     for name, sk in buffers[0].items():
-        sp, su = buffers[1][name], buffers[2][name]
-        bound = 8 * (sp - su).abs().max() + 1e-6 + 1e-5 * sp.abs()
+        sp = buffers[1][name]
+        change = max((sp - b[name]).abs().max() for b in buffers[2:])
+        bound = 8 * change + 1e-6 + 1e-5 * sp.abs()
         if not bool(((sk - sp).abs() <= bound).all()):
             raise AssertionError(f"train {label}: running statistic {name} differs")
         worst["stat"] = max(worst["stat"], ((sk - sp).abs() / bound).max().item())
@@ -1555,9 +1669,11 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
             "kinds": kinds, "loss_ulp": worst["ulp"], "ties": ties}
 
 
-def phase_train(torch, dtype=None) -> dict:
-    """Cases A and B (phase 6; phase 11 in bf16), from a generator of the
-    phase's own (``TRAIN_SEED``): case A's batch, then case B's three."""
+def train_cases() -> dict:
+    """Phase 6's cases: {"A" | "B": (cfg, freeze, loss weights, jitter m,
+    pooled chains)}. A: the users' configuration, kc46 `final` (seeded
+    init, no checkpoint); B: the JAX bench's train-step row
+    (bench.py:357-395; bf16: :650-651)."""
     from pointcloudprocessing_tpu_torch.core.config import (
         LearningConfig,
         load_config,
@@ -1568,21 +1684,9 @@ def phase_train(torch, dtype=None) -> dict:
         freeze_flags_from_trainable,
     )
 
-    rng = np.random.default_rng(TRAIN_SEED)
-    kind = "bf16" if dtype is not None else "f32"
-    # A: the users' configuration, kc46 `final` (seeded init, no checkpoint)
     cfg = load_config(os.path.join(REPO, KC46_CONFIG))
     stage = next(st for st in cfg.stages if st.name == "final")
     lw = stage.loss_weights
-    a = train_case(
-        torch, rng, f"A kc46 final ({'vanilla' if cfg.vanilla else 'full'} "
-        f"{cfg.num_classes}/{cfg.num_parts} {kind}, {cfg.batch_size}x{cfg.input_width})",
-        cfg, freeze_flags_from_trainable(stage.trainable),
-        (lw.classification, lw.segmentation, lw.rotation), stage.noise.as_tuple(),
-        chains=1, dtype=dtype)
-    # B: the JAX bench's train-step row (bench.py:357-395; bf16: :650-651),
-    # on three batches, the first the one a fresh default_rng(0) draws
-    # after case A's
     config_b = {
         "info": {"name": "bench_train",
                  "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
@@ -1594,9 +1698,31 @@ def phase_train(torch, dtype=None) -> dict:
     cfg_b = parse_config(config_b)
     if cfg_b.learning != LearningConfig(rate=1e-4):
         raise AssertionError(f"case B's learning config {cfg_b.learning}")
+    return {
+        "A": (cfg, freeze_flags_from_trainable(stage.trainable),
+              (lw.classification, lw.segmentation, lw.rotation),
+              stage.noise.as_tuple(), 1),
+        "B": (cfg_b, FreezeFlags(), (1.0, 1.0, 0.1), (0.01, 0.01, 0.01), 3),
+    }
+
+
+def phase_train(torch, dtype=None) -> dict:
+    """Cases A and B (phase 6; phase 11 in bf16), from a generator of the
+    phase's own (``TRAIN_SEED``): case A's batch, then case B's three."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    kind = "bf16" if dtype is not None else "f32"
+    cases = train_cases()
+    cfg, freeze, weights, jitter_m, chains = cases["A"]
+    a = train_case(
+        torch, rng, f"A kc46 final ({'vanilla' if cfg.vanilla else 'full'} "
+        f"{cfg.num_classes}/{cfg.num_parts} {kind}, {cfg.batch_size}x{cfg.input_width})",
+        cfg, freeze, weights, jitter_m, chains=chains, dtype=dtype)
+    # B on three batches, the first the one a fresh default_rng(0) draws
+    # after case A's
+    cfg_b, freeze, weights, jitter_m, chains = cases["B"]
     b = train_case(torch, rng, f"B bench train (full 23/12 {kind}, both "
-                   f"regularizers, 32x1024)", cfg_b, FreezeFlags(), (1.0, 1.0, 0.1),
-                   (0.01, 0.01, 0.01), chains=3, batches=3, dtype=dtype)
+                   f"regularizers, 32x1024)", cfg_b, freeze, weights, jitter_m,
+                   chains=chains, batches=3, dtype=dtype)
     return {"A": a, "B": b}
 
 
@@ -4125,6 +4251,675 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
     return launches
 
 
+# ------------------------------------- phase 14: multi-device and FPS forms
+
+PHASE14_FAMILY = (8, 1024)  # DGCNN's and PointNet++'s global steps: b, n
+PHASE14_SCAN = (256, 2048, 1024)  # sharded serving and chains=: b, scan, k
+PHASE14_SINGLE = 65536  # the single cloud's points
+PHASE14_TIMED = 10  # steps a timed window in (a)
+PHASE14_SEED = 14
+PHASE14_RANK = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.phase14_rank(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),"
+    " sys.argv[5])\n"
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pooled_counts() -> dict:
+    from pointcloudprocessing_tpu_torch.ops.cuda import pooled_chain
+
+    return {"fwd": pooled_chain.pooled_chain_forward.launches,
+            "bwd": pooled_chain.pooled_chain_backward.launches}
+
+
+def reset_counts() -> None:
+    from pointcloudprocessing_tpu_torch.ops.cuda import (
+        fps,
+        gather_maxmin,
+        pooled_chain,
+        voxel_reduce,
+    )
+
+    for fn in (pooled_chain.pooled_chain_forward, pooled_chain.pooled_chain_backward,
+               fps.fps_with_points, gather_maxmin.gather_maxmin,
+               voxel_reduce.sorted_segment_reduce, voxel_reduce.segment_reduce):
+        fn.launches = 0
+
+
+def kernel_counts() -> dict:
+    from pointcloudprocessing_tpu_torch.ops.cuda import fps, gather_maxmin, voxel_reduce
+
+    return {**pooled_counts(), "fps": fps.fps_with_points.launches,
+            "gather": gather_maxmin.gather_maxmin.launches,
+            "seg": voxel_reduce.sorted_segment_reduce.launches}
+
+
+def family_config(model: str, width: int):
+    """A 23/12 config of ``model`` ("dgcnn", "pointnet2") at ``width``."""
+    from pointcloudprocessing_tpu_torch.core.config import parse_config
+
+    return parse_config({
+        "info": {"name": f"smoke_{model}",
+                 "class_labels": {str(i): f"c{i}" for i in range(NUM_CLASSES)},
+                 "part_labels": {str(i): f"p{i}" for i in range(NUM_PARTS)}},
+        "params": {"input_width": width, "epochs": 1, "patience": 1,
+                   "batch_size": PHASE14_FAMILY[0], "model": model}})
+
+
+def copy_result(torch, model, logs, calls=None, counts=None) -> dict:
+    """A rank's step as CPU tensors: state, gradients, logs, pooled calls."""
+    return {"state": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+            "grads": {n: p.grad.detach().cpu().clone()
+                      for n, p in model.named_parameters() if p.grad is not None},
+            "logs": {k: v.detach().cpu().clone() for k, v in logs.items()},
+            "calls": [tuple(t.cpu() for t in c) for c in (calls or [])],
+            "counts": counts}
+
+
+def phase14_rank(rank: int, world: int, port: int, work: str) -> None:
+    """One gloo rank of phase 14 (b), sharing the card: the shard_map step
+    on identical halves (world 2), case B's global step on its rows, and
+    (world 2) DGCNN's and PointNet++'s global steps and DGCNN's global eval
+    step; writes ``rank<r>.pt`` in ``work``."""
+    import torch
+    import torch.distributed as dist
+
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.parallel import mesh as mesh_lib
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    torch.set_num_threads(1)
+    mesh_lib.initialize_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    try:
+        dev = torch.device("cuda:0")
+        mesh = mesh_lib.data_parallel_mesh(dev)
+        inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+        out = {}
+        for name, sc in inp.items():
+            if sc["worlds"] and world not in sc["worlds"]:
+                continue
+            cfg = sc["cfg"]
+            model = model_from_config(cfg, training=True, dropout_rate=sc["dropout"],
+                                      device=dev)
+            model.load_state_dict(sc["state"])
+            state, optimizer = steps.init_train_state(model, cfg.learning, sc["freeze"])
+            mesh_lib.shard_train_state(state, mesh)
+            x, targets = sc["x"], sc["targets"]
+            if sc["rows"] == "split":
+                x, targets = mesh_lib.shard_batch((x, targets), mesh)
+            else:
+                x, targets = x.to(dev), {k: v.to(dev) for k, v in targets.items()}
+            if sc["mode"] == "shard_map":
+                step = steps.make_shardmap_train_step(model, optimizer, sc["weights"],
+                                                      sc["freeze"], sc["jitter"], mesh)
+            else:
+                mesh_lib.sync_batch_stats(model, mesh)
+                step = steps.make_train_step(model, optimizer, sc["weights"],
+                                             sc["freeze"], sc["jitter"], mesh)
+            evaluated = {}
+            if sc.get("eval"):  # on the initial state, before the train step
+                reset_counts()
+                ev = steps.make_eval_step(model, sc["weights"], sc["jitter"],
+                                          mesh=mesh)(state, x, targets, 5)
+                torch.cuda.synchronize()
+                evaluated = {"eval": {k: v.cpu() for k, v in ev.items()},
+                             "eval_counts": kernel_counts()}
+            calls: list = []
+            reset_counts()
+            with record_pooled_forward(calls), record_knn() as graphs:
+                _, logs = step(state, x, targets, 0)
+            torch.cuda.synchronize()
+            out[name] = copy_result(torch, model, logs, calls, kernel_counts())
+            out[name].update(evaluated, rows=int(x.shape[0]), graphs=[
+                (f.detach().cpu(), i.cpu()) for f, i in graphs])
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, work: str) -> list:
+    import torch
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", PHASE14_RANK, REPO, str(r), str(world), str(port), work],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 14 rank {r} of {world} failed:\n"
+                                 f"{outs[r][1][-4000:]}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def load_result(torch, model, result) -> None:
+    """Put a rank's step (parameters, buffers, gradients) into ``model``."""
+    with torch.no_grad():
+        model.load_state_dict(result["state"])
+        for n, p in model.named_parameters():
+            g = result["grads"].get(n)
+            p.grad = None if g is None else g.to(p.device)
+
+
+def joined_calls(torch, results) -> list:
+    """Each pooled-forward call of the ranks' step as one call on the whole
+    batch: rows in rank order; the affine must be the same on every rank."""
+    joined = []
+    for i in range(len(results[0]["calls"])):
+        parts = [r["calls"][i] for r in results]
+        x, w, a, c_row, _, _ = parts[0]
+        for p in parts[1:]:
+            if not (torch.equal(p[1], w) and torch.equal(p[2], a)
+                    and torch.equal(p[3], c_row)):
+                raise AssertionError("the ranks' pooled chains took different "
+                                     "weights or affines")
+        dev = torch.device("cuda")
+        joined.append(tuple(torch.cat([p[j] for p in parts]).to(dev)
+                            if j in (0, 4, 5) else parts[0][j].to(dev)
+                            for j in range(6)))
+    return joined
+
+
+@contextlib.contextmanager
+def following_graphs(torch, label, graphs, counted: list, order=None):
+    """DGCNN's kNN graphs of a reference step follow the ranks' (their
+    rows joined, in ``order`` where given): wherever a row's set differs,
+    both sets are proven float64 kNN sets of their own features up to ties
+    (``tied_set``), and the reference takes the ranks' set; ``counted``
+    gets the rows taken, a graph at a time."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+
+    real, count = dgcnn_mod.knn_graph, itertools.count()
+
+    def follow(feats, k):
+        idx = real(feats, k)
+        theirs_f, theirs_i = (t.to(feats.device) for t in graphs[next(count)])
+        if order is not None:
+            theirs_f, theirs_i = theirs_f[order], theirs_i[order]
+        rows = (idx.long().sort(-1).values != theirs_i.long().sort(-1).values).any(-1)
+        for row in rows.nonzero().tolist():
+            for side, f, ix in (("reference", feats, idx), ("ranks'", theirs_f, theirs_i)):
+                gap, bar = tied_set(torch, f.float(), f.float(), ix.long(), row)
+                if gap > bar:
+                    raise AssertionError(
+                        f"{label}: the {side} kNN set of cloud {row[0]}, row {row[1]} "
+                        f"strays {gap:.3e} from the k-th float64 distance, past the "
+                        f"tie bar {bar:.3e}: not a tie")
+        counted.append(int(rows.sum()))
+        return torch.where(rows[..., None], theirs_i.to(idx.dtype), idx)
+
+    dgcnn_mod.knn_graph = follow
+    try:
+        yield
+    finally:
+        dgcnn_mod.knn_graph = real
+
+
+def same_across_ranks(torch, label, results) -> None:
+    for r, res in enumerate(results[1:], 1):
+        for k, v in res["state"].items():
+            if not torch.equal(v, results[0]["state"][k]):
+                raise AssertionError(f"{label}: rank {r}'s {k} differs from rank 0's")
+
+
+def check_against_single(torch, label, results, pristine, cfg, freeze, weights,
+                         jitter_m, x, targets, dropout) -> dict:
+    """The ranks' global step against the single-device step on the whole
+    batch: phase 6's check (:func:`check_step_against_plain`) with the
+    ranks' step as the kernels' one (their calls joined into whole-batch
+    calls for the tie rule) and the single-device steps, both through the
+    kernels."""
+    import copy
+
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    same_across_ranks(torch, label, results)
+    models = [copy.deepcopy(pristine) for _ in range(5)]
+    runs = []
+    for m in models:
+        m.dropout_rate = dropout
+        state, optimizer = steps.init_train_state(m, cfg.learning, freeze)
+        runs.append((state, optimizer, steps.make_train_step(
+            m, optimizer, weights, freeze, jitter_m)))
+    lr = float(optimizer.learning_rate(0))
+    load_result(torch, models[0], results[0])
+    reverse = torch.arange(x.shape[0] - 1, -1, -1, device=x.device)
+    graphs = [tuple(torch.cat([r["graphs"][i][j] for r in results]) for j in (0, 1))
+              for i in range(len(results[0]["graphs"]))]
+    knn_flips: list = []
+
+    def run_step(i, points):
+        state, optimizer, step = runs[i]
+        counted: list = []
+        with (following_graphs(torch, label, graphs, counted,
+                               reverse if i == 4 else None)
+              if graphs else contextlib.nullcontext()):
+            if i == 4:  # the same step on the clouds in reverse order
+                logs = permuted_step(torch, models[4], state, optimizer, weights,
+                                     freeze, jitter_m, points, targets, 0, reverse)
+            else:
+                _, logs = step(state, points, targets, 0)
+        torch.cuda.synchronize()
+        if i == 1:
+            knn_flips.append(sum(counted))
+        return logs
+
+    worst = check_step_against_plain(
+        torch, label, models, run_step, x, lr,
+        kernel=lambda: (results[0]["logs"], joined_calls(torch, results)),
+        own_ties=True, reference_kernels=True, permuted=reverse)
+    worst["knn"] = knn_flips[0] if knn_flips else 0
+    return worst
+
+
+def permuted_step(torch, model, state, optimizer, weights, freeze, jitter_m, x,
+                  targets, seed, order):
+    """The single-device train step on the clouds taken in ``order``, each
+    with the jitter and dropout draws of its own row (``RowDraws`` over the
+    whole batch): the same step, its batch sums in another order."""
+    from pointcloudprocessing_tpu_torch.parallel.mesh import RowDraws
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    jitter_g, dropout_g = steps.step_generators(seed, state.step, x.device)
+    b = x.shape[0]
+    logs = steps._forward_backward(
+        model, weights, freeze, jitter_m, x[order],
+        {k: v[order] for k, v in targets.items()},
+        RowDraws(jitter_g, b, order), RowDraws(dropout_g, b, order))
+    optimizer.update_(dict(model.named_parameters()), state.opt_state)
+    state.step += 1
+    return logs
+
+
+def steps_ms(torch, step, state, x, targets) -> float:
+    """Median ms a step over three windows of ``PHASE14_TIMED``."""
+    count, times = PHASE14_TIMED, []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(count):
+            state, _ = step(state, x, targets, 0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000 / count)
+    return float(np.median(times))
+
+
+def one_rank_group(torch, trained: dict) -> dict:
+    """(a) Cases A and B in a one-rank group (NCCL on the card): the
+    shard_map step bit for bit equal to the bare step, the global step
+    within phase 6's bars of the bare step, kernels 4 and 5 counted a step,
+    ms a step beside the bare step's and phase 6's."""
+    import copy
+
+    import torch.distributed as dist
+
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.parallel import mesh as mesh_lib
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    rng = np.random.default_rng(PHASE14_SEED)
+    counts = {"fwd": 0, "bwd": 0}
+    mesh_lib.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                                  backend="nccl")
+    try:
+        mesh = mesh_lib.data_parallel_mesh("cuda")
+        for label, (cfg, freeze, weights, jitter_m, chains) in train_cases().items():
+            b, n = cfg.batch_size, cfg.input_width
+            pristine = model_from_config(cfg, training=True, dropout_rate=0.3,
+                                         generator=torch.Generator().manual_seed(0),
+                                         device="cuda")
+            x, targets = train_batch(torch, rng, b, n, cfg.num_classes, cfg.num_parts,
+                                     "cuda")
+            made = {}
+            for kind in ("bare", "shard_map", "global"):
+                model = copy.deepcopy(pristine)
+                state, optimizer = steps.init_train_state(model, cfg.learning, freeze)
+                if kind == "bare":
+                    step = steps.make_train_step(model, optimizer, weights, freeze, jitter_m)
+                elif kind == "shard_map":
+                    step = steps.make_shardmap_train_step(model, optimizer, weights,
+                                                          freeze, jitter_m, mesh)
+                else:
+                    mesh_lib.sync_batch_stats(model, mesh)
+                    step = steps.make_train_step(model, optimizer, weights, freeze,
+                                                 jitter_m, mesh)
+                made[kind] = (model, state, step)
+            logs = {}
+            for kind in ("bare", "shard_map"):
+                model, state, step = made[kind]
+                logs[kind] = step(state, x, targets, 0)[1]
+            torch.cuda.synchronize()
+            bare, sm = made["bare"][0].state_dict(), made["shard_map"][0].state_dict()
+            for k in bare:
+                if not torch.equal(bare[k], sm[k]):
+                    raise AssertionError(f"[14 multi-device] {label}: the one-rank "
+                                         f"shard_map step's {k} differs from the bare step's")
+            for k in logs["bare"]:
+                if not torch.equal(logs["bare"][k], logs["shard_map"][k]):
+                    raise AssertionError(f"[14 multi-device] {label}: shard_map log {k}")
+            # the global step against the bare step, both through the kernels
+            models = [made["global"][0]] + [copy.deepcopy(pristine) for _ in range(3)]
+            runs = [made["global"][1:]]
+            for m in models[1:]:
+                state, optimizer = steps.init_train_state(m, cfg.learning, freeze)
+                runs.append((state, steps.make_train_step(m, optimizer, weights, freeze,
+                                                          jitter_m)))
+            lr = float(optimizer.learning_rate(0))
+
+            def run_step(i, points):
+                state, step = runs[i]
+                _, out = step(state, points, targets, 0)
+                torch.cuda.synchronize()
+                return out
+
+            worst = check_step_against_plain(torch, f"14 {label} global", models,
+                                             run_step, x, lr, own_ties=True,
+                                             reference_kernels=True)
+            # the main path: counted launches and ms a step
+            ms = {}
+            for kind in ("shard_map", "global", "bare"):
+                model, state, step = made[kind]
+                reset_counts()
+                ms[kind] = steps_ms(torch, step, state, x, targets)
+                got = pooled_counts()
+                want = 3 * PHASE14_TIMED * chains
+                if got != {"fwd": want, "bwd": want}:
+                    raise AssertionError(f"[14 multi-device] {label} {kind}: pooled "
+                                         f"launches {got}, want {want} each")
+                if kind != "bare":
+                    counts = {k: counts[k] + got[k] for k in counts}
+            phase6 = (1000.0 / trained[label]["steps_per_s"] if label in trained
+                      else float("nan"))
+            log(f"[14 multi-device] (a) {label} ({b}x{n}), one-rank NCCL "
+                f"group: shard_map step bit for bit the bare step (state, logs); "
+                f"global step within phase 6's bars of the bare step (argmax flips "
+                f"{worst['ties']}, each a proven tie; worst over its bar: losses "
+                f"{worst['loss']:.3f}, grads {worst['grad']:.3f}, running statistics "
+                f"{worst['stat']:.3f}; largest param difference {worst['param']:.3f} "
+                f"lr); pooled launches {chains} a step each; ms a step (median of 3 "
+                f"windows of {PHASE14_TIMED}): shard_map {ms['shard_map']:.4f}, "
+                f"global {ms['global']:.4f}, bare {ms['bare']:.4f} (phase 6: "
+                f"{phase6:.4f})")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def gloo_ranks_on_card(torch) -> dict:
+    """(b) Gloo ranks sharing the card: case B's shard_map step on identical
+    halves bit for bit the 16-row single step; its global step on 2 ranks
+    (16/16) and 3 ranks (10/11/11) within phase 6's bars of the 32-row single
+    step, with its tie rule; parameters equal across ranks; DGCNN and
+    PointNet++ one global step each at 8x1024 within the same bars of the
+    single-device step, DGCNN's global eval step (kernel 7), PointNet++'s
+    FPS (kernel 2) counted."""
+    import copy
+
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    rng = np.random.default_rng(PHASE14_SEED + 1)
+    cfg_b, freeze_b, weights_b, jitter_b, _ = train_cases()["B"]
+    pristine = model_from_config(cfg_b, training=True, dropout_rate=0.3,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device="cuda")
+    x, targets = train_batch(torch, rng, cfg_b.batch_size, cfg_b.input_width,
+                             NUM_CLASSES, NUM_PARTS, "cuda")
+    def cpu(t):
+        return t.detach().cpu()
+
+    x, targets = cpu(x), {k: cpu(v) for k, v in targets.items()}
+    state_b = {k: cpu(v) for k, v in pristine.state_dict().items()}
+    half = cfg_b.batch_size // 2
+    base = dict(cfg=cfg_b, freeze=freeze_b, weights=weights_b, state=state_b)
+    inputs = {
+        "sm_same": dict(base, worlds=(2,), mode="shard_map", rows="all", dropout=0.0,
+                        jitter=(0.0, 0.0, 0.0), x=x[:half],
+                        targets={k: v[:half] for k, v in targets.items()}),
+        "global_b": dict(base, worlds=(), mode="global", rows="split", dropout=0.3,
+                         jitter=jitter_b, x=x, targets=targets),
+    }
+    families = {}
+    fb, fn = PHASE14_FAMILY
+    for family in ("dgcnn", "pointnet2"):
+        cfg = family_config(family, fn)
+        model = model_from_config(cfg, training=True, dropout_rate=0.3,
+                                  generator=torch.Generator().manual_seed(0),
+                                  device="cuda")
+        fx, ft = train_batch(torch, rng, fb, fn, NUM_CLASSES, NUM_PARTS, "cuda")
+        families[family] = (cfg, model, fx, ft)
+        inputs[family] = dict(cfg=cfg, freeze=freeze_b, weights=weights_b,
+                              state={k: cpu(v) for k, v in model.state_dict().items()},
+                              worlds=(2,), mode="global", rows="split", dropout=0.3,
+                              jitter=jitter_b, x=cpu(fx),
+                              targets={k: cpu(v) for k, v in ft.items()},
+                              eval=family == "dgcnn")
+    counts = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0}
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(inputs, os.path.join(work, "inputs.pt"))
+        t0 = time.perf_counter()
+        two = spawn_ranks(2, work)
+        three = spawn_ranks(3, work)
+        spawn_s = time.perf_counter() - t0
+    for results in (two, three):
+        for res in results:
+            for sc in res.values():
+                for k in counts:
+                    counts[k] += sc["counts"][k] + sc.get("eval_counts", {}).get(k, 0)
+    dev = torch.device("cuda")
+    # shard_map on identical halves: the 16-row single step, bit for bit
+    single = copy.deepcopy(pristine)
+    single.dropout_rate = 0.0
+    st, opt = steps.init_train_state(single, cfg_b.learning, freeze_b)
+    _, logs = steps.make_train_step(single, opt, weights_b, freeze_b, (0.0, 0.0, 0.0))(
+        st, x[:half].to(dev), {k: v[:half].to(dev) for k, v in targets.items()}, 0)
+    torch.cuda.synchronize()
+    for res in two:
+        got = res["sm_same"]
+        for k, v in single.state_dict().items():
+            if not torch.equal(got["state"][k], v.cpu()):
+                raise AssertionError(f"[14 multi-device] shard_map on identical halves: "
+                                     f"{k} differs from the 16-row single step")
+        for k, v in logs.items():
+            scale = 1 if k == "loss" or k.endswith("_loss") else 2
+            if not torch.equal(got["logs"][k], scale * v.cpu()):
+                raise AssertionError(f"[14 multi-device] shard_map log {k}")
+    log("[14 multi-device] (b) 2 gloo ranks on one card: case B's shard_map step "
+        f"on identical halves ({half} rows each, dropout and jitter off) bit for bit "
+        f"the {half}-row single step (state, losses; metric sums 2x)")
+    full = (x.to(dev), {k: v.to(dev) for k, v in targets.items()})
+    for results in (two, three):
+        rows = [r["global_b"]["rows"] for r in results]
+        worst = check_against_single(torch, f"14 global {rows}", [
+            r["global_b"] for r in results], pristine, cfg_b, freeze_b, weights_b,
+            jitter_b, *full, 0.3)
+        log(f"[14 multi-device] (b) case B global step on {len(results)} gloo ranks, "
+            f"rows {rows}: within phase 6's bars of the {cfg_b.batch_size}-row single "
+            f"step (argmax flips {worst['ties']}, each a proven tie; worst over its "
+            f"bar: losses {worst['loss']:.3f}, grads {worst['grad']:.3f}, running "
+            f"statistics {worst['stat']:.3f}; largest param difference "
+            f"{worst['param']:.3f} lr); parameters equal across ranks")
+    for family, (cfg, model, fx, ft) in families.items():
+        worst = check_against_single(torch, f"14 {family}", [r[family] for r in two],
+                                     model, cfg, freeze_b, weights_b, jitter_b,
+                                     fx.to(dev), {k: v.to(dev) for k, v in ft.items()},
+                                     0.3)
+        launches = [r[family]["counts"] for r in two]
+        extra = ""
+        if family == "pointnet2":
+            fps = [c["fps"] for c in launches]
+            if fps != [2, 2]:
+                raise AssertionError(f"[14 multi-device] pointnet2 FPS launches {fps}")
+            extra = f"; FPS launches {fps} (twice a forward a rank)"
+        else:
+            ev = [r[family]["eval_counts"]["gather"] for r in two]
+            if ev != [4, 4]:
+                raise AssertionError(f"[14 multi-device] dgcnn eval gather launches {ev}")
+            st, _ = steps.init_train_state(model, cfg.learning, freeze_b)
+            want = steps.make_eval_step(model, weights_b, jitter_b)(
+                st, fx.to(dev), {k: v.to(dev) for k, v in ft.items()}, 5)
+            rel = max(abs(float(two[0][family]["eval"][k]) - float(v))
+                      / max(abs(float(v)), 1e-30) for k, v in want.items())
+            if rel > 1e-5:
+                raise AssertionError(f"[14 multi-device] dgcnn global eval logs {rel:.3e} "
+                                     "from the single-device eval step")
+            extra = (f"; global eval step: kernel 7 launches {ev} (four a forward a "
+                     f"rank), logs within {rel:.2e} of the single-device eval step")
+        if family == "dgcnn":
+            extra += (f"; kNN rows flipped {worst['knn']}, each a proven tie, the "
+                      "single-device steps taking the ranks' sets there")
+        log(f"[14 multi-device] (b) {family} {fb}x{fn} global step on 2 gloo ranks: "
+            f"within phase 6's bars of the single-device step (worst over its bar: "
+            f"losses {worst['loss']:.3f}, grads {worst['grad']:.3f}, running "
+            f"statistics {worst['stat']:.3f}; largest param difference "
+            f"{worst['param']:.3f} lr){extra}")
+    log(f"[14 multi-device] (b) the rank processes took {spawn_s:.1f} s (2 then 3 "
+        "ranks, each importing torch and loading the kernels)")
+    return counts
+
+
+def sharded_serving(torch, rng, model) -> dict:
+    """(c) ``PointCloudPipeline(mesh=[card, card])`` at 256x2048 -> voxel 0.4
+    -> FPS -> 1024: FPS picks identical to the single-device pipeline's,
+    heads within 1e-4, kernels 1 and 2 launched once a shard."""
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import monotone_segment_sum
+
+    b, scan, k = PHASE14_SCAN
+    scans = scan_batch(rng, "uniform", b, scan)
+    kw = dict(scan_width=scan, model_width=k, voxel_size=0.4)
+    sharded = PointCloudPipeline(model, mesh=["cuda"] * 2, **kw)
+    single = PointCloudPipeline(model, **kw)
+    picks = {"sharded": [], "single": []}
+
+    def recorder(into):
+        def fps(*args, **kwargs):
+            idx, sampled = fps_with_points(*args, **kwargs)
+            into.append(idx)
+            return idx, sampled
+        return fps
+
+    with route_kernels(monotone_segment_sum, recorder(picks["single"])):
+        want = single(scans)
+    reset_counts()
+    with route_kernels(monotone_segment_sum, recorder(picks["sharded"])):
+        got = sharded(scans)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    if (counts["seg"], counts["fps"]) != (2, 2):
+        raise AssertionError(f"[14 multi-device] sharded serving launches: kernel 1 "
+                             f"{counts['seg']}, kernel 2 {counts['fps']}, want 2 each")
+    if not torch.equal(torch.cat(picks["sharded"]), torch.cat(picks["single"])):
+        raise AssertionError("[14 multi-device] sharded FPS picks differ")
+    check_outputs(torch, got, b, k)
+    diff = max_diff(got, want)
+    if diff > 1e-4:
+        raise AssertionError(f"[14 multi-device] sharded heads {diff:.3e} from single")
+    log(f"[14 multi-device] (c) PointCloudPipeline(mesh=[cuda] * 2) at "
+        f"{b}x{scan} -> voxel 0.4 -> FPS -> {k}: FPS picks identical to the "
+        f"single-device pipeline's, heads within {diff:.2e}; kernel 1 launches "
+        f"{counts['seg']}, kernel 2 {counts['fps']} (once a shard)")
+    return {"seg": counts["seg"], "fps": counts["fps"]}
+
+
+def fps_forms(torch, rng) -> dict:
+    """(d) ``chains=4`` on the path's voxel output against the plain version
+    (identical picks, bit-identical coordinates, one launch); single-cloud
+    FPS at 65,536 points against the plain version."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import (
+        fps_with_points_reference,
+        kernel_form,
+    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import monotone_segment_sum
+    from pointcloudprocessing_tpu_torch.ops.fps import (
+        farthest_point_sample,
+        farthest_point_sample_and_gather,
+    )
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    b, scan, k = PHASE14_SCAN
+    x = torch.from_numpy(scan_batch(rng, "uniform", b, scan)).to("cuda")
+    vox, vmask = voxel_downsample_batch(x, 0.4, layout="bcn")
+    reset_counts()
+    idx, sampled = farthest_point_sample_and_gather(vox, k, vmask, chains=4,
+                                                    layout="bcn")
+    torch.cuda.synchronize()
+    launches = kernel_counts()["fps"]
+    with route_kernels(monotone_segment_sum, fps_with_points_reference):
+        want_idx, want_pts = farthest_point_sample_and_gather(vox, k, vmask, chains=4,
+                                                              layout="bcn")
+    if launches != 1:
+        raise AssertionError(f"[14 fps] chains=4: {launches} launches, want 1")
+    if not (torch.equal(idx, want_idx) and torch.equal(sampled, want_pts)):
+        raise AssertionError("[14 fps] chains=4 differs from the plain version")
+    n = PHASE14_SINGLE
+    cloud = torch.from_numpy(rng.uniform(-20, 20, (n, 3)).astype(np.float32)).to(
+        "cuda")
+    reset_counts()
+    one = farthest_point_sample(cloud, k)
+    torch.cuda.synchronize()
+    single_launches = kernel_counts()["fps"]
+    valid = torch.ones((1, n), dtype=torch.bool, device=cloud.device)
+    want_one = fps_with_points_reference(
+        cloud[None], k, valid, torch.zeros(1, dtype=torch.int32, device=cloud.device))[0][0]
+    if not torch.equal(one, want_one):
+        raise AssertionError("[14 fps] single-cloud FPS differs from the plain version")
+    log(f"[14 fps] (d) chains=4 on the path's voxel output ({b}x{scan} at 0.4, "
+        f"bcn) -> {k}: one launch over {b * 4} clouds of {scan // 4}, picks identical "
+        f"and coordinates bit-identical to the plain version; single-cloud FPS at "
+        f"{n} points -> {k} ({kernel_form(1, n)[0]} form, {single_launches} launch): "
+        "picks identical to the plain version")
+    return {"fps": launches + single_launches}
+
+
+def phase_multidevice(torch, trained: dict, model) -> dict:
+    """Phase 14: multi-device training and serving, and the FPS forms."""
+    from pointcloudprocessing_tpu_torch.graft_entry import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(PHASE14_SEED + 2)
+    launches = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "seg": 0}
+    for part in (one_rank_group(torch, trained), gloo_ranks_on_card(torch),
+                 sharded_serving(torch, rng, model), fps_forms(torch, rng)):
+        for k, v in part.items():
+            launches[k] += v
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        dryrun_multichip(2, device="cuda")
+    lines = out.getvalue().strip().splitlines()
+    if not lines or not lines[-1].startswith("dryrun_multichip OK"):
+        raise AssertionError(f"[14 dryrun] {out.getvalue()}")
+    for line in lines:
+        log(f"[14 dryrun] (e) {line}")
+    log(f"[14 dryrun] (e) dryrun_multichip(2) on the card took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[14 multi-device] launches in phase 14 (this process and the ranks): "
+        f"{launches}; phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4169,9 +4964,12 @@ def main() -> int:
         log(f"chip_smoke: phases 1-12 took {time.perf_counter() - t_start:.1f} s")
         # phase 13 reads phase 10's stages
         exported = phase_export(torch, card, trainer_root, trainer)
+    log(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+    multi = phase_multidevice(torch, trained, model)
     pooled_launches = {
         k: trained["A"]["launches"][k] + trained["B"]["launches"][k]
-        + trainer["launches"][k] + synthesis["launches"][k] for k in ("fwd", "bwd")}
+        + trainer["launches"][k] + synthesis["launches"][k] + multi[k]
+        for k in ("fwd", "bwd")}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None) -> dict:
@@ -4184,15 +4982,16 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms}
 
-    log(f"chip_smoke: phases 1-13 took {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-14 took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [
         entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
-              sliced["launches"]["seg"], kernels["seg_err"], kernels["seg_ms"],
+              sliced["launches"]["seg"] + multi["seg"], kernels["seg_err"],
+              kernels["seg_ms"],
               kernels["seg_plain_ms"], kernels["seg_bound"],
               kernels["seg_library_ms"]),
         entry("fps_with_points", FPS_SRC, FPS_TPU,
               sliced["launches"]["fps"] + pn2["fps_launches"]
-              + trainer["launches"]["fps"] + exported["fps"],
+              + trainer["launches"]["fps"] + exported["fps"] + multi["fps"],
               kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
               kernels["fps_bound"]),
         entry("pooled_chain_forward", POOLED_SRC, POOLED_FWD_TPU,
@@ -4204,7 +5003,8 @@ def main() -> int:
         entry("windowed_moment_sums", WINDOW_SRC, WINDOW_TPU, normals["launches"],
               window["err"], window["ms"], window["plain_ms"], window["bound"]),
         entry("gather_maxmin", GATHER_SRC, GATHER_TPU,
-              dgcnn["launches"] + trainer["launches"]["gather"] + exported["gather"],
+              dgcnn["launches"] + trainer["launches"]["gather"] + exported["gather"]
+              + multi["gather"],
               max(gather["err"], trainer["gather_err"]), gather["ms"],
               gather["plain_ms"], gather["bound"]),
         entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU, pn2["any_launches"],

@@ -19,13 +19,19 @@ dataset manager) are its own copies.
 - ``models``: the multi-head PointNet (inference and train mode), its
               T-Nets and blocks, DGCNN (inference and train-mode forward),
               ``model_from_config`` (on CUDA unless asked for the CPU),
-              ``PointCloudPipeline`` (scans -> voxel -> sampler -> model),
+              ``PointCloudPipeline`` (scans -> voxel -> sampler -> model,
+              on one device or sharded over several),
               and the legacy classifier and T-Net regressor.
-- ``train``:  the losses, the single-device train, eval and predict steps
-              for every family (Adam with freeze masks), the callbacks on
-              torch checkpoints, the staged trainer ``TrainProfile`` and
-              its CLI (``python -m pointcloudprocessing_tpu_torch.train.cli``),
-              and the optimizer-by-rate grid (``train/hypertune.py``).
+- ``train``:  the losses, the train, eval and predict steps for every
+              family (Adam with freeze masks; single-device, and the global
+              and shard_map multi-device modes), the callbacks on torch
+              checkpoints, the staged trainer ``TrainProfile`` and its CLI
+              (``python -m pointcloudprocessing_tpu_torch.train.cli``, also
+              under ``torchrun``), and the optimizer-by-rate grid
+              (``train/hypertune.py``).
+- ``parallel``: process groups (NCCL, or gloo when asked for), the
+              process-group and in-process meshes, row shares, state
+              broadcast and group batch statistics.
 - ``data``:   AftrBurner frames and pose logs, the TFRecord codec,
               ``PointCloudSet`` (ingest, splits) and the batch loaders.
 - ``synthesis``: meshes, procedural shapes, viewpoint observations with

@@ -31,6 +31,15 @@ step reaches it only when a frozen chain sits below a trained parameter
 ``requires_grad`` off on frozen parameters, so a frozen input T-Net, which
 only raw points feed, runs without autograd.
 
+Over a process group (``parallel.mesh.sync_batch_stats``, the global
+training mode) the forward sums ``x^T 1``, ``x^T x`` and the row count over
+the ranks before the statistics, so the kernels run on each rank's rows
+with the global affine; the backward sums the two statistics terms
+(``sum1``, ``sum2``) over the ranks for the dense term and returns this
+rank's share of the parameters' gradients. The JAX package's GSPMD mode
+drops its Pallas chains only because GSPMD cannot partition a custom call;
+the function is the same, so the port keeps its kernels there.
+
 The (c_in, c_in) products ``x^T x`` and ``W (x^T x) W^T`` are
 ``torch.matmul`` outside the kernels; the JAX package pins them to full f32
 precision, so TF32 must stay off (it is off by default for matmuls).
@@ -47,6 +56,7 @@ normalizing scale, the affine), and whose backward rounds dk to bf16.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
@@ -68,7 +78,7 @@ class _BatchStatsChain(torch.autograd.Function):
     f32 or (``dtype``) on the kernels' bf16 forms."""
 
     @staticmethod
-    def forward(ctx, x, weight, scale, bias, eps, dtype):
+    def forward(ctx, x, weight, scale, bias, eps, dtype, group):
         in_dtype = x.dtype
         if dtype is not None:
             x = x.to(dtype)
@@ -77,9 +87,15 @@ class _BatchStatsChain(torch.autograd.Function):
         x2 = x.reshape(num, c_in).float()
         xsum = x2.sum(dim=0)
         gram = torch.matmul(x2.t(), x2)  # (c_in, c_in)
+        xsum_g, gram_g = xsum, gram
+        if group is not None:  # the statistics of every rank's rows
+            total = torch.cat([xsum, gram.reshape(-1), xsum.new_full((1,), num)])
+            dist.all_reduce(total, group=group)
+            xsum_g, gram_g = total[:c_in], total[c_in:-1].reshape(c_in, c_in)
+            num = total[-1]
         kf = weight.t()  # the Flax kernel (c_in, c)
-        gw = torch.matmul(gram, kf)
-        mean = torch.matmul(xsum, kf) / num
+        gw = torch.matmul(gram_g, kf)
+        mean = torch.matmul(xsum_g, kf) / num
         var = (gw * kf).sum(dim=0) / num - torch.square(mean)
         inv = torch.rsqrt(var + eps)
         a = scale * inv
@@ -90,7 +106,7 @@ class _BatchStatsChain(torch.autograd.Function):
         xhat_w = _winner_xhat(pooled, scale, bias)
         ctx.save_for_backward(x, weight, w_op, scale, pooled, mean, var,
                               argmax, xhat_w, xsum, gram)
-        ctx.eps, ctx.in_dtype = eps, in_dtype
+        ctx.eps, ctx.in_dtype, ctx.num, ctx.group = eps, in_dtype, num, group
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
@@ -98,8 +114,7 @@ class _BatchStatsChain(torch.autograd.Function):
     def backward(ctx, g_out, _g_mean, _g_var):
         (x, weight, w_op, scale, pooled, mean, var, argmax, xhat_w, xsum,
          gram) = ctx.saved_tensors
-        b, n, _ = x.shape
-        num = b * n
+        num = ctx.num
         kernel = weight.t()  # (c_in, c)
         inv = torch.rsqrt(var + ctx.eps)
         s = scale * inv
@@ -109,6 +124,13 @@ class _BatchStatsChain(torch.autograd.Function):
         dscale = (dy_w * xhat_w).sum(dim=0)
         coef = dy_w * s
         sum1, sum2 = dbias, dscale
+        if ctx.group is not None:
+            # the statistics' gradient terms sum over every rank's rows; the
+            # parameters' gradients stay this rank's share (dscale, dbias
+            # and dweight below), which the step's all-reduce sums once
+            sums = torch.cat([dbias, dscale])
+            dist.all_reduce(sums, group=ctx.group)
+            sum1, sum2 = sums.chunk(2)
         # dense batch-statistics term D = -(1/N) s (sum1 + xhat sum2),
         # factored through the matmul: D @ W = x @ m_small + const_row
         q = -(s * sum2 * inv) / num
@@ -118,7 +140,7 @@ class _BatchStatsChain(torch.autograd.Function):
         dx, dk_sparse = pooled_chain_backward(
             x, w_op, coef.contiguous(), argmax, m_small.contiguous(),
             const_row.contiguous())
-        # dW dense part: x^T D = -(1/N) [ (x^T 1)(s sum1)^T
+        # dW dense part over this rank's rows: x^T D = -(1/N) [ (x^T 1)(s sum1)^T
         #                 + (x^T x W - (x^T 1) mu^T) diag(inv s sum2) ]
         dk_dense = -(
             torch.outer(xsum, s * sum1)
@@ -126,7 +148,7 @@ class _BatchStatsChain(torch.autograd.Function):
             * (inv * s * sum2)[None, :]
         ) / num
         dweight = (dk_sparse + dk_dense).t()
-        return dx.to(ctx.in_dtype), dweight, dscale, dbias, None, None
+        return dx.to(ctx.in_dtype), dweight, dscale, dbias, None, None, None
 
 
 def _running_forward(x, weight, scale, bias, running_mean, running_var, eps,
@@ -184,14 +206,16 @@ def dense_bn_relu_max(
     eps: float,
     use_running: bool = True,
     dtype: torch.dtype | None = None,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (b, n, c_in), weight (c, c_in) -> (pooled (b, c) f32, batch_mean,
     batch_var), computed in ``dtype`` (None: f32; or bf16). With
     ``use_running`` the running statistics normalize and come back
-    unchanged; otherwise the batch's own statistics do, and the caller
+    unchanged; otherwise the batch's own statistics do (over every rank of
+    the process group ``group`` where one is given), and the caller
     updates its running statistics from the returned ones."""
     if not use_running:
-        return _BatchStatsChain.apply(x, weight, scale, bias, eps, dtype)
+        return _BatchStatsChain.apply(x, weight, scale, bias, eps, dtype, group)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, weight, scale, bias)):
         pooled = _RunningStatsChain.apply(

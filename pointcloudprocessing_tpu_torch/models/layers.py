@@ -40,6 +40,7 @@ from pointcloudprocessing_tpu_torch.core.constants import (
     KERAS_BN_MOMENTUM,
 )
 from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
+from pointcloudprocessing_tpu_torch.parallel.mesh import group_moments
 
 
 def require_device(device: torch.device | str) -> torch.device:
@@ -110,7 +111,10 @@ class BatchNorm(nn.Module):
     ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, Flax's order, with
     the running statistics or (``use_running=False``) the batch's own, in
     f32; the result is rounded to ``dtype`` where one is set. ``momentum``
-    is the running statistics' EMA factor (Keras's 0.99 by default)."""
+    is the running statistics' EMA factor (Keras's 0.99 by default).
+    ``stats_group`` (set by ``parallel.mesh.sync_batch_stats``; None: this
+    process's rows) is the process group whose rows the batch statistics
+    cover."""
 
     def __init__(self, features: int, *, momentum: float = KERAS_BN_MOMENTUM,
                  device=None, dtype: torch.dtype | None = None):
@@ -121,6 +125,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor, *, use_running: bool) -> torch.Tensor:
         x = x.float()
@@ -128,9 +133,12 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp(torch.square(x).mean(dim=axes) - torch.square(mean),
-                              min=0.0)
+            if self.stats_group is None:
+                mean = x.mean(dim=axes)
+                var = torch.clamp(
+                    torch.square(x).mean(dim=axes) - torch.square(mean), min=0.0)
+            else:
+                mean, var = group_moments(x, axes, self.stats_group)
             self.update_running(mean, var)
         mul = torch.rsqrt(var + KERAS_BN_EPSILON) * self.weight
         y = (x - mean) * mul + self.bias
@@ -272,6 +280,7 @@ class PooledPointwiseBlock(nn.Module):
         pooled, mean, var = dense_bn_relu_max(
             x, self.conv.weight, bn.weight, bn.bias, bn.running_mean,
             bn.running_var, KERAS_BN_EPSILON, use_running, self.dtype,
+            bn.stats_group,
         )
         if not use_running:
             bn.update_running(mean, var)

@@ -9,6 +9,13 @@ sum and FPS run the hand-written kernels of ``csrc/``; the segment sum
 takes the any-rank kernel at a scan width that 128 does not divide, as the
 JAX package does (``ops/cuda/voxel_reduce.py``).
 
+``mesh=`` serves data-parallel from one process over a list of devices
+(``parallel.mesh.local_mesh``; repeats allowed), as the JAX package's
+shard_map serving does: a model replica on each listed device, the batch
+split into equal shards (a batch the shard count does not divide raises),
+each shard's voxel -> sampler -> model on its device with no collectives,
+and the outputs concatenated on the first device.
+
 Usage::
 
     pipe = PointCloudPipeline(model, scan_width=2048, model_width=1024,
@@ -23,6 +30,8 @@ import queue
 import threading
 from typing import Iterable, Iterator
 
+import copy
+
 import numpy as np
 import torch
 from torch import nn
@@ -33,6 +42,7 @@ from pointcloudprocessing_tpu_torch.ops.fps import (
     stride_sample_and_gather,
 )
 from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+from pointcloudprocessing_tpu_torch.parallel.mesh import DataParallelMesh, local_mesh
 
 
 class PointCloudPipeline:
@@ -44,6 +54,7 @@ class PointCloudPipeline:
         voxel_size: float | None = None,
         sampler: str = "fps",
         heads: tuple[str, ...] = ALL_HEADS,
+        mesh: DataParallelMesh | list | tuple | None = None,
     ):
         """Args:
         model: a model with the head contract (PointNet, PointNet++,
@@ -55,9 +66,28 @@ class PointCloudPipeline:
           (O(n) Morton-stride sampling over the voxel output) or "head"
           (truncation of the voxel output).
         heads: model outputs to compute.
+        mesh: devices to serve from in parallel (an in-process mesh, or a
+          list of devices); None serves on the model's device.
         """
         self.model = model.eval()
         self.device = next(model.parameters()).device
+        if mesh is None:
+            self.devices = (self.device,)
+        else:
+            if not isinstance(mesh, DataParallelMesh):
+                mesh = local_mesh(mesh)
+            if mesh.group is not None:
+                raise ValueError("serving takes the in-process form of the mesh "
+                                 "(one process over a list of devices)")
+            self.devices = mesh.devices
+            self.device = self.devices[0]
+        # a replica of the model on each device (one for repeats of a device)
+        self.replicas = {}
+        for device in self.devices:
+            if device not in self.replicas:
+                self.replicas[device] = (
+                    self.model if device == next(model.parameters()).device
+                    else copy.deepcopy(self.model).to(device))
         self.scan_width = scan_width
         self.model_width = model_width
         self.voxel_size = voxel_size
@@ -76,8 +106,16 @@ class PointCloudPipeline:
         self.sampler = sampler
         self.heads = tuple(heads)
 
+    def _run(self, shards: list[torch.Tensor]) -> dict[str, torch.Tensor]:
+        """One batch's shards, each on its device -> the model outputs,
+        concatenated on the first device."""
+        outs = [self._run_one(self.replicas[s.device], s) for s in shards]
+        if len(outs) == 1:
+            return outs[0]
+        return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+
     @torch.inference_mode()
-    def _run(self, points: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _run_one(self, model: nn.Module, points: torch.Tensor) -> dict[str, torch.Tensor]:
         mask = None
         # plane-major (b, 3, n) between the voxel downsample and FPS: the FPS
         # kernel then loads its coordinate planes with unit stride
@@ -95,28 +133,43 @@ class PointCloudPipeline:
             _, sampled = stride_sample_and_gather(points, self.model_width, mask)
         else:
             sampled = points[:, : self.model_width]
-        return self.model(sampled, heads=self.heads)
+        return model(sampled, heads=self.heads)
+
+    def _split(self, b: int) -> list[slice]:
+        shards = len(self.devices)
+        if b % shards:
+            raise ValueError(f"batch of {b} scans does not split into {shards} "
+                             "equal shards")
+        size = b // shards
+        return [slice(i * size, (i + 1) * size) for i in range(shards)]
 
     def __call__(self, scans) -> dict[str, torch.Tensor]:
         """One batch: (b, scan_width, 3) array or tensor -> model outputs on
-        the model's device."""
-        scans = torch.as_tensor(scans, dtype=torch.float32, device=self.device)
+        the (first) device."""
+        scans = torch.as_tensor(scans, dtype=torch.float32)
         if scans.shape[1] != self.scan_width:
             raise ValueError(
                 f"Expected scans of width {self.scan_width}, got {scans.shape[1]}"
             )
-        return self._run(scans)
+        return self._run([scans[rows].to(device) for rows, device in
+                          zip(self._split(scans.shape[0]), self.devices)])
 
-    def _stage(self, batch, copy_stream) -> tuple[torch.Tensor, object]:
-        """Host batch -> device tensor, plus the event its copy records."""
+    def _stage(self, batch, copy_streams) -> list[tuple[torch.Tensor, object]]:
+        """Host batch -> each shard on its device, with the event its copy
+        records (None off CUDA)."""
         host = torch.from_numpy(np.ascontiguousarray(batch, dtype=np.float32))
-        if copy_stream is None:
-            return host.to(self.device), None
-        with torch.cuda.stream(copy_stream):
-            staged = host.pin_memory().to(self.device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(copy_stream)
-        return staged, done
+        staged = []
+        for rows, device in zip(self._split(host.shape[0]), self.devices):
+            stream = copy_streams.get(device)
+            if stream is None:
+                staged.append((host[rows].to(device), None))
+                continue
+            with torch.cuda.stream(stream):
+                shard = host[rows].pin_memory().to(device, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(stream)
+            staged.append((shard, done))
+        return staged
 
     def stream(
         self,
@@ -124,13 +177,13 @@ class PointCloudPipeline:
         prefetch: int = 2,
     ) -> Iterator[dict[str, torch.Tensor]]:
         """Pipelined inference: a background thread stages host batches onto
-        the device (pinned memory, non-blocking copies on a side stream)
-        while the current batch computes."""
+        the devices, each shard to its own (pinned memory, non-blocking
+        copies on a side stream of each device) while the current batch
+        computes."""
         q: queue.Queue = queue.Queue(maxsize=prefetch)
         stop = threading.Event()
-        copy_stream = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
-        )
+        copy_streams = {d: torch.cuda.Stream(d) for d in self.replicas
+                        if d.type == "cuda"}
 
         def _put(item) -> bool:
             while not stop.is_set():
@@ -146,7 +199,7 @@ class PointCloudPipeline:
             # iterator raises — otherwise q.get() blocks forever
             try:
                 for batch in batches:
-                    if not _put(self._stage(batch, copy_stream)):
+                    if not _put(self._stage(batch, copy_streams)):
                         return
             finally:
                 _put(None)
@@ -158,13 +211,13 @@ class PointCloudPipeline:
                 item = q.get()
                 if item is None:
                     return
-                staged, done = item
-                if done is not None:
-                    compute = torch.cuda.current_stream(self.device)
-                    compute.wait_event(done)
-                    # the copy stream allocated it; the compute stream uses it
-                    staged.record_stream(compute)
-                yield self._run(staged)
+                for staged, done in item:
+                    if done is not None:
+                        compute = torch.cuda.current_stream(staged.device)
+                        compute.wait_event(done)
+                        # the copy stream allocated it; the compute stream uses it
+                        staged.record_stream(compute)
+                yield self._run([staged for staged, _ in item])
         finally:
             stop.set()
             while thread.is_alive():

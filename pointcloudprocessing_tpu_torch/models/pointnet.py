@@ -37,6 +37,7 @@ from pointcloudprocessing_tpu_torch.models.layers import (
 )
 from pointcloudprocessing_tpu_torch.models.tnet import TNet, orthogonality_loss
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
+from pointcloudprocessing_tpu_torch.parallel.mesh import draw
 
 ALL_HEADS = ("classification_output", "segmentation_output", "se3")
 
@@ -72,14 +73,14 @@ def dropout(x: torch.Tensor, rate: float,
     """Flax ``nn.Dropout`` in train mode: keep each value with probability
     ``1 - rate`` and scale it by ``1 / (1 - rate)``; rate 0 is the
     identity. The keep mask comes from ``generator`` (``F.dropout`` takes
-    none)."""
+    none), or a ``parallel.mesh.RowDraws``'s rows of a whole-batch mask."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError(
             f"dropout at rate {rate} in train mode needs a torch.Generator")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    keep = draw(torch.rand, x.shape, generator, device=x.device) < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 

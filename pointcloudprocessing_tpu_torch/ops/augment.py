@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from pointcloudprocessing_tpu_torch.models.layers import require_device
+from pointcloudprocessing_tpu_torch.parallel.mesh import draw
 
 
 def jitter(
@@ -16,8 +17,8 @@ def jitter(
     """Add per-axis gaussian jitter, drawn from ``generator``, to point
     clouds of shape (..., n, 3): ``points + noise * stdev``."""
     stdev = torch.tensor(stdev_m, dtype=points.dtype, device=points.device)
-    noise = torch.randn(points.shape, generator=generator, dtype=points.dtype,
-                        device=points.device)
+    noise = draw(torch.randn, points.shape, generator, dtype=points.dtype,
+                 device=points.device)
     return points + noise * stdev
 
 

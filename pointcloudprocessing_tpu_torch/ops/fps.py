@@ -21,8 +21,8 @@ from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
     monotone_segment_sum,
 )
 
-#: largest (b, n, n) f32 distance matrix 'auto' builds on the CPU
-_MAX_DISTMAT_BYTES = 2 * 1024**3
+#: largest (b, n, n) f32 distance matrix 'auto' builds on the CPU, by default
+_DEFAULT_DISTMAT_BYTES = 2 * 1024**3
 
 
 def _seed_indices(valid_mask: torch.Tensor, start_index: int) -> torch.Tensor:
@@ -94,6 +94,7 @@ def farthest_point_sample_batch(
     valid_mask: torch.Tensor | None = None,
     start_index: int = 0,
     method: str = "auto",
+    max_distmat_bytes: int = _DEFAULT_DISTMAT_BYTES,
 ) -> torch.Tensor:
     """FPS over a batch of padded clouds: (b, n, 3) -> (b, num_samples) int32.
 
@@ -102,9 +103,10 @@ def farthest_point_sample_batch(
       start_index: seed index (the first valid point of a cloud whose seed
         row is invalid).
       method: 'auto' (the kernel on a CUDA tensor; on the CPU 'distmat'
-        while b*n*n*4 bytes fit ``_MAX_DISTMAT_BYTES``, else 'stream', and
+        while b*n*n*4 bytes fit ``max_distmat_bytes``, else 'stream', and
         under ``torch.export`` the stream form as one loop), 'distmat' or
         'stream'.
+      max_distmat_bytes: the CPU 'auto' rule's budget (2 GiB).
 
     With fewer valid points than num_samples, picks repeat.
     """
@@ -119,7 +121,7 @@ def farthest_point_sample_batch(
             # a traced program (export/pt2.py): the byte budget would pin a
             # symbolic batch, and the Python loop would unroll
             return _loop_fps(points, num_samples, valid_mask, start)
-        method = ("distmat" if b * n * n * 4 <= _MAX_DISTMAT_BYTES
+        method = ("distmat" if b * n * n * 4 <= max_distmat_bytes
                   else "stream")
     if method == "distmat":
         return _distmat_fps(points, num_samples, valid_mask, start)
@@ -133,6 +135,7 @@ def farthest_point_sample_and_gather(
     num_samples: int,
     valid_mask: torch.Tensor | None = None,
     start_index: int = 0,
+    chains: int = 1,
     layout: str = "bnc",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """FPS returning (indices (b, k) int32, sampled points (b, k, 3) f32).
@@ -140,6 +143,16 @@ def farthest_point_sample_and_gather(
     ``layout='bcn'`` takes plane-major (b, 3, n) points, as
     ``voxel_downsample_batch(layout='bcn')`` returns them; the sampled
     output stays (b, k, 3) for the model.
+
+    ``chains > 1`` runs blocked FPS: each cloud splits into ``chains``
+    stride-striped subsets (subset c owns the rows j with j % chains == c),
+    sampled independently to ``num_samples / chains`` points each, all of
+    them in one FPS call over b * chains clouds (one kernel launch on
+    CUDA), which cuts the serial selection loop by ``chains``. On the
+    Morton-ordered voxel output each subset is a stratified sample, so the
+    union is nearly as well spread as exact FPS. Use it only when every
+    cloud has far more valid points than ``num_samples``: a subset with
+    no valid point contributes padding rows. Exact FPS is the default.
     """
     if layout not in ("bnc", "bcn"):
         raise ValueError(f"Unknown layout {layout!r}")
@@ -147,8 +160,48 @@ def farthest_point_sample_and_gather(
     n = points.shape[2] if layout == "bcn" else points.shape[1]
     if valid_mask is None:
         valid_mask = torch.ones((b, n), dtype=torch.bool, device=points.device)
+    if chains > 1:
+        if layout == "bcn":  # the stripes are row-major
+            points = points.transpose(1, 2)
+        return _blocked_fps_and_gather(points, num_samples, valid_mask, chains)
     start = _seed_indices(valid_mask, start_index)
     return fps_with_points(points, num_samples, valid_mask, start, layout=layout)
+
+
+# copied from pointcloudprocessing_tpu/ops/fps.py::_blocked_fps_and_gather
+def _blocked_fps_and_gather(
+    points: torch.Tensor, num_samples: int, valid_mask: torch.Tensor, chains: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    b, n = points.shape[:2]
+    if n % chains or num_samples % chains:
+        raise ValueError(
+            f"blocked FPS needs chains ({chains}) dividing both n ({n}) and "
+            f"num_samples ({num_samples})"
+        )
+    m, k = n // chains, num_samples // chains
+    # subset c owns original indices j with j % chains == c
+    p_r = points.reshape(b, m, chains, 3).movedim(2, 1).reshape(b * chains, m, 3)
+    v_r = valid_mask.reshape(b, m, chains).movedim(2, 1).reshape(b * chains, m)
+    idx_r, sampled_r = farthest_point_sample_and_gather(p_r, k, v_r)
+    chain_of = torch.arange(b * chains, dtype=torch.int32,
+                            device=points.device)[:, None] % chains
+    idx = (idx_r * chains + chain_of).reshape(b, num_samples)
+    sampled = sampled_r.reshape(b, num_samples, 3)
+    return idx, sampled
+
+
+def farthest_point_sample(
+    points: torch.Tensor,
+    num_samples: int,
+    valid_mask: torch.Tensor | None = None,
+    start_index: int = 0,
+    method: str = "auto",
+) -> torch.Tensor:
+    """Single-cloud FPS: (n, 3) -> (num_samples,) int32 indices."""
+    mask = None if valid_mask is None else valid_mask[None]
+    return farthest_point_sample_batch(
+        points[None], num_samples, mask, start_index, method
+    )[0]
 
 
 def stride_sample_and_gather(

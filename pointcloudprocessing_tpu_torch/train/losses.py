@@ -11,6 +11,8 @@ range; MSE is a mean per sample, then a mean over the batch.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from pointcloudprocessing_tpu_torch.core.constants import KERAS_EPSILON
@@ -41,22 +43,29 @@ def multi_head_loss(
     targets: dict[str, torch.Tensor],
     loss_weights: tuple[float, float, float],
     reg_losses_sum: torch.Tensor | float = 0.0,
+    batch_size: int | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Weighted multi-head training loss.
 
     ``loss_weights`` are (classification, segmentation, rotation);
     ``reg_losses_sum`` is added unweighted, as Keras adds ``model.losses``.
     Returns (total, {per-head unweighted losses}) under the Keras history
-    names.
+    names. With ``batch_size`` (a global batch that these rows are a share
+    of) each batch mean is this share's sum over ``batch_size`` clouds
+    (and their points), so the shares' losses add up to the whole batch's.
     """
     w_cls, w_seg, w_rot = loss_weights
-    cls_loss = sparse_categorical_crossentropy(
-        outputs["classification_output"], targets["classification_output"]
-    ).mean()
-    seg_loss = sparse_categorical_crossentropy(
-        outputs["segmentation_output"], targets["segmentation_output"]
-    ).mean()
-    rot_loss = mean_squared_error(outputs["se3"], targets["se3"]).mean()
+
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        if batch_size is None:
+            return t.mean()
+        return t.sum() / (batch_size * math.prod(t.shape[1:]))
+
+    cls_loss = mean(sparse_categorical_crossentropy(
+        outputs["classification_output"], targets["classification_output"]))
+    seg_loss = mean(sparse_categorical_crossentropy(
+        outputs["segmentation_output"], targets["segmentation_output"]))
+    rot_loss = mean(mean_squared_error(outputs["se3"], targets["se3"]))
     total = w_cls * cls_loss + w_seg * seg_loss + w_rot * rot_loss + reg_losses_sum
     return total, {
         "classification_output_loss": cls_loss,

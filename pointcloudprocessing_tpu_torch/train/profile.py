@@ -31,12 +31,29 @@ the steps' jitter and dropout (from the seed and the step count), each
 validation batch's jitter (from the seed and
 ``epoch * validation_steps + i``) and the loaders' order.
 
+Several devices: under a process group (``torchrun``; the CLI joins it,
+``parallel/mesh.py``) each rank trains on its device (``cuda:LOCAL_RANK``,
+or the device named) and stages its rows of every batch that
+single-device training would take, so an epoch's composition is the
+single-device one. Rank 0's initial state is broadcast; rank 0 alone
+ingests the collects first and alone writes the history JSON, ``best/``,
+``resume/``, the config copy and the exports, with barriers around each
+write; a resumed run reads the same files on every rank.
+``parallel_mode`` picks the step: "gspmd" (default, the global mode:
+the whole batch's step, group BatchNorm statistics) or "shard_map"
+(per-replica statistics, averaged gradients); :meth:`_parallel_plan` is
+the JAX package's, from the world size, with its log lines. Where the JAX
+plan needs a data x points mesh (a batch the world does not divide), the
+port splits rows unevenly in the global mode and logs the mesh it stands
+in for.
+
 Not ported here (``ROADMAP.md``): the scanned multi-step form and
-``steps_per_dispatch``, meshes and ``parallel_mode``.
+``steps_per_dispatch``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import logging
@@ -49,6 +66,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pointcloudprocessing_tpu_torch.core.config import StageConfig, TrainConfig, load_config
 from pointcloudprocessing_tpu_torch.data.frames import get_dir_contents
@@ -57,6 +75,11 @@ from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.models.pointnet import (
     freeze_flags_from_trainable,
     layer_trainability,
+)
+from pointcloudprocessing_tpu_torch.parallel.mesh import (
+    data_parallel_mesh,
+    replicate_from_local,
+    sync_batch_stats,
 )
 from pointcloudprocessing_tpu_torch.train import steps as steps_lib
 from pointcloudprocessing_tpu_torch.train.callbacks import (
@@ -134,6 +157,12 @@ class TrainProfile:
     def __init__(self, config_file: str | TrainConfig, log_to_file: bool = True,
                  device="cuda"):
         self.device = require_device(device)
+        # one rank a device under a process group of more than one rank
+        self.mesh = None
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            self.mesh = data_parallel_mesh(self.device)
+            self.device = self.mesh.device
+        rank0 = self.mesh is None or self.mesh.rank == 0
         if isinstance(config_file, TrainConfig):
             self.config = config_file
             self._config_file = None
@@ -170,7 +199,8 @@ class TrainProfile:
         os.makedirs(f"{cfg.model_path}{self._specific_model_path}", exist_ok=True)
 
         self._log = logging.getLogger(f"train.{cfg.name}")
-        self._log.setLevel(logging.DEBUG)
+        # rank 0 speaks for the group
+        self._log.setLevel(logging.DEBUG if rank0 else logging.WARNING)
         self._log.propagate = False
         if not self._log.handlers:
             console = logging.StreamHandler()
@@ -178,7 +208,7 @@ class TrainProfile:
                 logging.Formatter("%(name)s - %(levelname)s - %(message)s")
             )
             self._log.addHandler(console)
-            if log_to_file:
+            if log_to_file and rank0:
                 ts = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
                 fh = logging.FileHandler(
                     f"{cfg.model_path}{self._specific_model_path}log_{ts}.log"
@@ -193,34 +223,35 @@ class TrainProfile:
         # -- per-stage datasets (pointnet_train.py:144-172) ----------------
         self._pc_sets: dict[str, PointCloudSet] = {}
         self._stage_paths: dict[str, str] = {}
-        for stage in cfg.stages:
-            set_name = f"{cfg.name}_{stage.name}"
-            set_dir = f"{cfg.data_path}{set_name}"
-            if os.path.isdir(set_dir) and os.path.exists(f"{set_dir}/pc_set.joblib"):
-                self._log.info(
-                    f"Training profile {set_name} already exists. Using existing profile..."
-                )
-                pc = load_from_file(f"{set_dir}/pc_set.joblib")
-                pc._print = self._log.info
-            else:
-                pc = PointCloudSet(
-                    name=set_name,
-                    class_labels=list(cfg.class_labels),
-                    part_labels=list(cfg.part_labels),
-                    network_input_width=cfg.input_width,
-                    jitter_stdev_m=np.array(stage.noise.as_tuple()),
-                    batch_size=cfg.batch_size,
-                    rand_seed=42,
-                    description=stage.name,
-                    print_func=self._log.info,
-                    data_path=cfg.data_path,
-                )
-            self._pc_sets[stage.name] = pc
-            self._profile_datasets(stage, pc)
+        with self._rank0_first():  # the others load what rank 0 ingested
+            for stage in cfg.stages:
+                set_name = f"{cfg.name}_{stage.name}"
+                set_dir = f"{cfg.data_path}{set_name}"
+                if os.path.isdir(set_dir) and os.path.exists(f"{set_dir}/pc_set.joblib"):
+                    self._log.info(
+                        f"Training profile {set_name} already exists. Using existing profile..."
+                    )
+                    pc = load_from_file(f"{set_dir}/pc_set.joblib")
+                    pc._print = self._log.info
+                else:
+                    pc = PointCloudSet(
+                        name=set_name,
+                        class_labels=list(cfg.class_labels),
+                        part_labels=list(cfg.part_labels),
+                        network_input_width=cfg.input_width,
+                        jitter_stdev_m=np.array(stage.noise.as_tuple()),
+                        batch_size=cfg.batch_size,
+                        rand_seed=42,
+                        description=stage.name,
+                        print_func=self._log.info,
+                        data_path=cfg.data_path,
+                    )
+                self._pc_sets[stage.name] = pc
+                self._profile_datasets(stage, pc)
 
-            stage_path = f"{self._specific_model_path}{stage.name}/"
-            os.makedirs(f"{cfg.model_path}{stage_path}", exist_ok=True)
-            self._stage_paths[stage.name] = stage_path
+                stage_path = f"{self._specific_model_path}{stage.name}/"
+                os.makedirs(f"{cfg.model_path}{stage_path}", exist_ok=True)
+                self._stage_paths[stage.name] = stage_path
 
         self._pretrained_model = cfg.continue_training_model
         # epoch-end hooks for testing/observability: fn(stage, epoch, logs)
@@ -232,8 +263,101 @@ class TrainProfile:
         # checkpoint (whole train state + epoch + history + early-stop state)
         self.resume: bool = True
         self.resume_every: int = 1  # epochs between resume checkpoints
+        # multi-device strategy: "gspmd" (the global mode: the whole
+        # batch's step, BatchNorm statistics over the group) or "shard_map"
+        # (per-replica statistics, averaged gradients; equal row shares)
+        self.parallel_mode: str = "gspmd"
 
     # ------------------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _rank0_first(self):
+        """Rank 0 runs the block first, the other ranks after it (one
+        barrier each); without a group the block just runs."""
+        first = self.mesh is None or self.mesh.rank == 0
+        if not first:
+            dist.barrier(group=self.mesh.group)
+        yield
+        if first and self.mesh is not None:
+            dist.barrier(group=self.mesh.group)
+
+    def _rank0_writes(self, write: Callable[[], None]) -> None:
+        """``write`` on rank 0 alone, then a barrier, so no rank reads
+        before the write ends."""
+        if self.mesh is None:
+            write()
+            return
+        dist.barrier(group=self.mesh.group)
+        if self.mesh.rank == 0:
+            write()
+        dist.barrier(group=self.mesh.group)
+
+    # copied from pointcloudprocessing_tpu/train/profile.py::TrainProfile._parallel_plan
+    def _parallel_plan(self) -> tuple[int, bool, bool]:
+        """(points_axis, use_mesh, use_shardmap) from the config and the
+        world size (the JAX package's rule on its visible devices). Pure
+        batch DP when the batch divides the device count; otherwise a 2-D
+        data x points mesh soaks up the remainder. shard_map mode applies
+        only to pure data meshes."""
+        cfg = self.config
+        n_dev = 1 if self.mesh is None else self.mesh.world
+        if n_dev <= 1:
+            return 1, False, False
+        points_axis = 1
+        if cfg.batch_size % n_dev != 0:
+            for pa in (2, 4, 8):
+                data_axis = n_dev // pa
+                if (
+                    n_dev % pa == 0
+                    and data_axis > 0
+                    and cfg.batch_size % data_axis == 0
+                    and cfg.input_width % pa == 0
+                ):
+                    points_axis = pa
+                    break
+        use_mesh = cfg.batch_size % (n_dev // points_axis) == 0
+        use_shardmap = (
+            use_mesh and self.parallel_mode == "shard_map" and points_axis == 1
+        )
+        return points_axis, use_mesh, use_shardmap
+
+    def _parallel_steps(self, model, optimizer, weights, freeze, jitter_stdev):
+        """(train step, eval step, this rank's rows of a batch) under the
+        JAX plan: the shard_map step where the plan takes it, else the
+        global mode, whose uneven row shares stand in for a points axis.
+        Logs the plan as the JAX trainer does."""
+        cfg, mesh = self.config, self.mesh
+        points_axis, use_mesh, use_shardmap = self._parallel_plan()
+        if cfg.batch_size < mesh.world:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} is smaller than the {mesh.world} "
+                "ranks: every rank needs at least one row of each batch")
+        shares = [rows.stop - rows.start for rows in
+                  (mesh.rows(cfg.batch_size, r) for r in range(mesh.world))]
+        if use_mesh:
+            plan = ({"data": mesh.world // points_axis, "points": points_axis}
+                    if points_axis > 1 else {"data": mesh.world})
+            self._log.info(f"Parallel mesh {plan} over {mesh.world} devices")
+        if points_axis > 1 or not use_mesh:
+            self._log.info(
+                f"Rows of each batch of {cfg.batch_size} split {shares} over "
+                f"{mesh.world} ranks in the global mode, in place of "
+                + ("the JAX plan's points axis" if use_mesh
+                   else "the JAX plan, which takes no mesh here"))
+        if self.parallel_mode == "shard_map" and use_mesh and not use_shardmap:
+            self._log.info(
+                "parallel_mode='shard_map' needs a pure data mesh; the "
+                "points axis is in play — falling back to GSPMD."
+            )
+        if use_shardmap:
+            train_step = steps_lib.make_shardmap_train_step(
+                model, optimizer, weights, freeze, jitter_stdev, mesh)
+        else:
+            sync_batch_stats(model, mesh)  # the global mode's group statistics
+            train_step = steps_lib.make_train_step(
+                model, optimizer, weights, freeze, jitter_stdev, mesh)
+        eval_step = steps_lib.make_eval_step(model, weights, jitter_stdev, mesh=mesh)
+        return train_step, eval_step, mesh.rows(cfg.batch_size)
 
     # copied from pointcloudprocessing_tpu/train/profile.py::TrainProfile._profile_datasets
     def _profile_datasets(self, stage: StageConfig, pc: PointCloudSet) -> None:
@@ -272,6 +396,8 @@ class TrainProfile:
             model.load_state_dict(load_checkpoint(ckpt_dir, self.device))
         state, optimizer = steps_lib.init_train_state(
             model, cfg.learning, freeze, self._moment_dtype)
+        if self.mesh is not None:  # every rank starts from rank 0's state
+            replicate_from_local(state, self.mesh)
         return model, state, optimizer, freeze
 
     def train(self) -> dict[str, dict]:
@@ -348,8 +474,14 @@ class TrainProfile:
             stage.loss_weights.rotation,
         )
         jitter_stdev = stage.noise.as_tuple()
-        train_step = steps_lib.make_train_step(model, optimizer, weights, freeze, jitter_stdev)
-        eval_step = steps_lib.make_eval_step(model, weights, jitter_stdev)
+        if self.mesh is None:
+            train_step = steps_lib.make_train_step(
+                model, optimizer, weights, freeze, jitter_stdev)
+            eval_step = steps_lib.make_eval_step(model, weights, jitter_stdev)
+            rows = slice(None)
+        else:
+            train_step, eval_step, rows = self._parallel_steps(
+                model, optimizer, weights, freeze, jitter_stdev)
 
         train_loader = pc.get_train_set()
         val_loader = pc.get_val_set()
@@ -390,12 +522,14 @@ class TrainProfile:
 
         try:
             for epoch in range(start_epoch, cfg.epochs):
-                profiling = self.profile_dir is not None and epoch == 1
+                profiling = (self.profile_dir is not None and epoch == 1
+                             and (self.mesh is None or self.mesh.rank == 0))
                 t0 = time.perf_counter()
                 batch_logs = []
                 with trace(f"{self.profile_dir}/{stage.name}") if profiling else nullcontext():
                     for x, targets in train_loader.batches(
-                        num_steps=steps_per_epoch, device=self.device, epoch=epoch
+                        num_steps=steps_per_epoch, device=self.device, epoch=epoch,
+                        rows=rows,
                     ):
                         state, logs = train_step(state, x, targets, cfg.random_seed)
                         batch_logs.append(logs)
@@ -413,7 +547,8 @@ class TrainProfile:
                 val_logs = []
                 for i, (x, targets) in enumerate(
                     val_loader.batches(
-                        num_steps=validation_steps, device=self.device, epoch=epoch
+                        num_steps=validation_steps, device=self.device, epoch=epoch,
+                        rows=rows,
                     )
                 ):
                     # fresh jitter noise per validation batch/epoch
@@ -441,9 +576,9 @@ class TrainProfile:
                 for hook in self.epoch_callbacks:
                     hook(stage.name, epoch, epoch_metrics)
 
-                ckpt.update(epoch, monitor_value, state)
+                self._rank0_writes(lambda: ckpt.update(epoch, monitor_value, state))
                 stop = early.update(epoch, monitor_value, state)
-                resume_ckpt.save(epoch, state, history, early)
+                self._rank0_writes(lambda: resume_ckpt.save(epoch, state, history, early))
                 if stop:
                     break
                 if interrupt.stop_requested:
@@ -455,20 +590,22 @@ class TrainProfile:
         # EarlyStopping(restore_best_weights=True) semantics
         if early.best_state is not None:
             model.load_state_dict(early.best_state)
+        sync_batch_stats(model, None)  # the stage's model is one device's again
 
         history = dict(history)
-        with open(history_path, "w") as f:
-            json.dump(history, f)
 
-        # the stage finished (early-stop, epoch budget, or user stop) — a
-        # later rerun should start fresh, not resume stale state
-        resume_ckpt.clear()
+        def finish() -> None:
+            with open(history_path, "w") as f:
+                json.dump(history, f)
+            # the stage finished (early-stop, epoch budget, or user stop) — a
+            # later rerun should start fresh, not resume stale state
+            resume_ckpt.clear()
+            # config copy for provenance (pointnet_train.py:251)
+            if self._config_file and os.path.isfile(self._config_file):
+                shutil.copy(self._config_file, stage_dir)
+            self._export(model, f"{stage_dir}{cfg.name}_{stage.name}")
 
-        # config copy for provenance (pointnet_train.py:251)
-        if self._config_file and os.path.isfile(self._config_file):
-            shutil.copy(self._config_file, stage_dir)
-
-        self._export(model, f"{stage_dir}{cfg.name}_{stage.name}")
+        self._rank0_writes(finish)
         return history
 
     def _export(self, model, prefix: str) -> None:

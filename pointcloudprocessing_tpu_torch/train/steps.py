@@ -1,4 +1,4 @@
-"""Single-device train, eval and predict steps with freeze-masked Adam
+"""Train, eval and predict steps with freeze-masked Adam
 (``pointcloudprocessing_tpu/train/steps.py``), for every model family that
 ``model_from_config`` builds: PointNet, PointNet++ and DGCNN.
 
@@ -36,8 +36,19 @@
 - Metrics: per-batch correct counts and sums, so a host can rebuild Keras's
   streaming epoch metrics exactly.
 
-The scanned multi-step forms (K steps per dispatch) and the shard_map
-data-parallel step are not ported (ROADMAP).
+- Several devices (``parallel/mesh.py``; one process a device, each
+  passing its rows of the batch): the global mode,
+  ``make_train_step(..., mesh=)``, computes the single-device step on the
+  whole batch (group batch statistics, which the caller switches on with
+  ``sync_batch_stats(model, mesh)``; global-count means, whole-batch
+  draws, summed gradients), as the JAX package's GSPMD step does; the
+  shard_map mode, :func:`make_shardmap_train_step`, is its non-sync
+  BatchNorm data parallelism (per-replica statistics and draws, averaged
+  gradients and running statistics). Parameters stay bit-identical across
+  ranks in both.
+
+The scanned multi-step forms (K steps per dispatch) are not ported
+(ROADMAP, "Do not port").
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pointcloudprocessing_tpu_torch.core.config import LearningConfig
@@ -56,6 +68,7 @@ from pointcloudprocessing_tpu_torch.models.pointnet import (
     FreezeFlags,
 )
 from pointcloudprocessing_tpu_torch.ops.augment import jitter
+from pointcloudprocessing_tpu_torch.parallel.mesh import DataParallelMesh, RowDraws
 from pointcloudprocessing_tpu_torch.train.losses import multi_head_loss
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7  # Keras's epsilon
@@ -283,10 +296,15 @@ def init_train_state(
     return TrainState(0, model, optimizer.init(params)), optimizer
 
 
-def step_generators(seed: int, step: int,
-                    device: torch.device) -> tuple[torch.Generator, torch.Generator]:
-    """(jitter, dropout) generators of one step, seeded from (seed, step)."""
-    jitter_seed, dropout_seed = np.random.SeedSequence([seed, step]).generate_state(2)
+def step_generators(seed: int, step: int, device: torch.device,
+                    replica: int = 0) -> tuple[torch.Generator, torch.Generator]:
+    """(jitter, dropout) generators of one step, seeded from (seed, step),
+    with a shard_map replica's index folded in as the JAX package folds
+    ``axis_index``: replica r > 0 draws from (seed, step, r), so replicas
+    draw distinct noise and masks, and replica 0 the single-device step's
+    (a group of one trains as one device does)."""
+    entropy = [seed, step] + ([replica] if replica else [])
+    jitter_seed, dropout_seed = np.random.SeedSequence(entropy).generate_state(2)
     return (torch.Generator(device=device).manual_seed(int(jitter_seed)),
             torch.Generator(device=device).manual_seed(int(dropout_seed)))
 
@@ -320,6 +338,25 @@ def forward_with_reg(model: nn.Module, x: torch.Tensor, **kwargs):
     return model(x, **kwargs), 0.0
 
 
+def _forward_backward(model, loss_weights, freeze, jitter_stdev, x, targets,
+                      jitter_g, dropout_g, batch_size=None) -> dict[str, torch.Tensor]:
+    """Jitter, the train-mode forward, the loss and its backward (each
+    trained parameter's ``.grad``); returns the step's logs."""
+    x = jitter(x, jitter_g, jitter_stdev)
+    model.zero_grad(set_to_none=True)
+    with torch.enable_grad():
+        outputs, reg = forward_with_reg(
+            model, x, train=True, freeze=freeze, generator=dropout_g)
+        total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg,
+                                             batch_size)
+        if total.requires_grad:  # False only when every parameter is frozen
+            total.backward()
+    with torch.no_grad():
+        return {"loss": total.detach(),
+                **{k: v.detach() for k, v in head_losses.items()},
+                **_metric_sums(outputs, targets)}
+
+
 def _train_step_impl(
     model: nn.Module,
     optimizer: Optimizer,
@@ -334,19 +371,9 @@ def _train_step_impl(
     if state.model is not model:
         raise ValueError("the train step was built for another model")
     jitter_g, dropout_g = step_generators(seed, state.step, x.device)
-    x = jitter(x, jitter_g, jitter_stdev)
-    model.zero_grad(set_to_none=True)
-    with torch.enable_grad():
-        outputs, reg = forward_with_reg(
-            model, x, train=True, freeze=freeze, generator=dropout_g)
-        total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg)
-        if total.requires_grad:  # False only when every parameter is frozen
-            total.backward()
+    logs = _forward_backward(model, loss_weights, freeze, jitter_stdev, x,
+                             targets, jitter_g, dropout_g)
     optimizer.update_(dict(model.named_parameters()), state.opt_state)
-    with torch.no_grad():
-        logs = {"loss": total.detach(),
-                **{k: v.detach() for k, v in head_losses.items()},
-                **_metric_sums(outputs, targets)}
     state.step += 1
     return state, logs
 
@@ -357,23 +384,168 @@ def make_train_step(
     loss_weights: tuple[float, float, float],
     freeze: FreezeFlags,
     jitter_stdev: tuple[float, float, float],
+    mesh: DataParallelMesh | None = None,
 ) -> Callable:
-    """The train step: (state, x, targets, seed) -> (state, logs)."""
-    return partial(_train_step_impl, model, optimizer, loss_weights, freeze,
-                   jitter_stdev)
+    """The train step: (state, x, targets, seed) -> (state, logs).
+
+    With a process-group ``mesh`` it is the global mode, the counterpart
+    of the JAX package's GSPMD step: each rank passes its rows of the
+    batch, and the result is the single-device step on the whole batch.
+    The model's BatchNorms must take their statistics over the group:
+    the caller switches them with ``sync_batch_stats(model, mesh)`` first.
+    Every batch mean is a sum over the rank's rows over the global count,
+    jitter and dropout are the whole batch's draws (:class:`RowDraws`),
+    gradients are summed over the ranks and the logs are global sums; the
+    global count and this rank's rows come from the ranks' row counts,
+    read each step. Without a mesh the model's BatchNorms must take local
+    statistics.
+    """
+    if mesh is None:
+        _require_stats_group(model, None)
+        return partial(_train_step_impl, model, optimizer, loss_weights, freeze,
+                       jitter_stdev)
+    _require_group(mesh)
+    _require_stats_group(model, mesh.group)
+    return partial(_global_train_step, model, optimizer, loss_weights, freeze,
+                   jitter_stdev, mesh)
+
+
+def _require_group(mesh: DataParallelMesh) -> None:
+    if mesh.group is None:
+        raise ValueError("a multi-device train or eval step needs the "
+                         "process-group form of the mesh (one rank a device)")
+
+
+def _require_stats_group(model: nn.Module, group) -> None:
+    """Every batch-statistics BatchNorm of ``model`` takes its statistics
+    over ``group`` (None: locally), as ``sync_batch_stats`` sets them."""
+    if any(m.stats_group is not group for m in model.modules()
+           if hasattr(m, "stats_group")):
+        raise ValueError(
+            "the model's BatchNorms take their statistics "
+            + ("over a group; call sync_batch_stats(model, None) first"
+               if group is None else
+               "locally; call sync_batch_stats(model, mesh) first"))
+
+
+def _global_rows(local: int, mesh: DataParallelMesh, device) -> tuple[int, slice]:
+    """(global batch size, this rank's rows) from every rank's row count
+    (one all-reduce and a host read)."""
+    counts = torch.zeros(mesh.world, dtype=torch.float64, device=device)
+    counts[mesh.rank] = local
+    dist.all_reduce(counts, group=mesh.group)
+    counts = [int(c) for c in counts.tolist()]
+    start = sum(counts[: mesh.rank])
+    return sum(counts), slice(start, start + local)
+
+
+def _all_reduce_grads(model: nn.Module, mesh: DataParallelMesh, average: bool) -> None:
+    """Sum (or average) every parameter's ``.grad`` over the group, in one
+    flat all-reduce."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.group)
+    if average:
+        flat /= mesh.world
+    torch._foreach_copy_(grads, [f.view_as(g) for f, g in zip(
+        flat.split([g.numel() for g in grads]), grads)])
+
+
+def _reduce_logs(logs: dict[str, torch.Tensor], mesh: DataParallelMesh,
+                 mean_keys=()) -> dict[str, torch.Tensor]:
+    """Logs summed over the group (``mean_keys`` averaged), one all-reduce."""
+    keys = list(logs)
+    flat = torch.stack([logs[k].float() for k in keys])
+    dist.all_reduce(flat, group=mesh.group)
+    return {k: flat[i] / mesh.world if k in mean_keys else flat[i]
+            for i, k in enumerate(keys)}
+
+
+def _global_train_step(model, optimizer, loss_weights, freeze, jitter_stdev,
+                       mesh, state, x, targets, seed):
+    if state.model is not model:
+        raise ValueError("the train step was built for another model")
+    batch, rows = _global_rows(x.shape[0], mesh, x.device)
+    jitter_g, dropout_g = step_generators(seed, state.step, x.device)
+    logs = _forward_backward(
+        model, loss_weights, freeze, jitter_stdev, x, targets,
+        RowDraws(jitter_g, batch, rows), RowDraws(dropout_g, batch, rows), batch)
+    _all_reduce_grads(model, mesh, average=False)
+    optimizer.update_(dict(model.named_parameters()), state.opt_state)
+    state.step += 1
+    return state, _reduce_logs(logs, mesh)
+
+
+def make_shardmap_train_step(
+    model: nn.Module,
+    optimizer: Optimizer,
+    loss_weights: tuple[float, float, float],
+    freeze: FreezeFlags,
+    jitter_stdev: tuple[float, float, float],
+    mesh: DataParallelMesh,
+) -> Callable:
+    """The shard_map data-parallel step (``make_shardmap_train_multi_step``
+    for one step): (state, x, targets, seed) -> (state, logs), x this
+    rank's rows. Each replica normalizes by its own batch statistics (the
+    non-sync BatchNorm of DDP), and draws its own jitter and dropout
+    (:func:`step_generators` with its rank); the gradients and the running
+    statistics of the trained BatchNorms are averaged over the group, so
+    the replicated state stays bit-identical; the metric sums are summed
+    and the losses averaged over the replicas. On identical shards with
+    jitter and dropout off it is the single-device step exactly. The
+    model's BatchNorms must take local statistics.
+    """
+    _require_group(mesh)
+    _require_stats_group(model, None)
+    # a trained BatchNorm's running statistics move every step; a frozen
+    # one's never do, and an average would round them
+    stats = [t for m in model.modules()
+             if hasattr(m, "stats_group") and m.weight.requires_grad
+             for t in (m.running_mean, m.running_var)]
+
+    def step(state, x, targets, seed):
+        if state.model is not model:
+            raise ValueError("the train step was built for another model")
+        jitter_g, dropout_g = step_generators(seed, state.step, x.device, mesh.rank)
+        logs = _forward_backward(model, loss_weights, freeze, jitter_stdev, x,
+                                 targets, jitter_g, dropout_g)
+        _all_reduce_grads(model, mesh, average=True)
+        if stats:
+            with torch.no_grad():
+                flat = torch.cat(stats)
+                dist.all_reduce(flat, group=mesh.group)
+                flat /= mesh.world
+                torch._foreach_copy_(stats, list(flat.split(
+                    [t.numel() for t in stats])))
+        optimizer.update_(dict(model.named_parameters()), state.opt_state)
+        state.step += 1
+        return state, _reduce_logs(logs, mesh, mean_keys=(
+            "loss", "classification_output_loss", "segmentation_output_loss",
+            "se3_loss"))
+
+    return step
 
 
 @torch.no_grad()
-def _eval_step_impl(model, loss_weights, jitter_stdev, apply_jitter, state, x,
-                    targets, seed):
+def _eval_step_impl(model, loss_weights, jitter_stdev, apply_jitter, mesh,
+                    state, x, targets, seed):
     if state.model is not model:
         raise ValueError("the eval step was built for another model")
+    batch = None
+    if mesh is not None:
+        batch, rows = _global_rows(x.shape[0], mesh, x.device)
     if apply_jitter:
-        x = jitter(x, torch.Generator(device=x.device).manual_seed(seed),
-                   jitter_stdev)
+        generator = torch.Generator(device=x.device).manual_seed(seed)
+        if mesh is not None:
+            generator = RowDraws(generator, batch, rows)
+        x = jitter(x, generator, jitter_stdev)
     outputs, reg = forward_with_reg(model, x, train=False)
-    total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg)
-    return {"loss": total, **head_losses, **_metric_sums(outputs, targets)}
+    total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg,
+                                         batch)
+    logs = {"loss": total, **head_losses, **_metric_sums(outputs, targets)}
+    return logs if mesh is None else _reduce_logs(logs, mesh)
 
 
 def make_eval_step(
@@ -381,6 +553,7 @@ def make_eval_step(
     loss_weights: tuple[float, float, float],
     jitter_stdev: tuple[float, float, float] = (0.0, 0.0, 0.0),
     apply_jitter: bool = True,
+    mesh: DataParallelMesh | None = None,
 ) -> Callable:
     """The eval step: (state, x, targets, seed) -> logs; mutates nothing.
 
@@ -388,10 +561,14 @@ def make_eval_step(
     alike), from a generator seeded with ``seed``: pass a fresh seed per
     batch, or ``apply_jitter=False`` for clean evaluation. The T-Net
     regularizers count in the total, as Keras adds ``model.losses`` in
-    ``test_step``.
+    ``test_step``. With a process-group ``mesh`` each rank passes its rows
+    and the logs are the whole batch's (global sums; the jitter the whole
+    batch's draw), as the JAX package's eval step over a mesh.
     """
+    if mesh is not None:
+        _require_group(mesh)
     return partial(_eval_step_impl, model, loss_weights, jitter_stdev,
-                   apply_jitter)
+                   apply_jitter, mesh)
 
 
 def make_predict_fn(model: nn.Module) -> Callable:

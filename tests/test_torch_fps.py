@@ -362,3 +362,75 @@ def test_pruning_never_changes_a_running_min_or_skips_a_nan_run(rng, kinds):
         md = new
         cur = int(md.argmax())
     assert skipped > 0 or kinds != ("morton",)
+
+
+@pytest.mark.parametrize("layout", ["bnc", "bcn"])
+@pytest.mark.parametrize("chains", [2, 4])
+def test_blocked_fps_matches_jax(rng, layout, chains):
+    """``chains=``: JAX's stripe reshape, one FPS call over b * chains
+    clouds; indices identical and coordinates bit-identical to JAX's
+    ``_blocked_fps_and_gather`` (grid points, masks with holes)."""
+    pts = _grid_points(rng, (B, N, 3))
+    mask = _masks(rng)
+    mask[2] = True  # blocked FPS wants valid rows in every stripe
+    if layout == "bcn":
+        pts = np.ascontiguousarray(pts.transpose(0, 2, 1))
+    want_idx, want_pts = jax_fps.farthest_point_sample_and_gather(
+        jnp.asarray(pts), 16, jnp.asarray(mask), chains=chains, layout=layout)
+    calls = []
+    real = port_fps.fps_with_points
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    port_fps.fps_with_points = counting
+    try:
+        idx, sampled = port_fps.farthest_point_sample_and_gather(
+            torch.from_numpy(pts), 16, torch.from_numpy(mask), chains=chains,
+            layout=layout)
+    finally:
+        port_fps.fps_with_points = real
+    assert calls == [(B * chains, N // chains, 3)]  # one call over b * chains clouds
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    np.testing.assert_array_equal(sampled.numpy(), np.asarray(want_pts))
+    assert (idx.numpy() % chains == np.arange(16)[None, :] // (16 // chains)).all()
+
+
+def test_blocked_fps_refuses_chains_that_do_not_divide():
+    with pytest.raises(ValueError, match="dividing both"):
+        port_fps.farthest_point_sample_and_gather(torch.zeros(1, 10, 3), 4, chains=4)
+    with pytest.raises(ValueError, match="dividing both"):
+        port_fps.farthest_point_sample_and_gather(torch.zeros(1, 16, 3), 6, chains=4)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("method", ["auto", "distmat", "stream"])
+def test_single_cloud_fps_matches_jax(rng, masked, method):
+    pts = _grid_points(rng, (N, 3))
+    mask = rng.uniform(size=N) > 0.4 if masked else None
+    want = jax_fps.farthest_point_sample(
+        jnp.asarray(pts), 20, None if mask is None else jnp.asarray(mask),
+        start_index=2, method="distmat" if method == "auto" else method)
+    got = port_fps.farthest_point_sample(
+        torch.from_numpy(pts), 20, None if mask is None else torch.from_numpy(mask),
+        start_index=2, method=method)
+    assert got.shape == (20,) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("budget_offset,form", [(0, "distmat"), (-1, "stream")])
+def test_max_distmat_bytes_rule_at_its_edge(rng, monkeypatch, budget_offset, form):
+    """'auto' on the CPU takes the distance matrix while b * n * n * 4 bytes
+    fit ``max_distmat_bytes`` and the stream form one byte under it, as the
+    JAX package's rule; the default budget stays 2 GiB."""
+    pts = torch.from_numpy(_grid_points(rng, (B, N, 3)))
+    taken = []
+    monkeypatch.setattr(port_fps, "_distmat_fps",
+                        lambda *a: taken.append("distmat") or torch.zeros(B, 8, dtype=torch.int32))
+    monkeypatch.setattr(port_fps, "fps_with_points_reference",
+                        lambda *a: taken.append("stream") or (torch.zeros(B, 8, dtype=torch.int32),) * 2)
+    port_fps.farthest_point_sample_batch(
+        pts, 8, max_distmat_bytes=B * N * N * 4 + budget_offset)
+    assert taken == [form]
+    assert port_fps._DEFAULT_DISTMAT_BYTES == jax_fps._DEFAULT_DISTMAT_BYTES == 2 * 1024**3

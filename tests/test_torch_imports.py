@@ -77,7 +77,8 @@ def test_port_imports_nothing_of_jax():
     for name in ("export.onnx_native", "export.pt2", "export.cli",
                  "export.keras_compat", "export.onnx_bridge", "toolkit.mat_ops",
                  "toolkit.calibration", "toolkit.radar_truth",
-                 "toolkit.reflector_analysis", "toolkit.gui.views"):
+                 "toolkit.reflector_analysis", "toolkit.gui.views",
+                 "parallel", "parallel.mesh", "graft_entry"):
         assert f"pointcloudprocessing_tpu_torch.{name}" in report["names"], name
 
 
