@@ -432,6 +432,36 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+#: kernel 4's f32 pooled values may err this many times the plain f32
+#: version's error against float64: root-mean-square, largest
+POOLED_F64_BARS = (1.5, 2.0)
+
+
+def pooled_f64_check(torch, label: str, x, w, a, c_row, pooled) -> tuple[float, float]:
+    """Kernel 4's f32 pooled values against their float64 value on the same
+    inputs, beside the plain f32 version's (an f32 GEMM); raises above
+    ``POOLED_F64_BARS``. Returns the (RMS, largest) ratios."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_forward_reference,
+    )
+
+    exact = torch.relu(torch.matmul(x.double(), w.double().t()) * a.double()
+                       + c_row.double()).amax(dim=1)
+    plain = pooled_chain_forward_reference(x, w, a, c_row)[0]
+    ek, ep = pooled.double() - exact, plain.double() - exact
+    rms = (ek.square().mean().sqrt() / ep.square().mean().sqrt().clamp_min(1e-300)).item()
+    big = (ek.abs().max() / ep.abs().max().clamp_min(1e-300)).item()
+    log(f"[3 kernels] pooled forward f32 against float64 ({label}): RMS err "
+        f"{ek.square().mean().sqrt().item():.3e}, {rms:.2f}x the plain f32 GEMM's; "
+        f"largest {ek.abs().max().item():.3e}, {big:.2f}x (bars "
+        f"{POOLED_F64_BARS[0]}x, {POOLED_F64_BARS[1]}x)")
+    if rms > POOLED_F64_BARS[0] or big > POOLED_F64_BARS[1]:
+        raise AssertionError(
+            f"[3 kernels] pooled forward f32 ({label}) errs {rms:.2f}x (RMS) and "
+            f"{big:.2f}x (largest) the f32 GEMM's error against float64")
+    return rms, big
+
+
 # ---------------------------------------------------------------- phase 3 data
 
 def segment_case(rng, b: int, n: int, d: int, kind: str):
@@ -829,8 +859,6 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
              (4, 100, 64, 64, "ragged n, c_in 64, c 64", False),
              (3, 8191, 192, 192, "ragged n, c_in 192, c 192", False),
              (2, 1000, 256, 4096, "c_in 256, c 4096", False)]
-    if bf16:  # the step's shapes, ragged n and one cloud, and the widest
-        cases = [cases[i] for i in (0, 1, 3, 6)]
     for b, n, c_in, c, label, timed in cases:
         x = op(torch.relu(torch.randn(b, n, c_in, device=dev, generator=gen)))
         w = op(torch.randn(c, c_in, device=dev, generator=gen) * 0.1)
@@ -863,6 +891,8 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
             raise AssertionError("pooled forward: a dead channel is not 0 at argmax 0")
         flips = int((argmax != want_arg).sum())
         results["fwd_err"] = max(results["fwd_err"], err.max().item())
+        if not bf16 and label == "some dead channels":
+            pooled_f64_check(torch, f"{b}x{n}x{c_in}->{c}", x, w, a, c_row, pooled)
         timing = ""
         if timed:
             fwd = functools.partial(pooled_chain_forward, x, w, a, c_row)
@@ -1058,7 +1088,50 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
         f"max abs err dx {errs[0]:.3e}, dweight {errs[1]:.3e}, dscale "
         f"{errs[2]:.3e}, dbias {errs[3]:.3e} (bars {rel[0]:.1e} x (1 + max |grad|) "
         f"for dx and dweight, 1e-5 x for the rest)")
+    if not bf16:
+        step_pooled_f64_check(torch)
     return results
+
+
+def step_pooled_f64_check(torch) -> None:
+    """Kernel 4's f32 pooled values against float64 on each pooled-chain
+    call of one kernels' train step on a fresh case-B batch (drawn from a
+    generator of its own, after case A's batch, as phase 6 draws)."""
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward,
+        pooled_chain_forward,
+    )
+    from pointcloudprocessing_tpu_torch.train import steps
+
+    cases = train_cases()
+    cfg_a = cases["A"][0]
+    cfg, freeze, weights, jitter_m, _ = cases["B"]
+    rng = np.random.default_rng(3)
+    train_batch(torch, rng, cfg_a.batch_size, cfg_a.input_width, cfg_a.num_classes,
+                cfg_a.num_parts)
+    x, targets = train_batch(torch, rng, cfg.batch_size, cfg.input_width,
+                             cfg.num_classes, cfg.num_parts)
+    model = model_from_config(cfg, training=True, dropout_rate=0.3,
+                              generator=torch.Generator().manual_seed(3), device="cuda")
+    calls = []
+
+    def forward(*args):
+        out = pooled_chain_forward(*args)
+        calls.append(tuple(t.clone() for t in (*args, out[0])))
+        return out
+
+    state, optimizer = steps.init_train_state(model, cfg.learning, freeze)
+    with route_pooled(forward, pooled_chain_backward):
+        steps.make_train_step(model, optimizer, weights, freeze, jitter_m)(
+            state, x, targets, 0)
+    torch.cuda.synchronize()
+    if not calls:
+        raise AssertionError("[3 kernels] the case-B step made no pooled-chain call")
+    for i, (xc, w, a, c_row, pooled) in enumerate(calls):
+        pooled_f64_check(torch, f"case-B step call {i + 1} of {len(calls)}, "
+                         f"{'x'.join(map(str, xc.shape))}->{w.shape[0]}",
+                         xc, w, a, c_row, pooled)
 
 
 @contextlib.contextmanager

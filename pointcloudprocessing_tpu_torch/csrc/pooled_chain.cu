@@ -12,23 +12,32 @@
 //                          with argmax[b, c] == p of coef[b, c] * w[c, :]
 //            dk[d, c]    = sum over b of coef[b, c] * x[b, argmax[b, c], d]
 //
-// Both GEMMs run on the tensor cores in 3xTF32, which keeps f32 accuracy:
-// each f32 operand v is split into hi = tf32(v) and lo = tf32(v - hi)
-// (cvt.rna: round to nearest, ties away from zero, 10 mantissa bits; x's lo
-// is cut toward zero instead), and each k-step adds lo*hi, then hi*lo, then
-// hi*hi into f32 accumulators.  A tf32 product is exact in f32; the dropped
-// lo*lo term and the rounding of lo are ~2^-21 of |x_k w_k| at most, far
-// inside the GEMM-rounding bar the callers hold the kernels to (c_in ulps
-// of sum |x_k w_k|).  The forward is 2 * b * n * c_in * c products (17
-// GFLOP at 8 x 8192 x 128 -> 1024, three tensor-core products each), bound
-// by tensor-core operations; the
-// (b, n, c) pre-activation never reaches device memory, which is what the
-// plain version pays for.  The backward's dense part x @ m is an eighth of
-// that work and is bound by the bytes of x and dx.
+// The f32 forms run both GEMMs on the tensor cores in 3xTF32: each f32
+// operand v is split into hi = tf32(v) and lo = tf32(v - hi) (cvt.rna:
+// round to nearest, ties away from zero, 10 mantissa bits; x's lo is cut
+// toward zero instead), and each k-step adds lo*hi, then hi*lo, then hi*hi.
+// A tf32 product is exact in f32, and the split's errors (the dropped lo*lo
+// term, x's lo cut toward zero) are ~2^-21 of |x_k w_k|: measured on the
+// card, rounding x's lo to nearest or adding lo*lo leaves the forward's
+// error where it was.  What costs accuracy is the tensor cores' own f32
+// sums, which add each product toward zero: left there for the 48 additions
+// of a 128-channel dot product, the forward's pooled values erred 5.8-5.9x
+// (RMS) an f32 GEMM's against float64.  So the forward keeps those sums to
+// a group of kGroup = 2 k-steps (16 channels; the group's first product has
+// scale_d 0) and adds each group into its own f32 sums, rounded to nearest,
+// which brings it to 0.91-0.97x (RMS) of an f32 GEMM, the largest error to
+// 0.39-0.92x.  The backward's x @ m, at an f32 GEMM's error already (its
+// sums carry the winners' terms and row), keeps its tensor-core sums.  The
+// forward is 2 * b * n * c_in * c products (17 GFLOP at 8 x 8192 x 128 ->
+// 1024, three tensor-core products each), bound by tensor-core operations;
+// the (b, n, c) pre-activation never reaches device memory, which is what
+// the plain version pays for.  The backward's dense part x @ m is an eighth
+// of that work and is bound by the bytes of x and dx.
 //
-// One main loop serves both, on Hopper's warpgroup MMA (wgmma m64n128k8,
-// A from registers, B from shared memory): a block of two warpgroups owns a
-// tile of 128 points x 128 output columns (64 points each) and walks a run
+// One main loop (run_tiles) serves both f32 kernels, on warpgroup MMA
+// (wgmma m64n128k8, A from registers, B from shared memory): a block of two
+// warpgroups owns a tile of 128 points x 128 output columns (64 points
+// each) and walks a run
 // of a cloud's point tiles.  The weight (w, or m for the backward) is split
 // once a call into hi and lo arrays laid out as wgmma's no-swizzle K-major
 // core matrices, 32 input channels a chunk; a block keeps its column tile's
@@ -71,24 +80,37 @@
 //
 // The bf16 forms compute what the TPU kernels compute in bf16, the form in
 // which the JAX package runs them: x and w (and, in the backward, m and
-// each winner's coef) are bf16, each product is exact and the sums are
-// f32, with one wgmma m64n128k16.f32.bf16.bf16 a k-step in place of three
-// tf32 products.  The main loop is the same template: a bf16 stage holds
-// 64 input channels, the same 128 bytes a row as f32's 32, so the x ring,
-// the fragment addresses (a 32-bit word holds a tf32 value or a bf16 pair,
-// and wgmma's register layout puts k pair 2t, 2t + 1 where tf32 has k t)
-// and the weight chunks' core-matrix layout ([k / 8][column][k % 8], 128
-// bytes a core matrix) keep their byte geometry.  The weight (or m,
-// rounded to bf16 to nearest even) is relaid once a call, with no split.
+// each winner's coef) are bf16, each product is exact and the sums are f32.
 // The forward's output is the f32 maximum with its first index, as in f32
 // (the TPU kernel's packed argmax rounds the pooled value to 23 -
 // ceil(log2 n) bits; this one does not).  The backward writes dx in bf16,
 // rounded once from its f32 sum, and dk in f32.  The forward is bound by
 // its 17 GFLOP at 989 TFLOP/s of dense bf16 (0.017 ms at 8 x 8192 x 128 ->
 // 1024), the backward by the bytes of x and dx (33.6 MB, 0.010 ms).
+//
+// At c_in 64 and 128 (the chains' width) each bf16 form is a kernel of its
+// own, built for Hopper (below, "The bf16 forms (c_in 64 or 128)"): TMA
+// loads through mbarrier rings issued by a producer warp, wgmma with both
+// operands in 128-byte-swizzled shared memory, a persistent grid.  The
+// forward turns the product round (channels are wgmma's m, points its n),
+// so a thread's running max over points lives in registers; its slice of
+// 256 channels of w stays resident, so x comes from L2 four times at c =
+// 1024; two consumer warpgroups take the tensor cores in turn, one's
+// epilogue (the affine, the max, the first index) under the other's
+// products.  The backward's first launch sorts each cloud's winners by
+// point (channel order within a point) into per-point lists, and dx's
+// epilogue adds, for each row, only that row's winners, from w rows staged
+// while the row's products run; dx goes back through shared memory by TMA
+// stores.  Wider c_in keeps the f32 forms' run of tiles on bf16 operands:
+// one wgmma m64n128k16.f32.bf16.bf16 a k-step in place of three tf32
+// products, a bf16 stage holding 64 input channels, the same 128 bytes a
+// row as f32's 32, with the weight (or m, rounded to bf16) relaid once a
+// call.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -111,6 +133,8 @@ constexpr int kSmemBytes = kStages * (kStageX + 2 * kStageB) * 4;  // 204,800
 // (8 columns x 4 k) is 128 contiguous bytes; the next 8 columns are 128 B
 // on (the stride offset), the next 4 k 2,048 B (the leading offset)
 constexpr int kCoreK = kTileN * 16;
+constexpr int kGroup = 2;    // k-steps whose products the tensor cores sum
+                             // before the forward promotes them (16 channels)
 constexpr int kMaxC = 4096;  // channels the backward's winner list holds
 constexpr int kBatch = 16;   // winner rows the backward stages at a time
 static_assert((kStages * kStageX * 4) % 128 == 0, "weight slots' alignment");
@@ -173,9 +197,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // ties reads and writes of the accumulators to this point (after a wait):
 // the compiler does not move them across it
-__device__ __forceinline__ void keep(float (&d)[kAcc]) {
+template <int N>
+__device__ __forceinline__ void keep_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128 of the warpgroup) += a (64 x 8, registers) * b (8 x 128,
@@ -221,6 +246,78 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[kAcc], const uint32_t (&a)
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (64 x 256) += a (64 x 16) * b (16 x 256), both bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128) += a (64 x 16) * b (16 x 128), both bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) += a (64 x 16) * b (16 x 64), both bf16 in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // the weight operand (n_cols x k, element (j, k) at src[j * stride_n + k *
@@ -299,7 +396,7 @@ __global__ void pooled_forward_relayout_kernel(const __nv_bfloat16* __restrict__
 // w_hi at its bf16 relayout, w_lo unused).  Its chunks stay resident in the
 // block's 4 weight slots when they fit (c_in <= 128 in f32, 256 in bf16),
 // and otherwise stream through them beside x.
-template <bool kBf16, bool kBlockSync, typename Epilogue>
+template <bool kBf16, bool kBlockSync, bool kPromote, typename Epilogue>
 __device__ __forceinline__ void run_tiles(const Elem<kBf16>* __restrict__ xc,
                                           const float* __restrict__ w_hi,
                                           const float* __restrict__ w_lo,
@@ -351,9 +448,11 @@ __device__ __forceinline__ void run_tiles(const Elem<kBf16>* __restrict__ xc,
 
   // this thread's x rows: 16 * warp + g (+ 8) of the tile
   const int row = 16 * warp + g;
-  float d[kAcc];
+  // d: the f32 sums; q (kPromote): a group's partial sums on the tensor
+  // cores, added into d with ordinary f32 adds after each kGroup k-steps
+  float d[kAcc], q[kAcc];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) d[i] = 0.0f;
+  for (int i = 0; i < kAcc; ++i) d[i] = q[i] = 0.0f;
   for (int it = 0; it < total; ++it) {
     const bool weights = !resident || it < chunks;
     cp_async_wait_stage(weights);
@@ -388,6 +487,14 @@ __device__ __forceinline__ void run_tiles(const Elem<kBf16>* __restrict__ xc,
                                __float_as_uint(v[2]), __float_as_uint(v[3])};
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
         wgmma_bf16(d, a, weight_desc(b_hi + step), !(first && kk == 0));
+      } else if constexpr (kPromote) {
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_x(v[i], ah[i], al[i]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_tf32(q, al, weight_desc(b_hi + step), kk % kGroup != 0);
+        wgmma_tf32(q, ah, weight_desc(b_lo + step), 1);
+        wgmma_tf32(q, ah, weight_desc(b_hi + step), 1);
       } else {
         uint32_t ah[4], al[4];
 #pragma unroll
@@ -398,11 +505,23 @@ __device__ __forceinline__ void run_tiles(const Elem<kBf16>* __restrict__ xc,
         wgmma_tf32(d, ah, weight_desc(b_hi + step), 1);
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (!kBf16 && kPromote && kk % kGroup == kGroup - 1) {
+        // the group's products are done: promote them into d (round to
+        // nearest); the next group starts its partial sums at 0
+        wgmma_wait<0>();
+        keep_acc(q);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) d[i] = __fadd_rn(d[i], q[i]);
+      }
     }
     if (last || !resident) wgmma_wait<0>();
     if (last) {
-      keep(d);
+      keep_acc(d);
       epilogue(it / chunks, d);
+      if (!kBf16 && kPromote) {
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) d[i] = 0.0f;
+      }
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -467,7 +586,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long split_size =
       (long long)((c + kTileN - 1) / kTileN) * kTileN * c_in * kWords / 2;
   const float* w_hi = w_split + (long long)blockIdx.x * kTileN * c_in * kWords / 2;
-  run_tiles<kBf16, false>(x + (long long)cloud * n * c_in, w_hi, w_hi + split_size, c_in,
+  run_tiles<kBf16, false, true>(x + (long long)cloud * n * c_in, w_hi, w_hi + split_size, c_in,
             p_begin, p_end, smem, [&](int tile, float (&d)[kAcc]) {
     // the affine in the plain version's order (no FMA contraction), then
     // the running max over this thread's two rows in increasing order
@@ -713,7 +832,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long split_size =
       (long long)((c_in + kTileN - 1) / kTileN) * kTileN * c_in * kWords / 2;
   const float* m_hi = m_split + (long long)blockIdx.x * kTileN * c_in * kWords / 2;
-  run_tiles<kBf16, true>(x + (long long)cloud * n * c_in, m_hi, m_hi + split_size, c_in,
+  run_tiles<kBf16, true, false>(x + (long long)cloud * n * c_in, m_hi, m_hi + split_size, c_in,
             p_begin, p_end, smem, [&](int tile, float (&d)[kAcc]) {
     const int p0 = p_begin + tile * kTileP;
     // the staged rows' copies joined the tile's first stage group, which
@@ -775,35 +894,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   });
 }
 
-// The backward's first launch: blocks [0, split_blocks) split m into hi
-// and lo for the dx kernel, and block split_blocks + ch gathers channel
-// ch's row of dk^T (threads over the input channels d) from the winners;
-// the winners and coefficients of 128 clouds at a time come through
+// dk's row ch (dk transposed), by a block: threads over the input channels
+// d; the winners and coefficients of 128 clouds at a time come through
 // shared memory in one round trip, so a thread's x loads do not wait on
-// each other, and the clouds are summed in order.  kBf16: m is rounded to
-// bf16 and relaid at m_hi (m_lo unused), and each coef rounds to bf16.
+// each other, and the clouds are summed in order.  kBf16: each coef rounds
+// to bf16.  An argmax outside [0, n) traps.
 template <bool kBf16>
-__global__ void pooled_backward_prep_kernel(const float* __restrict__ m,
-                                            float* __restrict__ m_hi,
-                                            float* __restrict__ m_lo,
-                                            int split_blocks,
-                                            const Elem<kBf16>* __restrict__ x,
-                                            const float* __restrict__ coef,
-                                            const int* __restrict__ argmax,
-                                            float* __restrict__ dk_t, int b,
-                                            int n, int c_in, int c) {
-  if ((int)blockIdx.x < split_blocks) {  // column j of m is k-major
-    if constexpr (kBf16) {
-      relayout_bf16(m, 1, c_in, c_in, c_in, reinterpret_cast<__nv_bfloat16*>(m_hi),
-                    split_blocks);
-    } else {
-      split_operand(m, 1, c_in, c_in, c_in, m_hi, m_lo, split_blocks);
-    }
-    return;
-  }
+__device__ __forceinline__ void gather_dk(int ch, const Elem<kBf16>* __restrict__ x,
+                                          const float* __restrict__ coef,
+                                          const int* __restrict__ argmax,
+                                          float* __restrict__ dk_t, int b, int n,
+                                          int c_in, int c) {
   __shared__ int ps[128];
   __shared__ float cs[128];
-  const int ch = blockIdx.x - split_blocks;
   for (int d0 = 0; d0 < c_in; d0 += blockDim.x) {
     const int d = d0 + threadIdx.x;
     float acc = 0.0f;
@@ -829,15 +932,876 @@ __global__ void pooled_backward_prep_kernel(const float* __restrict__ m,
   }
 }
 
+// The backward's first launch: blocks [0, split_blocks) split m into hi
+// and lo for the dx kernel, and block split_blocks + ch gathers dk's row ch.
+// kBf16: m is rounded to bf16 and relaid at m_hi (m_lo unused).
+template <bool kBf16>
+__global__ void pooled_backward_prep_kernel(const float* __restrict__ m,
+                                            float* __restrict__ m_hi,
+                                            float* __restrict__ m_lo,
+                                            int split_blocks,
+                                            const Elem<kBf16>* __restrict__ x,
+                                            const float* __restrict__ coef,
+                                            const int* __restrict__ argmax,
+                                            float* __restrict__ dk_t, int b,
+                                            int n, int c_in, int c) {
+  if ((int)blockIdx.x < split_blocks) {  // column j of m is k-major
+    if constexpr (kBf16) {
+      relayout_bf16(m, 1, c_in, c_in, c_in, reinterpret_cast<__nv_bfloat16*>(m_hi),
+                    split_blocks);
+    } else {
+      split_operand(m, 1, c_in, c_in, c_in, m_hi, m_lo, split_blocks);
+    }
+    return;
+  }
+  gather_dk<kBf16>(blockIdx.x - split_blocks, x, coef, argmax, dk_t, b, n, c_in, c);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 forms (c_in 64 or 128): TMA, mbarriers and wgmma with both
+// operands in shared memory.  A block is consumer warpgroups (warps 0 on)
+// and a producer after them (the forward's, a warpgroup that gives its
+// registers to the consumers by setmaxnreg; dx's, a warp); the producer's
+// lane 0 issues every TMA load, the consumers issue products and run the
+// epilogue.
+
+constexpr int kFwdThreads = 384;   // two consumer warpgroups, a producer one
+constexpr int kBox = 64;           // bf16 a 128-byte swizzled row of a box
+constexpr int kBoxRowBytes = 128;
+constexpr int kFwdPoints = 256;    // points of a forward tile (wgmma n)
+constexpr int kFwdSlice = 256;     // channels of a forward slice: 4 x m64
+constexpr int kDxPoints = 64;      // points of a dx tile (wgmma m)
+constexpr int kDxConsumers = 2;    // dx's consumer warpgroups, a tile each at a time
+constexpr int kDxThreads = 128 * kDxConsumers + 32;  // and a producer warp
+constexpr int kDxStages = 5;       // x tiles in flight a block (16 KB each at c_in 128)
+constexpr int kWinBatch = 64;      // winner rows a dx warpgroup stages at a time
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// wait for the phase of parity `parity` to complete (a fresh barrier's
+// phase of parity 1 counts as complete)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0,
+                                            int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// named barriers 1-4 (0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// descriptor of a K-major bf16 operand laid out by TMA's 128-byte swizzle:
+// rows of 128 bytes (64 k), 8-row atoms 1,024 bytes apart; a k-step of 16
+// moves the start 32 bytes within the row
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// the larger of a and b, NaN if either is NaN
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;\n" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// relu of a max and its index: a max <= 0 is 0 at index 0 (NaN is kept)
+__device__ __forceinline__ void relu_out(float v, int i, float* pooled, int* argmax) {
+  if (v <= 0.0f) {
+    v = 0.0f;
+    i = 0;
+  }
+  *pooled = v;
+  *argmax = i;
+}
+
+// The bf16 forward for c_in = 64 KB (KB 1 or 2), persistent: block i takes
+// the units i, i + grid, ... of (cloud, run of 256-point tiles, slice of
+// 256 channels), the slice fastest, so the blocks that read one stretch of
+// x run together and x comes from device memory about once and from L2 once
+// a slice.  The product is turned round: channels are wgmma's m, points its
+// n (m64n256k16), so a thread holds 2 channels x 64 points of a tile and
+// keeps its running max in 8 registers.  The slice's w (256 x c_in, 64 KB at
+// c_in 128) is resident, loaded by TMA once a unit; x tiles stream through
+// a ring of 4 / KB stages.  Warpgroup g owns the slice's channels [128 g,
+// 128 g + 128) as two m64 blocks; the warpgroups take the tensor cores in
+// turn (0, 1, 0, 1, ... by named barriers 1 and 2), so one's epilogue runs
+// under the other's products.  With one run a unit writes pooled and argmax
+// (after relu); with several, each run's (value, index) best goes to
+// part_v / part_i, and the block that finishes a (cloud, slice)'s last run
+// (a counter in `done`, which it sets back to 0) combines them in run order.
+template <int KB>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    pooled_forward_tma_kernel(const __grid_constant__ CUtensorMap x_map,
+                              const __grid_constant__ CUtensorMap w_map,
+                              const float* __restrict__ a,
+                              const float* __restrict__ c_row,
+                              float* __restrict__ part_v, int* __restrict__ part_i,
+                              float* __restrict__ pooled, int* __restrict__ argmax,
+                              int* __restrict__ done, int n, int c, int runs,
+                              int tiles_per_run, int units) {
+  constexpr int kStages = 4 / KB;
+  constexpr int kWBox = kFwdSlice * kBoxRowBytes;    // 32 KB: 256 rows x 64 k
+  constexpr int kXBox = kFwdPoints * kBoxRowBytes;
+  constexpr int kXBytes = KB * kXBox;                // an x tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* w_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* x_s = w_s + KB * kWBox;
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(x_s + kStages * kXBytes);
+  uint64_t* w_empty = w_full + 1;
+  uint64_t* x_full = w_full + 2;
+  uint64_t* x_empty = x_full + kStages;
+  __shared__ int last_run;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slices = (c + kFwdSlice - 1) / kFwdSlice;
+  if (threadIdx.x == 0) {
+    mbar_init(w_full, 1);
+    mbar_init(w_empty, 8);  // lane 0 of each consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&x_full[s], 1);
+      mbar_init(&x_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup: lane 0 of warp 8 issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0) {
+      int xi = 0, wi = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++wi) {
+        const int slice = u % slices, run = (u / slices) % runs;
+        const int cloud = u / (slices * runs);
+        const int p_begin = run * tiles_per_run * kFwdPoints;
+        const int p_end = min(n, p_begin + tiles_per_run * kFwdPoints);
+        mbar_wait(w_empty, (wi & 1) ^ 1);  // the last unit's products are done
+        mbar_expect(w_full, KB * kWBox);
+        for (int kb = 0; kb < KB; ++kb) {
+          tma_load_2d(w_s + kb * kWBox, &w_map, kb * kBox, slice * kFwdSlice, w_full);
+        }
+        for (int p0 = p_begin; p0 < p_end; p0 += kFwdPoints, ++xi) {
+          const int s = xi % kStages;
+          mbar_wait(&x_empty[s], ((xi / kStages) & 1) ^ 1);
+          mbar_expect(&x_full[s], kXBytes);
+          for (int kb = 0; kb < KB; ++kb) {
+            tma_load_3d(x_s + s * kXBytes + kb * kXBox, &x_map, kb * kBox, p0, cloud,
+                        &x_full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers take the registers the producer gives up
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[kFwdPoints / 2];
+#pragma unroll
+  for (int i = 0; i < kFwdPoints / 2; ++i) acc[i] = 0.0f;
+  bool waited = wg == 1;  // warpgroup 0 takes the first turn without waiting
+  int xi = 0, wi = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++wi) {
+    const int slice = u % slices, run = (u / slices) % runs;
+    const int cloud = u / (slices * runs);
+    const int p_begin = run * tiles_per_run * kFwdPoints;
+    const int p_end = min(n, p_begin + tiles_per_run * kFwdPoints);
+    // this thread's channels: row 16 wq + 8 h + g of block k of its warpgroup
+    float av[2][2], cv[2][2], bv[2][2];
+    int bi[2][2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ch = slice * kFwdSlice + (2 * wg + k) * 64 + 16 * wq + 8 * h + g;
+        av[k][h] = ch < c ? a[ch] : 0.0f;
+        cv[k][h] = ch < c ? c_row[ch] : 0.0f;
+        bv[k][h] = -INFINITY;
+        bi[k][h] = 0;
+      }
+    }
+    mbar_wait(w_full, wi & 1);
+    for (int p0 = p_begin; p0 < p_end; p0 += kFwdPoints, ++xi) {
+      const int s = xi % kStages;
+      mbar_wait(&x_full[s], (xi / kStages) & 1);
+      const bool full = p0 + kFwdPoints <= p_end;
+      const unsigned xa = smem_addr(x_s + s * kXBytes);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (waited) bar_sync(wg == 0 ? 1 : 2, 256);  // this warpgroup's turn
+        waited = true;
+        const unsigned wa = smem_addr(w_s) + (2 * wg + k) * 64 * kBoxRowBytes;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            wgmma_ss(acc, sw128_desc(wa + kb * kWBox + ks * 32),
+                     sw128_desc(xa + kb * kXBox + ks * 32), kb + ks > 0);
+          }
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_wait<0>();
+        keep_acc(acc);
+        // the other's turn once these products are done, so the tensor cores
+        // run the warpgroups' products one after the other and each
+        // epilogue runs beside the other's products
+        bar_arrive(wg == 0 ? 2 : 1, 256);
+        if (k == 1 && lane == 0) {
+          mbar_arrive(&x_empty[s]);
+          if (p0 + kFwdPoints >= p_end) mbar_arrive(w_empty);
+        }
+        // acc[4j + 2h + e]: channel row 8h + g of the warp, point 8j + 2t + e
+        // of the tile.  The affine in the plain version's order (no FMA
+        // contraction), in place; a point past the run's end (zero-filled)
+        // gives -inf, which no valid point of the tile, all before it, loses
+        // to on the first-index rule
+#pragma unroll
+        for (int i = 0; i < kFwdPoints / 2; ++i) {
+          const int h = (i >> 1) & 1;
+          acc[i] = __fadd_rn(__fmul_rn(acc[i], av[k][h]), cv[k][h]);
+        }
+        if (!full) {
+#pragma unroll
+          for (int i = 0; i < kFwdPoints / 2; ++i) {
+            if (p0 + 8 * (i >> 2) + 2 * t + (i & 1) >= p_end) acc[i] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // the row's max (NaN first) in eight independent chains, then the
+          // first of its points that attains it, by a pass in reverse order
+          float part[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) part[q] = acc[4 * (q >> 1) + 2 * h + (q & 1)];
+#pragma unroll
+          for (int q = 8; q < kFwdPoints / 4; ++q) {
+            part[q % 8] = max_nan(part[q % 8], acc[4 * (q >> 1) + 2 * h + (q & 1)]);
+          }
+#pragma unroll
+          for (int q = 1; q < 8; ++q) part[0] = max_nan(part[0], part[q]);
+          const float m = part[0];
+          // the first of the row's 64 points (q = 2j + e) at m, in eight
+          // independent chains of eight (each scanned in reverse), then the
+          // smallest of theirs
+          int found[8];
+#pragma unroll
+          for (int c8 = 0; c8 < 8; ++c8) found[c8] = kFwdPoints / 4;
+          if (m == m) {
+#pragma unroll
+            for (int c8 = 0; c8 < 8; ++c8) {
+#pragma unroll
+              for (int q = 8 * c8 + 7; q >= 8 * c8; --q) {
+                if (acc[4 * (q >> 1) + 2 * h + (q & 1)] == m) found[c8] = q;
+              }
+            }
+          } else {  // the first NaN
+#pragma unroll
+            for (int c8 = 0; c8 < 8; ++c8) {
+#pragma unroll
+              for (int q = 8 * c8 + 7; q >= 8 * c8; --q) {
+                const float y = acc[4 * (q >> 1) + 2 * h + (q & 1)];
+                if (y != y) found[c8] = q;
+              }
+            }
+          }
+#pragma unroll
+          for (int c8 = 1; c8 < 8; ++c8) found[0] = min(found[0], found[c8]);
+          const int first = 8 * (found[0] >> 1) + (found[0] & 1);  // 8j + e
+          if (beats_earlier(m, bv[k][h])) {  // an earlier tile keeps a tie
+            bv[k][h] = m;
+            bi[k][h] = p0 + 2 * t + first;
+          }
+        }
+      }
+    }
+    // the 4 lanes of a channel row (lane bits 0-1), then the unit's result
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, bv[k][h], off);
+          const int oi = __shfl_xor_sync(0xffffffffu, bi[k][h], off);
+          if (better(ov, oi, bv[k][h], bi[k][h])) {
+            bv[k][h] = ov;
+            bi[k][h] = oi;
+          }
+        }
+        const int ch = slice * kFwdSlice + (2 * wg + k) * 64 + 16 * wq + 8 * h + g;
+        if (t == 0 && ch < c) {
+          if (runs == 1) {
+            relu_out(bv[k][h], bi[k][h], pooled + (long long)cloud * c + ch,
+                     argmax + (long long)cloud * c + ch);
+          } else {
+            const long long o = ((long long)cloud * runs + run) * c + ch;
+            part_v[o] = bv[k][h];
+            part_i[o] = bi[k][h];
+          }
+        }
+      }
+    }
+    if (runs > 1) {
+      // the last of the (cloud, slice)'s runs to finish combines them, in
+      // run order (a tie keeps the lower run's lower index), so the result
+      // does not depend on which block that is
+      __threadfence();
+      bar_sync(3, 256);
+      if (threadIdx.x == 0) {
+        last_run = atomicAdd(&done[cloud * slices + slice], 1) == runs - 1;
+      }
+      bar_sync(3, 256);
+      if (last_run) {
+        __threadfence();
+        const int ch = slice * kFwdSlice + threadIdx.x;
+        if (ch < c) {
+          float best = -INFINITY;
+          int at = 0;
+          for (int r = 0; r < runs; ++r) {
+            const long long o = ((long long)cloud * runs + r) * c + ch;
+            const float v = __ldcg(part_v + o);
+            if (beats_earlier(v, best)) {
+              best = v;
+              at = __ldcg(part_i + o);
+            }
+          }
+          relu_out(best, at, pooled + (long long)cloud * c + ch,
+                   argmax + (long long)cloud * c + ch);
+        }
+        if (threadIdx.x == 0) done[cloud * slices + slice] = 0;  // for the next call
+      }
+    }
+  }
+  if (wg == 0) bar_sync(1, 256);  // warpgroup 1's last turn hand-back
+}
+
+// The bf16 backward's first launch (c_in 64 or 128), blocks of 1,024
+// threads.  The first b * ceil(n / kCsrPoints) blocks list the clouds'
+// winners, a block a cloud's kCsrPoints points: win_ch holds each cloud's
+// channels in point order and, within a point, channel order (a counting
+// sort), with win_coef their bf16-rounded coef, and pt_off[p] .. pt_off[p +
+// 1] is point p's stretch of them.  The next m_blocks write m^T in bf16 (m_t[j][k] = m[k][j], the
+// K-major operand of dx's products), and the rest gather dk's rows: a
+// channel's clouds are cut into dk_parts(b) stretches, one a warp (lane l
+// holding channels 4l .. 4l + 3 of a row), each summed in cloud order, then
+// the stretches in order, so dk is deterministic.  An argmax outside [0, n)
+// traps.
+constexpr int kPrepThreads = 1024;
+constexpr int kCsrPoints = 1024;  // points a block of the lists takes
+
+// exclusive prefix sum of v over the block's 1,024 threads, in thread order
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = warp_sums[lane], wi = w;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, wi, off);
+      if (lane >= off) wi += o;
+    }
+    warp_sums[lane] = wi - w;
+  }
+  __syncthreads();
+  const int out = warp_sums[warp] + incl - v;
+  __syncthreads();  // warp_sums is free again
+  return out;
+}
+
+// in-place exclusive prefix sum of a[0 .. count), by the block's 32 warps:
+// warp w takes the w-th stretch of the array, its lanes on neighbouring
+// entries (no bank conflicts), then the stretches' totals are scanned
+__device__ __forceinline__ void block_scan_array(int* a, int count, int* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int stretch = (count + 31) / 32;
+  const int begin = warp * stretch, end = min(count, begin + stretch);
+  int total = 0;
+  for (int k = begin; k < end; k += 32) {
+    const int v = k + lane < end ? a[k + lane] : 0;
+    int incl = v;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += o;
+    }
+    if (k + lane < end) a[k + lane] = total + incl - v;
+    total += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  const int offset = block_exclusive_scan(lane == 0 ? total : 0, warp_sums);
+  const int warp_offset = __shfl_sync(0xffffffffu, offset, 0);
+  for (int k = begin + lane; k < end; k += 32) a[k] += warp_offset;
+  __syncthreads();
+}
+
+// the stretches (warps) each channel's clouds are cut into for dk: a power
+// of two up to 32, about one for every 16 clouds
+__host__ __device__ __forceinline__ int dk_parts(int b) {
+  int parts = 1;
+  while (parts < 32 && parts * 16 < b) parts <<= 1;
+  return parts;
+}
+
+__global__ void __launch_bounds__(kPrepThreads, 1)
+    pooled_backward_prep_tma_kernel(
+        const float* __restrict__ m, __nv_bfloat16* __restrict__ m_t, int m_blocks,
+        const __nv_bfloat16* __restrict__ x, const float* __restrict__ coef,
+        const int* __restrict__ argmax, float* __restrict__ dk_t,
+        int* __restrict__ win_ch, float* __restrict__ win_coef, int* __restrict__ pt_off,
+        int b, int n, int c_in, int c) {
+  // the lists' counters and slots; dk's partial sums
+  __shared__ int work[2 * kCsrPoints + kMaxC];
+  __shared__ int warp_sums[33];
+  const int block = blockIdx.x, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int csr_blocks = b * ((n + kCsrPoints - 1) / kCsrPoints);
+  if (block >= csr_blocks + m_blocks) {  // dk's rows
+    const int parts = dk_parts(b);
+    const int ch = (block - csr_blocks - m_blocks) * (32 / parts) + warp / parts;
+    const int part = warp % parts;
+    const int per = (b + parts - 1) / parts;
+    const int cl_begin = min(b, part * per), cl_end = min(b, cl_begin + per);
+    const bool on = 4 * lane < c_in;
+    constexpr int kRows = 16;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (ch < c) {
+      // the stretch's clouds in order, 32 at a time: their winners first,
+      // one a lane, then 16 x rows at a time
+      for (int cl0 = cl_begin; cl0 < cl_end; cl0 += 32) {
+        const int clouds = min(32, cl_end - cl0);
+        const long long o = (long long)(cl0 + lane) * c + ch;
+        int p_mine = 0;
+        float cf_mine = 0.0f;
+        if (lane < clouds) {
+          p_mine = argmax[o];
+          if (p_mine < 0 || p_mine >= n) __trap();  // argmax outside [0, n)
+          cf_mine = coef_of(coef[o], true);
+        }
+        for (int u0 = 0; u0 < clouds; u0 += kRows) {
+          uint2 xr[kRows];
+#pragma unroll
+          for (int u = 0; u < kRows; ++u) {
+            const int p = __shfl_sync(0xffffffffu, p_mine, (u0 + u) & 31);
+            xr[u] = make_uint2(0u, 0u);
+            if (on && u0 + u < clouds) {
+              xr[u] = *reinterpret_cast<const uint2*>(
+                  x + ((long long)(cl0 + u0 + u) * n + p) * c_in + 4 * lane);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kRows; ++u) {
+            const float cf = __shfl_sync(0xffffffffu, cf_mine, (u0 + u) & 31);
+            if (u0 + u < clouds) {
+              const float2 lo =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[u].x));
+              const float2 hi =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[u].y));
+              acc[0] = fmaf(cf, lo.x, acc[0]);
+              acc[1] = fmaf(cf, lo.y, acc[1]);
+              acc[2] = fmaf(cf, hi.x, acc[2]);
+              acc[3] = fmaf(cf, hi.y, acc[3]);
+            }
+          }
+        }
+      }
+    }
+    float* partial = reinterpret_cast<float*>(work);  // [warp][128]
+#pragma unroll
+    for (int q = 0; q < 4; ++q) partial[warp * 128 + 4 * lane + q] = acc[q];
+    __syncthreads();
+    if (part == 0 && ch < c && on) {
+      float total[4] = {acc[0], acc[1], acc[2], acc[3]};
+      for (int pi = 1; pi < parts; ++pi) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) total[q] += partial[(warp + pi) * 128 + 4 * lane + q];
+      }
+      *reinterpret_cast<float4*>(dk_t + (long long)ch * c_in + 4 * lane) =
+          make_float4(total[0], total[1], total[2], total[3]);
+    }
+    return;
+  }
+  if (block >= csr_blocks) {  // m^T in bf16
+    for (int i = (block - csr_blocks) * kPrepThreads + tid; i < c_in * c_in;
+         i += m_blocks * kPrepThreads) {
+      const int j = i / c_in, k = i % c_in;
+      m_t[i] = __float2bfloat16_rn(m[(long long)k * c_in + j]);
+    }
+    return;
+  }
+  // block (cloud, chunk) lists the cloud's winners on the chunk's kCsrPoints
+  // points [p0, p1): a pass over the cloud's argmax counts the channels
+  // below p0 and each point's channels (shared-memory counters), a scan
+  // gives the points' offsets, and each channel takes a slot in its point's
+  // stretch (a counter again, so in no set order); then each channel's
+  // final place is its stretch's start plus the number of the stretch's
+  // channels below it, so a point's channels are in channel order
+  const int chunks = (n + kCsrPoints - 1) / kCsrPoints;
+  const int cloud = block / chunks;
+  const int p0 = (block % chunks) * kCsrPoints, p1 = min(n, p0 + kCsrPoints);
+  const int points = p1 - p0;
+  int* count = work;                  // [point]: winners, then (scanned) offsets
+  int* cursor = count + kCsrPoints;   // [point]: slots taken
+  int* slot_ch = cursor + kCsrPoints;  // [slot]: the chunk's channels
+  const int* am = argmax + (long long)cloud * c;
+  for (int q = tid; q < points; q += kPrepThreads) count[q] = cursor[q] = 0;
+  __syncthreads();
+  int below = 0;  // this thread's channels below p0
+  for (int j = tid; j < c; j += kPrepThreads) {
+    const int p = am[j];
+    if (p < 0 || p >= n) __trap();  // argmax outside [0, n)
+    if (p < p0) {
+      ++below;
+    } else if (p < p1) {
+      atomicAdd(&count[p - p0], 1);
+    }
+  }
+  const int below_before = block_exclusive_scan(below, warp_sums);
+  if (tid == kPrepThreads - 1) warp_sums[32] = below_before + below;
+  __syncthreads();
+  const int base = warp_sums[32];  // the cloud's channels below p0
+  block_scan_array(count, points, warp_sums);
+  int* off = pt_off + (long long)cloud * (n + 1);
+  for (int j = tid; j < c; j += kPrepThreads) {
+    const int p = am[j];
+    if (p >= p0 && p < p1) slot_ch[count[p - p0] + atomicAdd(&cursor[p - p0], 1)] = j;
+  }
+  __syncthreads();
+  const int total = points > 0 ? count[points - 1] + cursor[points - 1] : 0;
+  for (int q = tid; q < points; q += kPrepThreads) off[p0 + q] = base + count[q];
+  if (p1 == n && tid == 0) off[n] = c;
+  for (int slot = tid; slot < total; slot += kPrepThreads) {
+    const int j = slot_ch[slot];
+    const int q = am[j] - p0;
+    int rank = 0;
+    for (int o = count[q]; o < count[q] + cursor[q]; ++o) rank += slot_ch[o] < j;
+    const long long at = (long long)cloud * c + base + count[q] + rank;
+    win_ch[at] = j;
+    win_coef[at] = coef_of(coef[(long long)cloud * c + j], true);
+  }
+}
+
+// The bf16 backward's dx for c_in = 64 KB (KB 1 or 2), persistent: block i
+// takes the 64-point tiles i, i + grid, ... of all clouds, its
+// kDxConsumers warpgroups in turn (warpgroup g the block's tiles g, g + 2,
+// ...), so two tiles' latencies overlap; a producer warp's lane 0 issues
+// the loads.  m^T (c_in x c_in
+// bf16, 32 KB at c_in 128) is resident; x tiles stream by TMA through a
+// ring of kDxStages (80 KB in flight at c_in 128, for x's bytes at the
+// device's rate).  dx = x @ m (m64 x c_in x 16 products, both operands in
+// shared memory) + row, then each row's own winners' coef * w rows, in
+// channel order, from the prep's lists: the tile's winners are one stretch
+// of them, whose w rows the warpgroup copies into shared memory (64 at a
+// time) while its products run.  dx is rounded to bf16 and written back
+// through shared memory (128-byte swizzled, two buffers a warpgroup, so a
+// tile's store drains while the next is built) by TMA stores, which clip
+// the rows past n.
+template <int KB>
+__global__ void __launch_bounds__(kDxThreads, 1)
+    pooled_backward_dx_tma_kernel(const __grid_constant__ CUtensorMap x_map,
+                                  const __grid_constant__ CUtensorMap m_map,
+                                  const __grid_constant__ CUtensorMap dx_map,
+                                  const __nv_bfloat16* __restrict__ w,
+                                  const int* __restrict__ win_ch,
+                                  const float* __restrict__ win_coef,
+                                  const int* __restrict__ pt_off,
+                                  const float* __restrict__ row, int n, int c,
+                                  int tiles_per_cloud, int tiles) {
+  constexpr int kCols = KB * kBox;                 // c_in: wgmma's n
+  constexpr int kXBox = kDxPoints * kBoxRowBytes;  // 8 KB: 64 rows x 64 k
+  constexpr int kXBytes = KB * kXBox;
+  constexpr int kMBox = kCols * kBoxRowBytes;
+  constexpr int kPieces = kCols / 8;               // 16-byte pieces of a w row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* m_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* x_s = m_s + KB * kMBox;
+  uint8_t* out_s = x_s + kDxStages * kXBytes;  // [warpgroup][buffer] tiles
+  // [warpgroup][winner][column] w rows, each padded by 16 bytes (so the
+  // rows 8 lanes read at once fall in different banks), then
+  // [warpgroup][winner] coef
+  constexpr int kRow = kCols + 8;
+  __nv_bfloat16* win_w =
+      reinterpret_cast<__nv_bfloat16*>(out_s + 2 * kDxConsumers * kXBytes);
+  float* win_c = reinterpret_cast<float*>(win_w + kDxConsumers * kWinBatch * kRow);
+  float* row_s = win_c + kDxConsumers * kWinBatch;  // row, the same for every tile
+  uint64_t* m_full = reinterpret_cast<uint64_t*>(row_s + kCols);
+  uint64_t* x_full = m_full + 1;
+  uint64_t* x_empty = x_full + kDxStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(m_full, 1);
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(&x_full[s], 1);
+      mbar_init(&x_empty[s], 4);  // lane 0 of each warp of the consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kDxConsumers) {  // the producer warp
+    if (lane == 0) {
+      mbar_expect(m_full, KB * kMBox);
+      for (int kb = 0; kb < KB; ++kb) tma_load_2d(m_s + kb * kMBox, &m_map, kb * kBox, 0, m_full);
+      for (int k = 0, tile = blockIdx.x; tile < tiles; ++k, tile += gridDim.x) {
+        const int s = k % kDxStages;
+        mbar_wait(&x_empty[s], ((k / kDxStages) & 1) ^ 1);
+        mbar_expect(&x_full[s], kXBytes);
+        for (int kb = 0; kb < KB; ++kb) {
+          tma_load_3d(x_s + s * kXBytes + kb * kXBox, &x_map, kb * kBox,
+                      (tile % tiles_per_cloud) * kDxPoints, tile / tiles_per_cloud, &x_full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int ti = threadIdx.x & 127;
+  __nv_bfloat16* my_w = win_w + wg * kWinBatch * kRow;
+  float* my_c = win_c + wg * kWinBatch;
+  if (threadIdx.x < kCols) row_s[threadIdx.x] = row[threadIdx.x];
+  bar_sync(7, 128 * kDxConsumers);
+  float acc[kCols / 2];
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.0f;
+  // the channels and coef of winners b0 .. b0 + rows of a cloud's list
+  // (rows <= 64) that this thread copies: its pieces f = ti + 128 m are
+  // piece f % kPieces of winner f / kPieces
+  constexpr int kPer = kWinBatch * kPieces / 128;
+  struct Batch {
+    int ch[kPer];
+    float cf;
+  };
+  auto fetch = [&](const int* chs, const float* cfs, int b0, int rows, Batch& bt) {
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int e = (ti + 128 * m) / kPieces;
+      bt.ch[m] = e < rows ? chs[b0 + e] : 0;
+    }
+    bt.cf = ti < rows ? cfs[b0 + ti] : 0.0f;
+  };
+  // copy their w rows into shared memory
+  auto stage = [&](const Batch& bt, int rows) {
+#pragma unroll
+    for (int m = 0; m < kPer; ++m) {
+      const int f = ti + 128 * m, e = f / kPieces, q = f % kPieces;
+      if (e < rows) {
+        cp_async16(my_w + e * kRow + q * 8, w + (long long)bt.ch[m] * kCols + q * 8, true);
+      }
+    }
+    if (ti < rows) my_c[ti] = bt.cf;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // a tile's stretch of winners and this thread's rows' own, read a tile
+  // ahead: [0] the tile's first and last, [1 + h] row h's
+  auto stretch = [&](int tile, int (&e)[3][2]) {
+    e[0][0] = e[0][1] = e[1][0] = e[1][1] = e[2][0] = e[2][1] = 0;
+    if (tile >= tiles) return;
+    const int p0 = (tile % tiles_per_cloud) * kDxPoints;
+    const int* off = pt_off + (long long)(tile / tiles_per_cloud) * (n + 1);
+    e[0][0] = off[p0];
+    e[0][1] = off[min(p0 + kDxPoints, n)];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = p0 + 16 * wq + 8 * h + g;
+      if (p < n) {
+        e[1 + h][0] = off[p];
+        e[1 + h][1] = off[p + 1];
+      }
+    }
+  };
+  int next[3][2];
+  Batch first;  // the next tile's first winners, read a tile ahead
+  {
+    const int tile = blockIdx.x + wg * gridDim.x;
+    stretch(tile, next);
+    if (tile < tiles) {
+      const long long cl = tile / tiles_per_cloud;
+      fetch(win_ch + cl * c, win_coef + cl * c, next[0][0],
+            min(kWinBatch, next[0][1] - next[0][0]), first);
+    }
+  }
+  mbar_wait(m_full, 0);
+  int buf = 0;
+  for (int k = wg, tile = blockIdx.x + wg * gridDim.x; tile < tiles;
+       k += kDxConsumers, tile += kDxConsumers * gridDim.x) {
+    const int cloud = tile / tiles_per_cloud;
+    const int p0 = (tile % tiles_per_cloud) * kDxPoints;
+    const int* chs = win_ch + (long long)cloud * c;
+    const float* cfs = win_coef + (long long)cloud * c;
+    const int e_begin = next[0][0], e_end = next[0][1];
+    const int lo[2] = {next[1][0], next[2][0]}, hi[2] = {next[1][1], next[2][1]};
+    const Batch now = first;
+    stretch(tile + kDxConsumers * gridDim.x, next);
+    const int s = k % kDxStages;
+    mbar_wait(&x_full[s], (k / kDxStages) & 1);
+    const unsigned xa = smem_addr(x_s + s * kXBytes), ma = smem_addr(m_s);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kb = 0; kb < KB; ++kb) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_ss(acc, sw128_desc(xa + kb * kXBox + ks * 32),
+                 sw128_desc(ma + kb * kMBox + ks * 32), kb + ks > 0);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the first winners' rows come in while the products run (the last
+    // tile's readers of the staging are past its barriers)
+    stage(now, min(kWinBatch, e_end - e_begin));
+    if (tile + kDxConsumers * gridDim.x < tiles) {
+      const long long cl = (tile + kDxConsumers * gridDim.x) / tiles_per_cloud;
+      fetch(win_ch + cl * c, win_coef + cl * c, next[0][0],
+            min(kWinBatch, next[0][1] - next[0][0]), first);
+    }
+    wgmma_wait<0>();
+    keep_acc(acc);
+    if (lane == 0) mbar_arrive(&x_empty[s]);
+
+    // acc[4j + 2h + e]: point 16 wq + 8h + g of the tile, column 8j + 2t + e
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+      const float2 rv = *reinterpret_cast<const float2*>(&row_s[8 * j + 2 * t]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * j + 2 * h] += rv.x;
+        acc[4 * j + 2 * h + 1] += rv.y;
+      }
+    }
+    for (int b0 = e_begin; b0 < e_end; b0 += kWinBatch) {
+      const int rows = min(kWinBatch, e_end - b0);
+      if (b0 != e_begin) {
+        Batch more;
+        fetch(chs, cfs, b0, rows, more);
+        bar_sync(3 + wg, 128);  // the last batch's readers are done
+        stage(more, rows);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      bar_sync(3 + wg, 128);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e1 = min(hi[h], b0 + rows);
+        for (int e = max(lo[h], b0); e < e1; ++e) {
+          const float sc = my_c[e - b0];
+          const __nv_bfloat16* wr = my_w + (e - b0) * kRow;
+#pragma unroll
+          for (int j = 0; j < kCols / 8; ++j) {
+            const float2 wv = pair_of(wr + 8 * j + 2 * t);
+            acc[4 * j + 2 * h] = fmaf(sc, wv.x, acc[4 * j + 2 * h]);
+            acc[4 * j + 2 * h + 1] = fmaf(sc, wv.y, acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+
+    // stage the tile in bf16: row r at r * 128 bytes of its 64-column box,
+    // 16-byte chunk q at q ^ (r % 8) (TMA's 128-byte swizzle)
+    uint8_t* out = out_s + (2 * wg + buf) * kXBytes;
+    if (ti == 0) {  // the store that last read this buffer is done reading
+      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
+    }
+    bar_sync(3 + wg, 128);  // and this tile's winner rows are read
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * wq + 8 * h + g;
+        *reinterpret_cast<__nv_bfloat162*>(out + (j / 8) * kXBox + r * kBoxRowBytes +
+                                           (((j % 8) ^ g) << 4) + 4 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_sync(3 + wg, 128);
+    if (ti == 0) {
+      for (int kb = 0; kb < KB; ++kb) {
+        tma_store_3d(&dx_map, out + kb * kXBox, kb * kBox, p0, cloud);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    buf ^= 1;
+  }
+  if (ti == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 bool shapes_ok(long long b, long long n, long long c_in, long long c) {
   return b > 0 && n > 0 && b <= 65535 && n <= 0x7fffffffLL / 2 &&
          c_in > 0 && c_in % 64 == 0 && c > 0 && c % 64 == 0 &&
          c <= kMaxC && b * n * c_in < (1LL << 40);
 }
 
-// runs of tiles_per_run point tiles cover the cloud's tiles, none empty
-bool runs_ok(int n, int runs, int tiles_per_run) {
-  const long long tiles = (n + kTileP - 1) / kTileP;
+// runs of tiles_per_run point tiles (of `tile` points) cover the cloud's
+// tiles, none empty
+bool runs_ok(int n, int runs, int tiles_per_run, int tile = kTileP) {
+  const long long tiles = (n + tile - 1) / tile;
   return runs >= 1 && runs <= 65535 && tiles_per_run >= 1 &&
          (long long)(runs - 1) * tiles_per_run < tiles &&
          (long long)runs * tiles_per_run >= tiles;
@@ -914,6 +1878,120 @@ int backward(const Elem<kBf16>* x, const Elem<kBf16>* w, const float* coef,
   return static_cast<int>(cudaGetLastError());
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's tensor-map encoder, looked up once (no link against libcuda)
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a TMA map of a bf16 tensor, 128-byte swizzled boxes: dims and box
+// innermost first, strides in elements of dims 1 .. rank - 1
+bool bf16_map(CUtensorMap* map, const void* base, int rank, const long long* dims,
+              const long long* strides, const int* box) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  cuuint64_t gdim[3], gstride[2];
+  cuuint32_t bdim[3], estride[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    bdim[i] = static_cast<cuuint32_t>(box[i]);
+  }
+  for (int i = 0; i + 1 < rank; ++i) gstride[i] = static_cast<cuuint64_t>(strides[i]) * 2;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim,
+            gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// x (b, n, c_in) in boxes of 64 channels x `points` points of one cloud
+bool x_map(CUtensorMap* map, const __nv_bfloat16* x, int b, int n, int c_in, int points) {
+  const long long dims[3] = {c_in, n, b}, strides[2] = {c_in, (long long)n * c_in};
+  const int box[3] = {kBox, points, 1};
+  return bf16_map(map, x, 3, dims, strides, box);
+}
+
+// a (rows, c_in) row-major matrix in boxes of 64 channels x `rows_box` rows
+bool rows_map(CUtensorMap* map, const __nv_bfloat16* p, int rows, int c_in, int rows_box) {
+  const long long dims[2] = {c_in, rows}, strides[1] = {c_in};
+  const int box[2] = {kBox, rows_box};
+  return bf16_map(map, p, 2, dims, strides, box);
+}
+
+template <int KB>
+int fwd_smem() {  // alignment slack, w slice, x ring, barriers
+  return 1024 + KB * kFwdSlice * kBoxRowBytes + (4 / KB) * KB * kFwdPoints * kBoxRowBytes +
+         8 * (2 + 2 * (4 / KB));
+}
+
+template <int KB>
+int dx_smem() {  // alignment slack, m^T, x ring, dx staging, winners, row, barriers
+  return 1024 + KB * KB * kBox * kBoxRowBytes +
+         (kDxStages + 2 * kDxConsumers) * KB * kDxPoints * kBoxRowBytes +
+         kDxConsumers * kWinBatch * ((KB * kBox + 8) * 2 + 4) + KB * kBox * 4 +
+         8 * (1 + 2 * kDxStages);
+}
+
+template <int KB>
+int forward_tma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* a,
+                const float* c_row, float* part_v, int* part_i, float* pooled, int* argmax,
+                int* done, int b, int n, int c, int runs, int tiles_per_run, int grid,
+                cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pooled_forward_tma_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fwd_smem<KB>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap xm, wm;
+  if (!x_map(&xm, x, b, n, KB * kBox, kFwdPoints) ||
+      !rows_map(&wm, w, c, KB * kBox, kFwdSlice)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int units = b * runs * ((c + kFwdSlice - 1) / kFwdSlice);
+  pooled_forward_tma_kernel<KB><<<grid, kFwdThreads, fwd_smem<KB>(), s>>>(
+      xm, wm, a, c_row, part_v, part_i, pooled, argmax, done, n, c, runs, tiles_per_run,
+      units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KB>
+int backward_tma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* coef,
+                 const int* argmax, const float* m, __nv_bfloat16* m_t, int* win_ch,
+                 float* win_coef, int* pt_off, const float* row, __nv_bfloat16* dx,
+                 float* dk_t, int b, int n, int c, int grid, cudaStream_t s) {
+  constexpr int kCIn = KB * kBox;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      pooled_backward_dx_tma_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dx_smem<KB>());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap xm, mm, dm;
+  if (!x_map(&xm, x, b, n, kCIn, kDxPoints) || !rows_map(&mm, m_t, kCIn, kCIn, kCIn) ||
+      !x_map(&dm, dx, b, n, kCIn, kDxPoints)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int m_blocks = (kCIn * kCIn + kPrepThreads - 1) / kPrepThreads;
+  const int per_block = 32 / dk_parts(b);  // channels a dk block
+  const int dk_blocks = (c + per_block - 1) / per_block;
+  const int csr_blocks = b * ((n + kCsrPoints - 1) / kCsrPoints);
+  pooled_backward_prep_tma_kernel<<<csr_blocks + m_blocks + dk_blocks, kPrepThreads, 0, s>>>(
+      m, m_t, m_blocks, x, coef, argmax, dk_t, win_ch, win_coef, pt_off, b, n, kCIn, c);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles_per_cloud = (n + kDxPoints - 1) / kDxPoints;
+  pooled_backward_dx_tma_kernel<KB><<<grid, kDxThreads, dx_smem<KB>(), s>>>(
+      xm, mm, dm, w, win_ch, win_coef, pt_off, row, n, c, tiles_per_cloud,
+      b * tiles_per_cloud);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (b, n, c_in), w (c, c_in), a and c_row (c,) f32; w_split (2,
@@ -975,6 +2053,55 @@ extern "C" int pcp_pooled_chain_backward_bf16(const __nv_bfloat16* x,
                                               void* stream) {
   return backward<true>(x, w, coef, argmax, m, m_split, row, dx, dk_t, b, n,
                         c_in, c, runs, tiles_per_run, stream);
+}
+
+// The bf16 forms for c_in 64 or 128 (TMA): x (b, n, c_in) and w (c, c_in)
+// bf16; a and c_row (c,) f32; part_v/part_i (b, runs, c) scratch (unused
+// with one run); pooled (b, c) f32, argmax (b, c) int32; done (b *
+// ceil(c / 256)) int32 counters, zero on entry and left zero (calls that
+// share them run one at a time, as on one stream).  Run r holds the
+// 256-point tiles [r * tiles_per_run, (r + 1) * tiles_per_run); grid blocks
+// (at most b * runs * ceil(c / 256)) walk the units.
+extern "C" int pcp_pooled_chain_forward_bf16_tma(const __nv_bfloat16* x,
+                                                 const __nv_bfloat16* w,
+                                                 const float* a, const float* c_row,
+                                                 float* part_v, int* part_i,
+                                                 float* pooled, int* argmax, int* done,
+                                                 int b, int n, int c_in, int c, int runs,
+                                                 int tiles_per_run, int grid,
+                                                 void* stream) {
+  const long long units = (long long)b * runs * ((c + kFwdSlice - 1) / kFwdSlice);
+  if (!shapes_ok(b, n, c_in, c) || (c_in != 64 && c_in != 128) ||
+      !runs_ok(n, runs, tiles_per_run, kFwdPoints) || grid < 1 || grid > units) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return c_in == 64 ? forward_tma<1>(x, w, a, c_row, part_v, part_i, pooled, argmax, done,
+                                     b, n, c, runs, tiles_per_run, grid, s)
+                    : forward_tma<2>(x, w, a, c_row, part_v, part_i, pooled, argmax, done,
+                                     b, n, c, runs, tiles_per_run, grid, s);
+}
+
+// x (b, n, c_in), w (c, c_in) and dx bf16 (c_in 64 or 128); coef (b, c) f32,
+// argmax (b, c) int32, m (c_in, c_in), row (c_in,) f32; scratch m_t (c_in,
+// c_in) bf16, win_ch (b, c) int32, win_coef (b, c) f32, pt_off (b, n + 1)
+// int32; dk_t (c, c_in) f32.  grid blocks (at most b * ceil(n / 64)) walk the
+// 64-point tiles.
+extern "C" int pcp_pooled_chain_backward_bf16_tma(
+    const __nv_bfloat16* x, const __nv_bfloat16* w, const float* coef, const int* argmax,
+    const float* m, __nv_bfloat16* m_t, int* win_ch, float* win_coef, int* pt_off,
+    const float* row, __nv_bfloat16* dx, float* dk_t, int b, int n, int c_in, int c,
+    int grid, void* stream) {
+  const long long tiles = (long long)b * ((n + kDxPoints - 1) / kDxPoints);
+  if (!shapes_ok(b, n, c_in, c) || (c_in != 64 && c_in != 128) || grid < 1 ||
+      grid > tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return c_in == 64 ? backward_tma<1>(x, w, coef, argmax, m, m_t, win_ch, win_coef, pt_off,
+                                      row, dx, dk_t, b, n, c, grid, s)
+                    : backward_tma<2>(x, w, coef, argmax, m, m_t, win_ch, win_coef, pt_off,
+                                      row, dx, dk_t, b, n, c, grid, s);
 }
 
 extern "C" const char* pcp_error_string(int code) {

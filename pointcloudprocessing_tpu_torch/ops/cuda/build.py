@@ -53,6 +53,10 @@ _ENTRY = {
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "pcp_pooled_chain_backward_bf16":
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "pcp_pooled_chain_forward_bf16_tma":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "pcp_pooled_chain_backward_bf16_tma":
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "window_normals": {
         "pcp_window_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},

@@ -5,13 +5,20 @@ Counterparts of ``pointcloudprocessing_tpu/ops/pallas/pooled_chain.py::
 pooled_chain_forward`` and ``::pooled_chain_backward``. On the TPU both are
 bf16 matrix-unit kernels, and the forward packs the argmax into the low
 mantissa bits of the pooled value; on the H100 both run their GEMM on the
-tensor cores (``wgmma``) in 3xTF32, which keeps f32 accuracy
+tensor cores (``wgmma``) in 3xTF32, the forward adding the tensor cores'
+partial sums into f32 sums of its own every :data:`PROMOTE_K_STEPS` k-steps
+(the tensor cores sum toward zero), which keeps f32 accuracy
 (``csrc/pooled_chain.cu`` says why and how), and the forward gives the
 exact f32 maximum with its first index, so n has no index-field bound.
 Each kernel has a bf16 form too (:func:`kernel_form`), the form in which the
 JAX package runs them: x and the weight in bf16, single-pass bf16 products
 with f32 sums; the backward rounds m and each winner's coef to bf16 as the
-TPU kernel does and writes dx in bf16.
+TPU kernel does and writes dx in bf16. At c_in 64 and 128 the bf16 forms
+are kernels of their own (:func:`bf16_form` "tma": TMA loads, both wgmma
+operands in shared memory, a persistent grid planned by
+:func:`tma_forward_plan` and :func:`tma_dx_plan`; the backward adds each
+row's winners from the per-point lists :func:`winner_lists` describes);
+wider bf16 inputs take the f32 forms' run of tiles on bf16 operands.
 
 Weights are in the port's layout: ``weight`` is (c, c_in), the Flax
 ``kernel`` transposed.
@@ -26,7 +33,8 @@ import torch
 
 from pointcloudprocessing_tpu_torch.ops.cuda import build
 
-#: widths the kernels take: c_in and c multiples of 64, c at most 4096
+#: widths the kernels take (every form): c_in and c multiples of 64, c at
+#: most 4096; every width the JAX package's ``supported()`` takes at c <= 4096
 TILE = 64
 MAX_CHANNELS = 4096
 #: a block's tile: 128 points x 128 output columns (kTileP, kTileN)
@@ -45,6 +53,71 @@ def launch_grid(b: int, n: int, cols: int, sms: int) -> tuple[int, int]:
     runs = max(1, min(tiles, sms // pairs))
     per_run = -(-tiles // runs)
     return -(-tiles // per_run), per_run
+
+
+#: k-steps of 8 input channels whose 3xTF32 products the tensor cores sum
+#: before the f32 forward adds them into its own f32 sums (kGroup)
+PROMOTE_K_STEPS = 2
+#: c_in of the bf16 forms' TMA kernels (w, or m, resident in shared memory
+#: beside the x ring); wider bf16 inputs take the run-of-tiles form
+TMA_WIDTHS = (64, 128)
+#: the TMA forward's tile: 256 points (wgmma's n) x a slice of 256 channels
+TMA_FWD_POINTS = 256
+TMA_FWD_SLICE = 256
+#: the TMA backward's dx tile: 64 points (wgmma's m) x c_in columns
+TMA_DX_POINTS = 64
+
+
+def bf16_form(c_in: int) -> str:
+    """The bf16 kernels' form for inputs c_in wide: "tma" (TMA loads, both
+    wgmma operands in shared memory, a persistent grid) for c_in 64 or 128,
+    "runs" (the f32 form's run-of-tiles loop on bf16 operands) above."""
+    return "tma" if c_in in TMA_WIDTHS else "runs"
+
+
+def tma_forward_plan(b: int, n: int, c: int, sms: int) -> tuple[int, int, int]:
+    """(runs, tiles_per_run, grid) of the TMA bf16 forward: each cloud's
+    ceil(n / 256) point tiles are cut into runs, and the b * runs *
+    ceil(c / 256) units (cloud, run, 256-channel slice) go to a persistent
+    grid of at most ``sms`` blocks, block i taking units i, i + grid, ...
+    The cut minimises the tiles the busiest block walks (waves of units
+    times tiles a run), the fewest runs on a tie; no run is empty."""
+    tiles = -(-n // TMA_FWD_POINTS)
+    pairs = b * -(-c // TMA_FWD_SLICE)
+    best = None
+    for r in range(1, min(tiles, 4 * sms) + 1):
+        per_run = -(-tiles // r)
+        runs = -(-tiles // per_run)
+        cost = -(-pairs * runs // sms) * per_run
+        if best is None or cost < best[0]:
+            best = (cost, runs, per_run)
+    _, runs, per_run = best
+    return runs, per_run, min(sms, pairs * runs)
+
+
+def tma_dx_plan(b: int, n: int, sms: int) -> tuple[int, int]:
+    """(tiles_per_cloud, grid) of the TMA bf16 backward: the b *
+    ceil(n / 64) tiles of 64 points go to a persistent grid of at most
+    ``sms`` blocks, block i taking tiles i, i + grid, ... (its two
+    warpgroups in turn)."""
+    per_cloud = -(-n // TMA_DX_POINTS)
+    return per_cloud, min(sms, b * per_cloud)
+
+
+def winner_lists(argmax: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """What the TMA bf16 backward's first launch lists, as plain tensor code:
+    each cloud's channels sorted by their argmax point, in channel order
+    within a point (``win_ch`` (b, c) int32), and each point's stretch of
+    them, ``win_ch[b, pt_off[b, p]:pt_off[b, p + 1]]`` (``pt_off`` (b, n + 1)
+    int32). dx's row p adds exactly those channels' coef * w rows, in that
+    order."""
+    c = argmax.shape[1]
+    key = argmax.long() * c + torch.arange(c, device=argmax.device)
+    order = torch.argsort(key, dim=1)
+    points = torch.gather(argmax.long(), 1, order)
+    bounds = torch.arange(n + 1, device=argmax.device).expand(argmax.shape[0], n + 1)
+    pt_off = torch.searchsorted(points, bounds.contiguous())
+    return order.int(), pt_off.int()
 
 
 def _tf32_rna(v: torch.Tensor) -> torch.Tensor:
@@ -186,6 +259,22 @@ def _split_scratch(cols: int, c_in: int, device: torch.device,
     return torch.empty((2, size), dtype=torch.float32, device=device)
 
 
+_DONE: dict = {}
+
+
+def _done_counters(device: torch.device, count: int) -> torch.Tensor:
+    """Zeroed int32 counters, one a (cloud, 256-channel slice), with which the
+    TMA bf16 forward finds the block that finishes a slice's last run; the
+    kernel sets each back to 0, so they stay zeroed from call to call. One
+    set a device, grown as needed: the calls that share it run one at a
+    time, as they do on one stream."""
+    held = _DONE.get(device)
+    if held is None or held.numel() < count:
+        held = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _DONE[device] = held
+    return held
+
+
 def pooled_chain_forward(
     x: torch.Tensor, weight: torch.Tensor, a: torch.Tensor, c_row: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -206,23 +295,39 @@ def pooled_chain_forward(
     _check("a", a, (c,), torch.float32, x.device)
     _check("c_row", c_row, (c,), torch.float32, x.device)
     bf16 = x.dtype == torch.bfloat16
-    runs, per_run = launch_grid(b, n, c, _sms(x.device))
-    w_split = _split_scratch(c, c_in, x.device, bf16)
-    part_v = torch.empty((b, runs, c), dtype=torch.float32, device=x.device)
-    part_i = torch.empty((b, runs, c), dtype=torch.int32, device=x.device)
+    tma = bf16 and bf16_form(c_in) == "tma"
+    if tma:
+        runs, per_run, grid = tma_forward_plan(b, n, c, _sms(x.device))
+    else:
+        runs, per_run = launch_grid(b, n, c, _sms(x.device))
     pooled = torch.empty((b, c), dtype=torch.float32, device=x.device)
     argmax = torch.empty((b, c), dtype=torch.int32, device=x.device)
+    if tma and runs == 1:  # no run's partial best is kept
+        part_v, part_i = pooled, argmax
+    else:
+        part_v = torch.empty((b, runs, c), dtype=torch.float32, device=x.device)
+        part_i = torch.empty((b, runs, c), dtype=torch.int32, device=x.device)
     lib = build.load("pooled_chain")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        entry = (lib.pcp_pooled_chain_forward_bf16 if bf16
-                 else lib.pcp_pooled_chain_forward)
-        code = entry(
-            x.data_ptr(), weight.data_ptr(), w_split.data_ptr(), a.data_ptr(),
-            c_row.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-            pooled.data_ptr(), argmax.data_ptr(), b, n, c_in, c, runs,
-            per_run, stream,
-        )
+        if tma:
+            done = _done_counters(x.device, b * -(-c // TMA_FWD_SLICE))
+            code = lib.pcp_pooled_chain_forward_bf16_tma(
+                x.data_ptr(), weight.data_ptr(), a.data_ptr(), c_row.data_ptr(),
+                part_v.data_ptr(), part_i.data_ptr(), pooled.data_ptr(),
+                argmax.data_ptr(), done.data_ptr(), b, n, c_in, c, runs, per_run,
+                grid, stream,
+            )
+        else:
+            w_split = _split_scratch(c, c_in, x.device, bf16)
+            entry = (lib.pcp_pooled_chain_forward_bf16 if bf16
+                     else lib.pcp_pooled_chain_forward)
+            code = entry(
+                x.data_ptr(), weight.data_ptr(), w_split.data_ptr(), a.data_ptr(),
+                c_row.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+                pooled.data_ptr(), argmax.data_ptr(), b, n, c_in, c, runs,
+                per_run, stream,
+            )
     build.check(lib, code, "pooled_chain_forward launch")
     if bf16:
         pooled_chain_forward.launches_bf16 += 1
@@ -269,21 +374,34 @@ def pooled_chain_backward(
     _check("m_small", m_small, (c_in, c_in), torch.float32, x.device)
     _check("const_row", const_row, (c_in,), torch.float32, x.device)
     bf16 = x.dtype == torch.bfloat16
-    runs, per_run = launch_grid(b, n, c_in, _sms(x.device))
-    m_split = _split_scratch(c_in, c_in, x.device, bf16)
     dx = torch.empty_like(x)
     dk_t = torch.empty((c, c_in), dtype=torch.float32, device=x.device)
     lib = build.load("pooled_chain")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        entry = (lib.pcp_pooled_chain_backward_bf16 if bf16
-                 else lib.pcp_pooled_chain_backward)
-        code = entry(
-            x.data_ptr(), weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(),
-            m_small.data_ptr(), m_split.data_ptr(), const_row.data_ptr(),
-            dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, runs, per_run,
-            stream,
-        )
+        if bf16 and bf16_form(c_in) == "tma":
+            _, grid = tma_dx_plan(b, n, _sms(x.device))
+            m_t = torch.empty((c_in, c_in), dtype=torch.bfloat16, device=x.device)
+            win_ch = torch.empty((b, c), dtype=torch.int32, device=x.device)
+            win_coef = torch.empty((b, c), dtype=torch.float32, device=x.device)
+            pt_off = torch.empty((b, n + 1), dtype=torch.int32, device=x.device)
+            code = lib.pcp_pooled_chain_backward_bf16_tma(
+                x.data_ptr(), weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(),
+                m_small.data_ptr(), m_t.data_ptr(), win_ch.data_ptr(),
+                win_coef.data_ptr(), pt_off.data_ptr(), const_row.data_ptr(),
+                dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, grid, stream,
+            )
+        else:
+            runs, per_run = launch_grid(b, n, c_in, _sms(x.device))
+            m_split = _split_scratch(c_in, c_in, x.device, bf16)
+            entry = (lib.pcp_pooled_chain_backward_bf16 if bf16
+                     else lib.pcp_pooled_chain_backward)
+            code = entry(
+                x.data_ptr(), weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(),
+                m_small.data_ptr(), m_split.data_ptr(), const_row.data_ptr(),
+                dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, runs, per_run,
+                stream,
+            )
     build.check(lib, code, "pooled_chain_backward launch")
     if bf16:
         pooled_chain_backward.launches_bf16 += 1
