@@ -34,7 +34,7 @@ def main(argv: list[str]) -> int:
     from pointcloudprocessing_tpu_torch.core.config import load_config
     from pointcloudprocessing_tpu_torch.export.onnx_bridge import export_onnx
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
-    from pointcloudprocessing_tpu_torch.models.layers import require_device
+    from pointcloudprocessing_tpu_torch.utils.device import require_device
     from pointcloudprocessing_tpu_torch.train.callbacks import load_checkpoint
 
     if pt2_path:

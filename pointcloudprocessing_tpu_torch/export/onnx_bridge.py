@@ -23,6 +23,19 @@ GATING_MESSAGE = (
 )
 
 
+# copied from pointcloudprocessing_tpu/export/onnx_bridge.py::onnx_available
+def onnx_available() -> bool:
+    """True when the JAX bridge's toolchain (tensorflow, tf2onnx, onnx)
+    imports. The port's writer needs none of it."""
+    try:
+        import tensorflow  # noqa: F401
+        import tf2onnx  # noqa: F401
+        import onnx  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def export_onnx(
     model: nn.Module,
     input_width: int,

@@ -28,7 +28,7 @@ import copy
 import torch
 from torch import nn
 
-from pointcloudprocessing_tpu_torch.models.layers import require_device
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 
 class InferenceProgram(nn.Module):

@@ -35,10 +35,10 @@ import torch.distributed as dist
 from torch.func import functional_call
 
 from pointcloudprocessing_tpu_torch.core.config import LearningConfig
-from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.models.pointnet import FreezeFlags, PointNet
 from pointcloudprocessing_tpu_torch.parallel import mesh as mesh_lib
 from pointcloudprocessing_tpu_torch.train import steps as steps_lib
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 NUM_CLASSES = 23
 NUM_PARTS = 12

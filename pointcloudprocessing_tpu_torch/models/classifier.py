@@ -26,10 +26,10 @@ from pointcloudprocessing_tpu_torch.core.constants import KERAS_BN_MOMENTUM
 from pointcloudprocessing_tpu_torch.models.layers import (
     DenseBlock,
     PointwiseBlock,
-    require_device,
 )
 from pointcloudprocessing_tpu_torch.models.pointnet import dropout
 from pointcloudprocessing_tpu_torch.models.tnet import TNet, orthogonality_loss
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 
 def _legacy_tnet(k: int, add_regularization: bool, **kw) -> TNet:

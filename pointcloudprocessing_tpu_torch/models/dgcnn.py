@@ -43,7 +43,6 @@ from pointcloudprocessing_tpu_torch.models.layers import (
     ConcatPointwiseBlock,
     DenseBlock,
     PointwiseBlock,
-    require_device,
 )
 from pointcloudprocessing_tpu_torch.models.pointnet import (
     ALL_HEADS,
@@ -55,6 +54,7 @@ from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
 from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
 from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 EDGE_IMPLS = ("auto", "reference", "factored")
 GRAPHS = ("dynamic", "static")

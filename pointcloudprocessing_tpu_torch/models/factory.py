@@ -7,9 +7,9 @@ import torch
 from torch import nn
 
 from pointcloudprocessing_tpu_torch.models.dgcnn import dgcnn_for_width
-from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.models.pointnet import PointNet
 from pointcloudprocessing_tpu_torch.models.pointnet2 import pointnet2_for_width
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 MODEL_FAMILIES = ("pointnet", "pointnet2", "dgcnn")
 

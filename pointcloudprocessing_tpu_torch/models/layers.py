@@ -43,20 +43,6 @@ from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
 from pointcloudprocessing_tpu_torch.parallel.mesh import group_moments
 
 
-def require_device(device: torch.device | str) -> torch.device:
-    """The device a model entry point builds on: ``device`` itself, and a
-    clear error, not a silent CPU build, when it is CUDA and CUDA is
-    absent. Callers that mean the CPU say ``device="cpu"``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} asked for (the default of the model "
-            "entry points), but CUDA is not available; pass device='cpu' to "
-            "build on the CPU"
-        )
-    return device
-
-
 def glorot_uniform(
     shape: tuple[int, int],
     fan_in: int,

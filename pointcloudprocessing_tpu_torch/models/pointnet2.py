@@ -29,7 +29,6 @@ from torch import nn
 from pointcloudprocessing_tpu_torch.models.layers import (
     DenseBlock,
     PointwiseBlock,
-    require_device,
 )
 from pointcloudprocessing_tpu_torch.models.pointnet import (
     ALL_HEADS,
@@ -41,6 +40,7 @@ from pointcloudprocessing_tpu_torch.ops.fps import farthest_point_sample_batch
 from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
 from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 
 def pointnet2_for_width(num_classes: int, num_parts: int, input_width: int,

@@ -5,8 +5,8 @@ from __future__ import annotations
 
 import torch
 
-from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.parallel.mesh import draw
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 
 def jitter(

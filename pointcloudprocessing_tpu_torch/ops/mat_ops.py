@@ -20,8 +20,8 @@ import math
 
 import torch
 
-from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 
 def f32(x, device) -> torch.Tensor:

@@ -71,7 +71,6 @@ import torch.distributed as dist
 from pointcloudprocessing_tpu_torch.core.config import StageConfig, TrainConfig, load_config
 from pointcloudprocessing_tpu_torch.data.frames import get_dir_contents
 from pointcloudprocessing_tpu_torch.data.pointcloudset import PointCloudSet, load_from_file
-from pointcloudprocessing_tpu_torch.models.layers import require_device
 from pointcloudprocessing_tpu_torch.models.pointnet import (
     freeze_flags_from_trainable,
     layer_trainability,
@@ -90,6 +89,7 @@ from pointcloudprocessing_tpu_torch.train.callbacks import (
     load_checkpoint,
 )
 from pointcloudprocessing_tpu_torch.utils.profiling import trace
+from pointcloudprocessing_tpu_torch.utils.device import require_device
 
 # copied from pointcloudprocessing_tpu/train/profile.py::HISTORY_KEYS
 HISTORY_KEYS = [

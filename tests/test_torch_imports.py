@@ -113,6 +113,63 @@ def test_no_import_statement_names_jax():
     assert bad == []
 
 
+_SURFACE = """
+import glob, importlib, importlib.util, json, os, sys
+sys.path.insert(0, REPO)
+for sub in ("ops", "train", "models", "data", "utils", "parallel", "export",
+            "synthesis", "toolkit", "core"):
+    importlib.import_module("pointcloudprocessing_tpu_torch." + sub)
+paths = sorted(glob.glob(os.path.join(REPO, "examples", "torch", "*.py")))
+paths.append(os.path.join(REPO, "tools", "gpu_acceptance.py"))
+for path in paths:
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location("checked_" + name, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+print(json.dumps({"paths": [os.path.relpath(p, REPO) for p in paths], "bad": bad}))
+"""
+
+# none of these is installed on the GPU machine, or may be imported there
+SURFACE_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pointcloudprocessing_tpu",
+                     "PyQt6", "pandas", "joblib")
+
+
+def test_surface_examples_and_acceptance_import_nothing_of_jax():
+    """Importing every port subpackage (their re-exports), every
+    ``examples/torch`` script and ``tools/gpu_acceptance.py`` leaves no
+    module of JAX, Flax, optax, the JAX package, PyQt6, pandas or joblib in
+    ``sys.modules``; no import statement of those files names one either."""
+    import ast
+    import glob
+
+    code = f"REPO = {REPO!r}\nFORBIDDEN = {SURFACE_FORBIDDEN!r}\n" + _SURFACE
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["bad"] == [], f"imports pulled in {report['bad']}"
+    assert len(report["paths"]) >= 13  # twelve twins and the acceptance tool
+
+    files = glob.glob(os.path.join(REPO, "examples", "torch", "*.py"))
+    files.append(os.path.join(REPO, "tools", "gpu_acceptance.py"))
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}"
+                    for m in mods if m.split(".")[0] in SURFACE_FORBIDDEN]
+    assert bad == []
+
+
 def test_config_copy_matches_jax():
     """``configs/kc46_lidar_config.json`` through both ``load_config``s:
     the same dataclasses, field by field, stages included."""

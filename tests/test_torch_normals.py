@@ -19,13 +19,14 @@ from pointcloudprocessing_tpu.ops.pallas.window_normals import (
     windowed_moment_sums as jax_window_sums,
 )
 from pointcloudprocessing_tpu.ops.voxel import voxel_downsample_batch as jax_voxel
-from pointcloudprocessing_tpu_torch.ops import knn, normals
+from pointcloudprocessing_tpu_torch.ops import normals
 from pointcloudprocessing_tpu_torch.ops.cuda.window_normals import (
     window_selection,
     windowed_moment_sums,
 )
 
-# the JAX package's ``ops`` exports functions under these modules' names
+# both packages' ``ops`` export functions under these modules' names
+knn = importlib.import_module("pointcloudprocessing_tpu_torch.ops.knn")
 jknn = importlib.import_module("pointcloudprocessing_tpu.ops.knn")
 jnormals = importlib.import_module("pointcloudprocessing_tpu.ops.normals")
 
