@@ -96,8 +96,17 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    bar of it on the card, on the path's voxel and stride ranks at 256x2000,
    random ranks at 256x2000 (d 4, 5) and 8x8000, n 1, n 490 at d 1 and 8,
    one segment, empty segments, a NaN row, one cloud (b 1), and past the
-   shared-memory form at 4x40000 (any order, sorted, one segment), timed
-   beside scatter_add_; a rank outside [0, n) traps (a child process). (b) the route: 256x2000
+   shared-memory form at 4x40000 (any order, sorted, one segment), the
+   64x8000 path's voxel and stride ranks (uniform scans and zero-padded
+   frames), 8x8000 sorted and in one segment, and each form edge (n 5,120
+   / 5,121 / 40,960 / 40,961, any order and sorted), timed beside
+   scatter_add_; a rank outside [0, n) traps in each form (a child process
+   each). (f) a raw frame width that 128 does not divide, above the shared
+   form: ``PointCloudPipeline`` (PointNet 23/12) at 64x8000 -> voxel 0.4 ->
+   FPS -> 1024 on uniform scans and zero-padded frames through
+   ``stream()`` (clouds/s, launches: kernel 3 once a batch in its cluster
+   form, kernel 1 never; a batch against the plain versions), and
+   ``serve.main --scan-width 8000`` at batch 3. (b) the route: 256x2000
    runs kernel 3, 256x2048 kernel 1. (c) PointNet++ 23/12 at full width
    (``pointnet2_for_width(23, 12, 1024)``, f32, seeded) from a config with
    ``"model": "pointnet2"`` on 256x1024 normal(0, 1) clouds: through the
@@ -635,6 +644,45 @@ def scan_batch(rng, kind: str, b: int = 256, n: int = 2048) -> np.ndarray:
     if kind == "padded":
         scans[b // 4:] = 0.0
     return scans
+
+
+def frame_batch(rng, b: int, n: int, lo: int, hi: int) -> np.ndarray:
+    """A (b, n, 3) batch of raw frames of lo..hi uniform(-20, 20) points
+    each, zero-padded to n, as a sensor whose frames vary in size fills a
+    fixed scan width."""
+    scans = rng.uniform(-20, 20, (b, n, 3)).astype(np.float32)
+    counts = rng.integers(lo, hi + 1, b)
+    scans[np.arange(n)[None, :] >= counts[:, None]] = 0.0
+    return scans
+
+
+def path_segment_cases(torch, rng, batches: dict, device: str = "cuda") -> list:
+    """The segment sums that a voxel step at 0.4 and a stride sample to
+    1,024 call on each named batch of scans, captured as they are made
+    (the plain version answers them): ``[(label, data, rank), ...]``, a
+    voxel and a stride case a batch."""
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points_reference
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
+        segment_reduce_reference,
+    )
+    from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
+    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
+
+    cases = []
+    for name, scans in batches.items():
+        captured = []
+
+        def record(data, rank):
+            captured.append((data.clone(), rank.clone()))
+            return segment_reduce_reference(data, rank)
+
+        with route_kernels(record, fps_with_points_reference):
+            x = torch.from_numpy(scans).to(device)
+            vox, vmask = voxel_downsample_batch(x, 0.4)
+            stride_sample_and_gather(vox, 1024, vmask)
+        cases += [(f"main-path {name} voxel", *captured[0]),
+                  (f"main-path {name} stride", *captured[1])]
+    return cases
 
 
 def fps_case(rng, b: int, n: int, k: int):
@@ -1354,9 +1402,10 @@ def phase_slice(torch, rng, model) -> dict:
 
 
 def phase_serve(torch, rng, model, family: str = "pointnet",
-                scan_width: int = 2048) -> None:
+                scan_width: int = 2048, frame_points=(1900, 2200)) -> None:
     """``serve.main`` over a stage of ``family`` holding ``model``'s weights:
-    frames of 1900-2200 points at ``scan_width``, voxel 0.4, 1024 points."""
+    frames of ``frame_points`` points at ``scan_width``, voxel 0.4, 1024
+    points."""
     from pointcloudprocessing_tpu_torch import serve
     from pointcloudprocessing_tpu_torch.data.frames import write_aftr_frame
 
@@ -1367,7 +1416,7 @@ def phase_serve(torch, rng, model, family: str = "pointnet",
         lidar = os.path.join(tmp, "collect", "Lidar")
         os.makedirs(lidar)
         for i in range(num_frames):
-            n = int(rng.integers(1900, 2200))
+            n = int(rng.integers(*frame_points))
             pts = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
             labels = np.stack([np.full(n, classes[i % NUM_CLASSES]),
                                rng.choice(parts, n)], axis=1)
@@ -2431,9 +2480,9 @@ import sys
 import torch
 sys.path.insert(0, REPO)
 from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import segment_reduce
-data = torch.ones(2, 200, 4, device="cuda")
-rank = torch.zeros(2, 200, dtype=torch.int32, device="cuda")
-rank[1, 17] = 200
+data = torch.ones(B, N, 4, device="cuda")
+rank = torch.zeros(B, N, dtype=torch.int32, device="cuda")
+rank[1, N - 183] = N
 try:
     segment_reduce(data, rank)
     torch.cuda.synchronize()
@@ -2463,13 +2512,11 @@ def phase_any_rank_kernel(torch, rng) -> dict:
     run on a CPU copy (both add a segment's rows in row order), and within
     segment_bar of the CUDA plain version (atomics, any order); the trap
     probe in a child process."""
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points_reference
     from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
         segment_reduce,
         segment_reduce_reference,
+        segment_sum_form,
     )
-    from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
-    from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
 
     dev = torch.device("cuda")
 
@@ -2480,21 +2527,10 @@ def phase_any_rank_kernel(torch, rng) -> dict:
                                 .astype(np.int32)).to(dev)
         return data, rank
 
-    cases = []
     # the segment sums of the path at 256x2000, captured as phase 3 does
-    for kind in ("uniform", "padded"):
-        captured = []
-
-        def record(data, rank):
-            captured.append((data.clone(), rank.clone()))
-            return segment_reduce_reference(data, rank)
-
-        with route_kernels(record, fps_with_points_reference):
-            x = torch.from_numpy(scan_batch(rng, kind, 256, 2000)).to(dev)
-            vox, vmask = voxel_downsample_batch(x, 0.4)
-            stride_sample_and_gather(vox, 1024, vmask)
-        cases += [(f"main-path {kind} voxel", *captured[0]),
-                  (f"main-path {kind} stride", *captured[1])]
+    cases = path_segment_cases(torch, rng, {
+        "uniform": scan_batch(rng, "uniform", 256, 2000),
+        "padded": scan_batch(rng, "padded", 256, 2000)})
     cases += [("any order, 30x", *gen(256, 2000, 4)),
               ("any order, 30x", *gen(256, 2000, 5)),
               ("any order, 30x", *gen(8, 8000, 4)),
@@ -2510,12 +2546,29 @@ def phase_any_rank_kernel(torch, rng) -> dict:
     cases.append(("one NaN row", data, rank))
     # one cloud; and past the shared-memory form (segment_sum_form)
     cases.append(("b = 1, any order", *gen(1, 2000, 4)))
-    cases.append(("any order, device-memory form", *gen(4, 40000, 4)))
+    cases.append(("any order, cluster form", *gen(4, 40000, 4)))
     data, rank = gen(4, 40000, 4)
-    cases.append(("sorted, device-memory form", data, rank.sort(dim=1).values))
+    cases.append(("sorted, cluster form", data, rank.sort(dim=1).values))
     data, _ = gen(4, 40000, 4)
-    cases.append(("all rows in one segment, device-memory form", data,
+    cases.append(("all rows in one segment, cluster form", data,
                   torch.full((4, 40000), 39999, dtype=torch.int32, device=dev)))
+    # the cluster and global forms: the 64x8000 path's ranks, 8x8000 in order
+    # and in one segment, and each form edge (a generator of their own, so
+    # that the later phases draw what they drew before)
+    rng = np.random.default_rng(WIDE_SEED)
+    cases += path_segment_cases(torch, rng, {
+        "64x8000 uniform": scan_batch(rng, "uniform", 64, 8000),
+        "64x8000 padded": frame_batch(rng, 64, 8000, 6000, 8000)})
+    data, rank = gen(8, 8000, 4)
+    cases.append(("sorted", data, rank.sort(dim=1).values))
+    data, _ = gen(8, 8000, 4)
+    cases.append(("all rows in one segment", data,
+                  torch.full((8, 8000), 7999, dtype=torch.int32, device=dev)))
+    for b, n in ((16, 5120), (16, 5121), (4, 40960), (4, 40961)):
+        form = segment_sum_form(b, n)[0]
+        cases.append((f"any order, {form} form edge", *gen(b, n, 4)))
+        data, rank = gen(b, n, 4)
+        cases.append((f"sorted, {form} form edge", data, rank.sort(dim=1).values))
 
     results = {"err": 0.0}
     for label, data, rank in cases:
@@ -2539,7 +2592,9 @@ def phase_any_rank_kernel(torch, rng) -> dict:
         err = (got - want).abs()[~nan].max().item()
         results["err"] = max(results["err"], (got.cpu() - want_cpu).abs()[
             ~torch.isnan(want_cpu)].max().item())
-        line = (f"[9 pointnet2] segment_reduce {b}x{n}x{d} ({label}): "
+        form, blocks = segment_sum_form(b, n)
+        line = (f"[9 pointnet2] segment_reduce {b}x{n}x{d} ({label}; {form} form, "
+                f"{blocks} block(s) a cloud): "
                 f"bit-identical to the plain version on a CPU copy; vs the CUDA "
                 f"plain version max abs diff {err:.3e} (bar segment_bar)")
         if b * n >= 64000:
@@ -2564,13 +2619,113 @@ def phase_any_rank_kernel(torch, rng) -> dict:
                 results.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound=bound)
         log(line)
-    probe = subprocess.run([sys.executable, "-c", f"REPO = {REPO!r}\n" + TRAP_PROBE],
-                           capture_output=True, text=True, timeout=300)
-    if probe.returncode != 0:
-        raise AssertionError(f"trap probe: rc {probe.returncode}, "
-                             f"{probe.stdout.strip()} {probe.stderr[-500:]}")
-    log(f"[9 pointnet2] segment_reduce with a rank outside [0, n), in a child "
-        f"process: {probe.stdout.strip()}; ranks in any order never trapped")
+    for b, n in ((256, 200), (2, 8000), (2, 40961)):
+        probe = subprocess.run(
+            [sys.executable, "-c", f"REPO = {REPO!r}\nB, N = {b}, {n}\n" + TRAP_PROBE],
+            capture_output=True, text=True, timeout=300)
+        if probe.returncode != 0:
+            raise AssertionError(f"trap probe at {b}x{n}: rc {probe.returncode}, "
+                                 f"{probe.stdout.strip()} {probe.stderr[-500:]}")
+        log(f"[9 pointnet2] segment_reduce {b}x{n} ({segment_sum_form(b, n)[0]} form) "
+            f"with a rank outside [0, n), in a child process: "
+            f"{probe.stdout.strip()}; ranks in any order never trapped")
+    return results
+
+
+#: the seed of phase 9's cases in the cluster and global forms and of its
+#: 64x8000 serving path
+WIDE_SEED = 18
+
+
+def phase_wide_scan(torch, model, b: int = 64, device: str = "cuda") -> dict:
+    """(f) PointNet 23/12 serving at a raw frame width that 128 does not
+    divide, above the shared form: ``PointCloudPipeline(model,
+    scan_width=8000, model_width=1024, voxel_size=0.4)`` (FPS) through
+    ``stream()`` on 64-cloud batches of uniform scans and of frames of
+    6,000-8,000 points zero-padded to 8,000: clouds/s over 3 windows of 6
+    batches, kernel 3 once a batch (its cluster form), kernel 1 never, FPS
+    once; a batch of each against the same through the plain versions;
+    then ``serve.main --scan-width 8000`` at batch 3, counted too."""
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import (
+        fps_with_points,
+        fps_with_points_reference,
+    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
+        segment_reduce,
+        segment_reduce_reference,
+        segment_sum_form,
+        sorted_segment_reduce,
+    )
+
+    rng = np.random.default_rng(WIDE_SEED + 1)
+    scan, k, window = 8000, 1024, 6
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    pipe = PointCloudPipeline(model, scan_width=scan, model_width=k,
+                              voxel_size=0.4)
+
+    def counts():
+        return {"any": segment_reduce.launches,
+                "sorted": sorted_segment_reduce.launches,
+                "fps": fps_with_points.launches}
+
+    def zero_counts():
+        segment_reduce.launches = sorted_segment_reduce.launches = 0
+        fps_with_points.launches = 0
+
+    results = {"any_launches": 0, "fps_launches": 0}
+    for kind in ("uniform", "padded"):
+        pool = [scan_batch(rng, "uniform", b, scan) if kind == "uniform"
+                else frame_batch(rng, b, scan, 6000, scan) for _ in range(3)]
+
+        def feed(count: int):
+            return (pool[i % len(pool)] for i in range(count))
+
+        warm = list(pipe.stream(feed(2)))
+        zero_counts()
+        # ---- the serving path: counted launches start here
+        rates, outs = [], []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            got = list(pipe.stream(feed(window)))
+            sync()
+            rates.append(b * len(got) / (time.perf_counter() - t0))
+            outs += got
+        launched = counts()
+        # ---- the serving path ends here
+        want = {"any": 3 * window, "sorted": 0, "fps": 3 * window}
+        if launched != want:
+            raise AssertionError(f"{b}x{scan} serving ({kind}): launches "
+                                 f"{launched}, want {want}")
+        results["any_launches"] += launched["any"]
+        results["fps_launches"] += launched["fps"]
+        for o in [*warm, *outs]:
+            check_outputs(torch, o, b, k)
+        kernels_out = pipe(pool[0])
+        with route_kernels(segment_reduce_reference, fps_with_points_reference):
+            plain_out = pipe(pool[0])
+        diff = max_diff(kernels_out, plain_out)
+        if diff > 1e-4:
+            raise AssertionError(f"{b}x{scan} serving ({kind}) through the kernels "
+                                 f"differs from the plain versions by {diff:.3e}")
+        rate = float(np.median(rates))
+        results[f"clouds_per_s_{kind}"] = rate
+        log(f"[9 pointnet2] serving {b}x{scan} ({kind}"
+            + (" frames of 6,000-8,000 points, zero-padded" if kind == "padded"
+               else " scans") + f") -> voxel 0.4 -> fps -> {k} -> PointNet 23/12: "
+            f"clouds/s over 3 windows of {window} batches: "
+            + ", ".join(f"{r:.1f}" for r in rates) + f"; median {rate:.1f}; "
+            f"launches {launched} (kernel 3 in its {segment_sum_form(b, scan)} form "
+            f"once a batch); vs the plain versions max abs diff {diff:.3e} (bar 1e-4)")
+    zero_counts()
+    log(f"[9 pointnet2] {phase_serve(torch, rng, model, 'pointnet', scan, (6000, 8000))}")
+    launched = counts()
+    if launched["any"] < 1 or launched["sorted"] != 0:
+        raise AssertionError(f"serve.main at scan width {scan}: launches {launched}")
+    log(f"[9 pointnet2] serve.main at scan width {scan}: launches {launched}")
+    results["any_launches"] += launched["any"]
+    results["fps_launches"] += launched["fps"]
     return results
 
 
@@ -5298,6 +5453,7 @@ def main() -> int:
     normals = phase_normals(torch, rng, model)
     dgcnn = phase_dgcnn(torch, rng)
     any_rank = phase_any_rank_kernel(torch, rng)
+    wide = phase_wide_scan(torch, model)
     pn2 = phase_pointnet2(torch, rng)
     with tempfile.TemporaryDirectory() as trainer_root:
         trainer = phase_trainer(torch, rng, trained, trainer_root)
@@ -5343,7 +5499,7 @@ def main() -> int:
               kernels["seg_plain_ms"], kernels["seg_bound"],
               kernels["seg_library_ms"]),
         entry("fps_with_points", FPS_SRC, FPS_TPU,
-              sliced["launches"]["fps"] + pn2["fps_launches"]
+              sliced["launches"]["fps"] + pn2["fps_launches"] + wide["fps_launches"]
               + trainer["launches"]["fps"] + exported["fps"] + multi["fps"],
               kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
               kernels["fps_bound"]),
@@ -5362,7 +5518,8 @@ def main() -> int:
               + multi["gather"],
               max(gather["err"], trainer["gather_err"]), gather["ms"],
               gather["plain_ms"], gather["bound"]),
-        entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU, pn2["any_launches"],
+        entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU,
+              pn2["any_launches"] + wide["any_launches"],
               any_rank["err"], any_rank["ms"], any_rank["plain_ms"],
               any_rank["bound"], any_rank["library_ms"]),
         entry("pooled_chain_forward_bf16", POOLED_SRC, POOLED_FWD_TPU,

@@ -4,9 +4,13 @@
 // - sorted_segment_sum_kernel replaces ops/pallas/voxel_reduce.py::
 //    sorted_segment_reduce_pallas, the banded one-hot MXU contraction with a
 //    bf16 hi/lo split that the JAX package runs on the TPU.
-// - segment_sum_kernel (further down) replaces ops/pallas/voxel_reduce.py::
-//    segment_reduce_pallas, the dense one-hot contraction for any rank, with
-//    a stable counting sort per cloud.
+// - segment_sum_kernel and segment_tile_kernel (further down), kernel 3,
+//    replace ops/pallas/voxel_reduce.py::segment_reduce_pallas, the dense
+//    one-hot contraction for any rank: three forms by n (one block a cloud
+//    in shared memory to 5,120 rows, a thread-block cluster of 8 blocks to
+//    40,960, tiles of 2,048 rows above), each finding a segment's rows in
+//    row order (the runs of ranks in order, or a stable sort) and adding
+//    them in that order, long segments by a whole warp.
 //
 // sorted_segment_sum_kernel: the rank is monotone.
 //
@@ -57,10 +61,13 @@
 // with a trap, so the next CUDA call raises instead of a wrong sum coming
 // back.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -339,27 +346,72 @@ __global__ void __launch_bounds__(kThreads, kTileBlocksAnSm)
   }
 }
 
-// segment_sum_kernel: the segment sum for ANY rank in [0, n), in any order.
+// segment_sum_kernel and segment_tile_kernel: kernel 3, the segment sum for
+// ANY rank in [0, n), in any order.
 //
 // The TPU kernel builds a (k_tile, n) one-hot slab per output tile and
-// contracts it on the MXU: every output tile scans every row.  Here it is a
-// stable counting sort per cloud, O(n): one block of kSegThreads = 1,024
-// threads a cloud.  Warp w owns the contiguous rows [w L, (w + 1) L),
-// L = ceil(n / 32), and walks them 32 at a time, so the warps' row ranges
-// are in warp order.
+// contracts it on the MXU: every output tile scans every row.  Here it is
+// O(n): find each segment's rows in row order (the runs of a monotone rank,
+// or a stable sort by rank), then add them.
 //
 // Invariant: each segment's sum is 0.0f + its rows in increasing row order,
 // one add at a time.  That is PyTorch's CPU scatter_add_ and XLA's CPU
 // segment_sum bit for bit.  Nothing is added with atomics or in a tree;
 // only integer counts and positions are computed in parallel, and those do
-// not depend on the schedule.
+// not depend on the schedule.  So a segment of L rows is a chain of L
+// dependent adds a component; the d components are independent.
+//
+// Who adds (ops/cuda/voxel_reduce.py::segment_walk_plan spells it out):
+// - a segment of at most kShortWalk = 32 rows is summed by one thread, a
+//   few rows loaded ahead of its adds;
+// - a longer one is walked by a whole warp, lane c adding component c
+//   (lane_run over contiguous rows, lane_sum through a permutation): every
+//   lane's loads run up to 16 rows ahead of its adds, so the walk goes at
+//   the speed of the add chain, not of one thread's load queue.  In the
+//   walks where a thread owns segments, a warp
+//   walks its round's long segments one after another when their rows
+//   total at most kWarpShare times the longest, else each thread walks its
+//   own (many long segments in one warp would queue behind each other).
+// - A run that reaches past the rows a block staged (a zero-padded scan's
+//   one voxel, one segment of n rows) is continued from device memory by
+//   ring_walk: the warp keeps kRingSlots slots of kSlotRows rows and their
+//   ranks in flight with cp.async, and the lanes add each slot in order.
+//
+// Forms, chosen by b and n (ops/cuda/voxel_reduce.py::segment_sum_form):
+// - 'shared', n <= kSharedMaxRows = 5,120: segment_sum_kernel<D, true>,
+//   one block of 1,024 threads a cloud, everything in shared memory, 44 B a
+//   row (below).
+// - 'cluster', n <= kClusterMaxRows = 40,960: segment_tile_kernel<D, true>,
+//   a thread-block cluster of C blocks a cloud, C a power of two from 2 to
+//   kClusterBlocks = 8: the largest that holds a cloud (ceil(n / 5,120)
+//   blocks or more) and of which one wave holds b clusters (the H100 holds
+//   66, 30 and 15 clusters of 2, 4 and 8 blocks of one block an SM:
+//   pcp_segment_clusters_a_wave), else the smallest that holds a cloud.
+//   Block j holds rows [j m, (j + 1) m), m = ceil(n / C).  The blocks check
+//   their
+//   ranks and vote through distributed shared memory.  Ranks in order: each
+//   block sums the runs headed in its rows (tile_runs).  Any order: an LSD
+//   radix sort of (rank, row) by 8-bit digits across the cluster (stable:
+//   per-warp digit counts, the blocks' digit totals read from each other's
+//   shared memory, a stable placement written into the owner block's
+//   shared memory), then each block sums its own segments.
+// - 'global', larger n: segment_tile_kernel<D, false> on tiles of
+//   kGlobalTileRows = 2,048 rows, b x tiles blocks: each tile checks its
+//   ranks and, if they are in order, sums the runs headed in it, and writes
+//   a flag; then segment_sum_kernel<D, false>, one block a cloud, returns at
+//   once for a cloud whose flags are all clear and otherwise recomputes the
+//   whole cloud with a counting sort in a device-memory scratch.
+// Limits: 1 <= d <= 8, n <= 2^30.
+//
+// segment_sum_kernel: a stable counting sort per cloud.  Warp w owns the
+// contiguous rows [w L, (w + 1) L), L = ceil(n / 32), and walks them 32 at a
+// time, so the warps' row ranges are in warp order.
 //
 //  (0) Ranks.  Each warp reads its ranks; a rank outside [0, n) traps.  If
 //      no rank is below the one before it (a block vote), the cloud is
 //      already in segment order (the permutation is the identity): each
 //      head row (row 0, or a new rank) records where its segment starts
-//      and where the one before ends, and (d) walks those runs.  Every
-//      rank that the voxel and stride paths give takes this path.
+//      and where the one before ends, and (d) walks those runs.
 //      Otherwise:
 //  (a) Per-warp counts.  A ballot per bit of the rank groups a step's lanes
 //      by segment.  The group reads its warp's count of the segment so far
@@ -372,38 +424,36 @@ __global__ void __launch_bounds__(kThreads, kTileBlocksAnSm)
 //      perm[start[k] + (k's count in the warps before w) + (its earlier
 //      rows of k in warp w)]: where a sequential stable counting sort puts
 //      it.  One pass, no rounds.
-//  (d) Sum.  Each thread owns segments k = tid, tid + 1,024, ... and adds
-//      their rows in permutation order from 0.0f, a few rows loaded ahead
-//      of the adds.  Every output row is written (0 for an empty segment).
-//
-// The price of the order is a long segment walked by one thread: a
-// zero-padded scan is one segment of n rows, n dependent adds
-// (chip_smoke.py phase 9 times a 256x2000 batch of zero-padded scans).
-//
-// Memory forms, chosen by n (ops/cuda/voxel_reduce.py::segment_sum_form):
-// - n <= kSharedMaxRows = 5,120: everything in shared memory, 44 B a row:
-//   a byte count for each warp (a warp holds at most L <= 160 rows, so a
-//   byte holds its count), 32; start, permutation and the ranks (then each
-//   row's rank << 8 | earlier-row count), 4 each.  88 KB at n = 2,000, so
-//   two blocks fit an SM and 256 clouds run in one wave.  The data rows
-//   are copied into the counts' space with cp.async as the kernel starts
-//   (32 B a row >= 4 d B), so the walks read shared memory; the counting
-//   sort copies them again after (c).
-// - larger n: 32-bit counts, start, permutation and the earlier-row counts
-//   in a device-memory scratch of kScratchInts ints a row that the caller
-//   allocates; ranks and rows are read from device memory.
-// Limits: 1 <= d <= 8, n <= 2^30, b < 2^31.
+//  (d) Sum.  Thread t owns segments k = t, t + 1,024, ... (walk_segments).
+//      Every output row is written (0 for an empty segment).
+// Its memory: in the shared form a byte count for each warp (a warp holds
+// at most L <= 160 rows, so a byte holds its count), 32; start,
+// permutation and the ranks (then each row's rank << 8 | earlier-row
+// count), 4 each: 88 KB at n = 2,000, so two blocks fit an SM and 256
+// clouds run in one wave.  The data rows are copied into the counts' space
+// with cp.async as the kernel starts (32 B a row >= 4 d B), so the walks
+// read shared memory; the counting sort copies them again after (c).  In
+// the global form: 32-bit counts, start, permutation and the earlier-row
+// counts in a device-memory scratch of kScratchInts ints a row.
 //
 // The function is bound by device-memory bytes (each row and rank read
-// once, each output row written once).  On in-order ranks this kernel
-// adds a few dependent latencies a block to that: the rank loads, the
-// vote, the copy and the walks.
+// once, each output row written once).  On in-order ranks the kernels add
+// a few dependent latencies a block to that (rank loads, the vote, the
+// copy, the walks), and a long run its chain of adds.
 
 constexpr int kSegThreads = 1024;
 constexpr int kSegWarps = kSegThreads / 32;
 constexpr int kSharedMaxRows = 5120;  // 44 B a row: 225,280 B
+constexpr int kClusterBlocks = 8;     // the portable cluster size
+constexpr int kClusterMaxRows = kClusterBlocks * kSharedMaxRows;
+constexpr int kGlobalTileRows = 2048;
 constexpr long long kMaxRows = 1LL << 30;
 constexpr int kScratchInts = kSegWarps + 3;  // device-memory form: a row
+constexpr int kShortWalk = 32;  // the longest segment one thread sums
+constexpr int kWarpShare = 4;
+constexpr int kSlotRows = 256;  // ring_walk: rows a slot
+constexpr int kRingSlots = 4;   // and slots in flight
+constexpr unsigned kFull = 0xffffffffu;
 
 // Sum of a segment's per-warp counts over the warps before `warp`: a row
 // of counts is 32 bytes (shared form) or 32 ints (device-memory form).
@@ -433,22 +483,22 @@ __device__ __forceinline__ int warps_before(const unsigned* row, int warp) {
 // (a ballot is a plain vote; __match_any_sync is several times slower on
 // the H100 with every warp slot busy).  `bits` is the same across the warp.
 __device__ __forceinline__ unsigned match_lanes(int r, int bits) {
-  unsigned peers = __ballot_sync(0xffffffffu, r >= 0);
+  unsigned peers = __ballot_sync(kFull, r >= 0);
   for (int b = 0; b < bits; ++b) {
     const bool one = (r >> b) & 1;
-    const unsigned ones = __ballot_sync(0xffffffffu, one);
+    const unsigned ones = __ballot_sync(kFull, one);
     peers &= one ? ones : ~ones;
   }
   return peers;
 }
 
-// Start copying a cloud's n rows of D floats into shared memory (cp.async:
-// no registers, the copy runs behind the next phases); stage_wait() waits
-// for this thread's copies, and a barrier after it for everyone's.
+// Start copying `count` rows of D floats into shared memory (cp.async: no
+// registers, the copy runs behind the next phases); stage_wait() waits for
+// this thread's copies, and a barrier after it for everyone's.
 template <int D>
 __device__ __forceinline__ void stage_rows(float* stage, const float* src,
-                                           int n) {
-  const int count = n * D;
+                                           int count_rows) {
+  const int count = count_rows * D;
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(stage));
   if (count % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0) {
     for (int q = threadIdx.x; q < count / 4; q += kSegThreads) {
@@ -468,9 +518,14 @@ __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// out = 0.0f + rows[row_of(p)] for p = p0 .. p1 - 1, one add at a time, a
-// few rows loaded ahead of the adds.  kAligned: rows are 16-byte aligned
-// where D allows (shared memory); out always is.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One thread's walk: out = 0.0f + rows[row_of(p)] for p = p0 .. p1 - 1,
+// one add at a time, a few rows loaded ahead of the adds.  kAligned: rows
+// are 16-byte aligned where D allows (shared memory); out always is.
 template <int D, bool kAligned, typename RowOf>
 __device__ __forceinline__ void walk(const float* rows, int p0, int p1,
                                      RowOf row_of, float* out) {
@@ -502,11 +557,209 @@ __device__ __forceinline__ void walk(const float* rows, int p0, int p1,
   store_row<D>(out, sum);
 }
 
+// One lane's share of a warp's walk: sum + rows[row_of(p) * D + c] for
+// p = p0 .. p1 - 1, one add at a time in row order, the next kU rows'
+// loads in flight while this batch is added (clamped to the last row, so
+// every load is in range).
+template <int D, int kU, typename RowOf>
+__device__ __forceinline__ float lane_sum(const float* rows, int p0, int p1,
+                                          RowOf row_of, int c, float sum) {
+  if (p0 >= p1) return sum;
+  const int last = p1 - 1;
+  float v[kU];
+#pragma unroll
+  for (int a = 0; a < kU; ++a) {
+    v[a] = rows[static_cast<long long>(row_of(min(p0 + a, last))) * D + c];
+  }
+  for (int p = p0; p < p1; p += kU) {
+    float w[kU];
+#pragma unroll
+    for (int a = 0; a < kU; ++a) {
+      w[a] = rows[static_cast<long long>(row_of(min(p + kU + a, last))) * D + c];
+    }
+#pragma unroll
+    for (int a = 0; a < kU; ++a) {
+      if (p + a < p1) sum += v[a];
+    }
+#pragma unroll
+    for (int a = 0; a < kU; ++a) v[a] = w[a];
+  }
+  return sum;
+}
+
+// The same over contiguous rows: sum + p[i D] for i = 0 .. count - 1 (p:
+// component c of the first row), in batches of kU loads, each issued a
+// batch ahead of its adds when kAhead (2 kU registers), a ragged end as one
+// guarded batch: with 16 loads in flight the dependent adds, not the
+// loads' latency, set the pace.
+template <int D, int kU, bool kAhead>
+__device__ __forceinline__ float lane_run(const float* p, int count,
+                                          float sum) {
+  int i = 0;
+  if constexpr (!kAhead) {
+    for (; i + kU <= count; i += kU) {
+      float v[kU];
+#pragma unroll
+      for (int a = 0; a < kU; ++a) v[a] = p[(i + a) * D];
+#pragma unroll
+      for (int a = 0; a < kU; ++a) sum += v[a];
+    }
+  } else if (count >= kU) {
+    float v[kU];
+#pragma unroll
+    for (int a = 0; a < kU; ++a) v[a] = p[a * D];
+    for (; i + 2 * kU <= count; i += kU) {
+      const float* next = p + (i + kU) * D;
+      float w[kU];
+#pragma unroll
+      for (int a = 0; a < kU; ++a) w[a] = next[a * D];
+#pragma unroll
+      for (int a = 0; a < kU; ++a) sum += v[a];
+#pragma unroll
+      for (int a = 0; a < kU; ++a) v[a] = w[a];
+    }
+#pragma unroll
+    for (int a = 0; a < kU; ++a) sum += v[a];
+    i += kU;
+  }
+  if (i < count) {
+    const float* rest = p + i * D;
+    float v[kU];
+#pragma unroll
+    for (int a = 0; a < kU; ++a) v[a] = i + a < count ? rest[a * D] : 0.0f;
+#pragma unroll
+    for (int a = 0; a < kU; ++a) {
+      if (i + a < count) sum += v[a];
+    }
+  }
+  return sum;
+}
+
+// Segments k = 0 .. count - 1 into out + k D: bounds(k) gives the
+// positions [s, e) of segment k (s < 0: empty), row_of(p) the row at
+// position p; kRun: row_of is the identity, so a warp walk reads
+// contiguous rows.  Thread t takes k = t, t + 1,024, ...; in each round a
+// warp's segments of more than kShortWalk rows are walked by the whole
+// warp, one after another, when their rows total at most kWarpShare times
+// the longest, else each by its thread.  Called by the whole block.
+template <int D, bool kAligned, bool kRun, typename Bounds, typename RowOf>
+__device__ __forceinline__ void walk_segments(const float* rows, int count,
+                                              Bounds bounds, RowOf row_of,
+                                              float* out, int lane) {
+  const int rounds = (count + kSegThreads - 1) / kSegThreads;
+  for (int i = 0; i < rounds; ++i) {
+    const int k = static_cast<int>(threadIdx.x) + i * kSegThreads;
+    int s = -1, e = -1;
+    if (k < count) {
+      const int2 be = bounds(k);
+      s = be.x;
+      e = be.y;
+    }
+    const int len = s >= 0 ? e - s : 0;
+    const bool is_long = len > kShortWalk;
+    const unsigned longs = __ballot_sync(kFull, is_long);
+    bool by_warp = false;
+    if (longs) {  // the same across the warp
+      const int total = __reduce_add_sync(kFull, is_long ? len : 0);
+      const int longest = __reduce_max_sync(kFull, is_long ? len : 0);
+      by_warp = total <= kWarpShare * longest;
+    }
+    if (k < count && !(by_warp && is_long)) {
+      walk<D, kAligned>(rows, s, s < 0 ? s : e, row_of,
+                        out + static_cast<long long>(k) * D);
+    }
+    if (by_warp) {
+      unsigned todo = longs;
+      while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const int ws = __shfl_sync(kFull, s, src);
+        const int we = __shfl_sync(kFull, e, src);
+        const int wk = __shfl_sync(kFull, k, src);
+        if (lane < D) {
+          out[static_cast<long long>(wk) * D + lane] =
+              kRun ? lane_run<D, 16, false>(rows + static_cast<long long>(ws) * D + lane,
+                                            we - ws, 0.0f)
+                   : lane_sum<D, 4>(rows, ws, we, row_of, lane, 0.0f);
+        }
+      }
+    }
+  }
+}
+
+// Continue a warp's walk of a run of rank r at row q through device memory
+// (all 32 lanes call it; lane c < D holds component c's sum so far): the
+// warp copies slots of kSlotRows rows and their ranks into a ring in shared
+// memory with cp.async (coalesced, 4 bytes a copy, so any row alignment),
+// kRingSlots slots in flight, and lane c adds each slot's component c in
+// row order (lane_run) up to the first row of another rank or row n, which
+// ends the walk.  ring: kRingSlots * kSlotRows * (D + 1) words.
+template <int D>
+__device__ __noinline__ float ring_walk(const float* d_in, const int* r_in, long long q,
+                          int r, int n, float sum, float* ring, int lane) {
+  constexpr int kSlot = kSlotRows * D;  // floats a slot
+  int* ranks = reinterpret_cast<int*>(ring + kRingSlots * kSlot);
+  const unsigned rows_at = static_cast<unsigned>(__cvta_generic_to_shared(ring));
+  const unsigned ranks_at = static_cast<unsigned>(__cvta_generic_to_shared(ranks));
+  auto issue = [&](long long row0, int slot) {
+    const int floats = static_cast<int>(
+        min(static_cast<long long>(kSlotRows), n - row0) * D);
+    const float* src = d_in + row0 * D;
+    const unsigned dst = rows_at + 4u * static_cast<unsigned>(slot * kSlot);
+    int f0 = 0;
+    if (reinterpret_cast<uintptr_t>(src) % 16 == 0) {  // 16 bytes a copy
+      f0 = floats & ~3;
+      for (int f = 4 * lane; f < f0; f += 128) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                     ::"r"(dst + 4u * f), "l"(src + f) : "memory");
+      }
+    }
+    for (int f = f0 + lane; f < floats; f += 32) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                   ::"r"(dst + 4u * f), "l"(src + f) : "memory");
+    }
+#pragma unroll
+    for (int i = lane; i < kSlotRows; i += 32) {
+      if (row0 + i < n) {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                     ::"r"(ranks_at + 4u * (slot * kSlotRows + i)),
+                     "l"(r_in + row0 + i) : "memory");
+      } else {  // past the cloud: no rank equals -1
+        ranks[slot * kSlotRows + i] = -1;
+      }
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  for (int s = 0; s < kRingSlots; ++s) issue(q + static_cast<long long>(kSlotRows) * s, s);
+  for (int k = 0;; ++k) {
+    asm volatile("cp.async.wait_group %0;" ::"n"(kRingSlots - 1) : "memory");
+    __syncwarp();
+    const int slot = k % kRingSlots;
+    int rk[kSlotRows / 32];
+#pragma unroll
+    for (int g = 0; g < kSlotRows / 32; ++g) rk[g] = ranks[slot * kSlotRows + 32 * g + lane];
+    int valid = kSlotRows;
+#pragma unroll
+    for (int g = kSlotRows / 32 - 1; g >= 0; --g) {  // the first row of another rank
+      const unsigned other = __ballot_sync(kFull, rk[g] != r);
+      if (other) valid = 32 * g + __ffs(other) - 1;
+    }
+    if (lane < D) sum = lane_run<D, 16, true>(ring + slot * kSlot + lane, valid, sum);
+    if (valid < kSlotRows) break;  // monotone: the run has ended
+    __syncwarp();                  // every lane has read the slot
+    issue(q + static_cast<long long>(kSlotRows) * (k + kRingSlots), slot);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncwarp();
+  return sum;
+}
+
 template <int D, bool kShared>
 __global__ void __launch_bounds__(kSegThreads, 2)
     segment_sum_kernel(const float* __restrict__ data,
                        const int* __restrict__ rank, float* __restrict__ out,
-                       int* __restrict__ scratch, int n) {
+                       int* __restrict__ scratch,
+                       const int* __restrict__ flags, int n, int tiles) {
   using Count = typename std::conditional<kShared, unsigned char,
                                           unsigned>::type;
   extern __shared__ __align__(16) uint4 seg_smem[];
@@ -524,6 +777,14 @@ __global__ void __launch_bounds__(kSegThreads, 2)
   const int row0 = min(n, warp * per_warp);
   const int row_end = min(n, row0 + per_warp);
   const int bits = n > 1 ? 32 - __clz(n - 1) : 0;  // a rank's bits
+
+  if constexpr (!kShared) {
+    // segment_tile_kernel ran first: a cloud whose tiles all found their
+    // ranks in order is summed already
+    int bad = 0;
+    for (int t = tid; t < tiles; t += kSegThreads) bad |= flags[cloud * tiles + t];
+    if (!__syncthreads_or(bad)) return;
+  }
 
   Count* cnt;  // [n][32] each segment's count in each warp
   int* start;  // [n] each segment's first position in perm
@@ -575,9 +836,9 @@ __global__ void __launch_bounds__(kSegThreads, 2)
     for (int i0 = row0; i0 < row_end; i0 += 32) {  // the same for the warp
       const int i = i0 + lane;
       const int r = i < row_end ? rank_at(i) : -1;
-      int prev = __shfl_up_sync(0xffffffffu, r, 1);
+      int prev = __shfl_up_sync(kFull, r, 1);
       if (lane == 0) prev = carry;
-      carry = __shfl_sync(0xffffffffu, r, 31);
+      carry = __shfl_sync(kFull, r, 31);
       if (i < row_end) step(i, r, prev);
     }
   };
@@ -597,11 +858,9 @@ __global__ void __launch_bounds__(kSegThreads, 2)
     });
     if constexpr (kShared) stage_wait();
     __syncthreads();
-    for (int k = tid; k < n; k += kSegThreads) {
-      const int s = start[k];
-      walk<D, kShared>(rows, s, s < 0 ? s : end[k], [](int p) { return p; },
-                       o_out + static_cast<long long>(k) * D);
-    }
+    walk_segments<D, kShared, true>(
+        rows, n, [&](int k) { return make_int2(start[k], end[k]); },
+        [](int p) { return p; }, o_out, lane);
     return;
   }
 
@@ -647,7 +906,7 @@ __global__ void __launch_bounds__(kSegThreads, 2)
     int inc = own;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int o = __shfl_up_sync(0xffffffffu, inc, off);
+      const int o = __shfl_up_sync(kFull, inc, off);
       if (lane >= off) inc += o;
     }
     if (lane == 31) warp_total[warp] = inc;
@@ -657,7 +916,7 @@ __global__ void __launch_bounds__(kSegThreads, 2)
       int winc = w;
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
-        const int o = __shfl_up_sync(0xffffffffu, winc, off);
+        const int o = __shfl_up_sync(kFull, winc, off);
         if (lane >= off) winc += o;
       }
       warp_total[lane] = winc - w;
@@ -691,22 +950,399 @@ __global__ void __launch_bounds__(kSegThreads, 2)
     stage_wait();
     __syncthreads();
   }
-  for (int k = tid; k < n; k += kSegThreads) {
-    walk<D, kShared>(rows, start[k], k + 1 < n ? start[k + 1] : n,
-                     [perm](int p) { return perm[p]; },
-                     o_out + static_cast<long long>(k) * D);
+  walk_segments<D, kShared, false>(
+      rows, n,
+      [&](int k) { return make_int2(start[k], k + 1 < n ? start[k + 1] : n); },
+      [perm](int p) { return perm[p]; }, o_out, lane);
+}
+
+// segment_tile_kernel's shared memory, in 4-byte words: the ranks of rows
+// t0 - 1 .. t0 + m + kShortRun, then either the staged rows (m + kShortRun
+// of them) and ring_walk's ring (in-order ranks), or the radix sort's
+// arrays (cluster form, any order): keys and rows twice (the passes
+// alternate), each own segment's start and end, the per-warp digit counts
+// (256 x 32 bytes), each row's earlier count (a byte), the block's digit
+// totals and the digits' bases.
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+__host__ __device__ constexpr int tile_rank_words(int m) {
+  return round4(m + kShortRun + 2);
+}
+
+template <int D>
+__host__ __device__ constexpr int tile_rows_words(int m) {
+  return round4((m + kShortRun) * D);
+}
+
+__host__ __device__ constexpr int tile_sort_words(int m) {
+  return 6 * round4(m) + 256 * kSegWarps / 4 + round4(m) / 4 + 2 * 256;
+}
+
+template <int D>
+__host__ __device__ constexpr int tile_words(int m, bool cluster) {
+  const int in_order = tile_rows_words<D>(m) + kRingSlots * kSlotRows * (D + 1);
+  const int sort = cluster ? tile_sort_words(m) : 0;
+  return tile_rank_words(m) + (in_order > sort ? in_order : sort);
+}
+
+// A warp's walk of the run of rank r headed at staged row h (more than
+// kShortRun rows): lane c adds component c over the staged rows of the run,
+// then, if the run reaches past them, on through device memory
+// (ring_walk); lane c writes out[r][c].  Out of line: the per-row loop of
+// tile_runs stays small.
+template <int D>
+__device__ __noinline__ void long_run(const float* rows_s, const int* rank_s,
+                                      float* ring, const float* d_in,
+                                      const int* r_in, float* o_out, int t0,
+                                      int staged, int n, int h, int r,
+                                      int lane) {
+  int e = staged;  // the run's end among the staged rows
+  for (int p0 = h + kShortRun; p0 < staged; p0 += 32) {
+    const int p = p0 + lane;
+    const unsigned other = __ballot_sync(kFull, p < staged && rank_s[p + 1] != r);
+    if (other) {
+      e = p0 + __ffs(other) - 1;
+      break;
+    }
   }
+  float sum = 0.0f;
+  if (lane < D) sum = lane_run<D, 16, true>(rows_s + h * D + lane, e - h, sum);
+  if (e == staged && t0 + staged < n) {
+    sum = ring_walk<D>(d_in, r_in, t0 + staged, r, n, sum, ring, lane);
+  }
+  if (lane < D) o_out[static_cast<long long>(r) * D + lane] = sum;
+}
+
+// The runs headed in a block's rows [t0, t0 + rows) of a cloud whose ranks
+// are in order (kernel 1's ownership, with every sum in row order): a run
+// belongs to the block that holds its head and writes output row
+// rank[head]; a run of at most kShortRun rows is summed by its head's
+// thread from the staged rows; a longer one by the head's warp (at most one
+// a warp a round: heads of long runs are more than 32 rows apart), over the
+// staged rows and on through device memory if it reaches past them; the
+// empty rows below a run, and above the cloud's last rank, are written as
+// zeros by the warp of its head (of row n - 1).
+template <int D>
+__device__ void tile_runs(const float* rows_s, const int* rank_s, float* ring,
+                          const float* d_in, const int* r_in, float* o_out,
+                          int t0, int rows, int staged, int n, int lane) {
+  const int rounds = (rows + kSegThreads - 1) / kSegThreads;
+  for (int i = 0; i < rounds; ++i) {
+    const int q = static_cast<int>(threadIdx.x) + i * kSegThreads;
+    int gap_lo = 0, gap_hi = 0;    // empty rows below this row's run
+    int tail_lo = 0, tail_hi = 0;  // empty rows above the last rank
+    bool long_head = false;
+    int r = 0;
+    if (q < rows) {
+      r = rank_s[q + 1];
+      const int prev = rank_s[q];
+      if (t0 + q == n - 1) {
+        tail_lo = r + 1;
+        tail_hi = n;
+      }
+      if (prev != r) {  // a head
+        gap_lo = prev + 1;
+        gap_hi = r;
+        // the run's length, up to kShortRun + 1 (one to three rows on the
+        // paths' ranks)
+        int len = 1;
+#pragma unroll 1
+        while (len <= kShortRun && rank_s[q + len + 1] == r) ++len;
+        if (len <= kShortRun) {
+          float sum[D];
+#pragma unroll
+          for (int c = 0; c < D; ++c) sum[c] = 0.0f;
+#pragma unroll 1
+          for (int p = q; p < q + len; ++p) {
+            float v[D];
+            load_row<D, D>(rows_s + p * D, v);
+#pragma unroll
+            for (int c = 0; c < D; ++c) sum[c] += v[c];
+          }
+          store_row<D>(o_out + static_cast<long long>(r) * D, sum);
+        } else {
+          long_head = true;
+        }
+      }
+    }
+    zero_rows<D>(o_out, gap_lo, gap_hi, lane);
+    zero_rows<D>(o_out, tail_lo, tail_hi, lane);
+    const unsigned longs = __ballot_sync(kFull, long_head);
+    if (longs) {
+      const int src = __ffs(longs) - 1;
+      long_run<D>(rows_s, rank_s, ring, d_in, r_in, o_out, t0, staged, n,
+                  __shfl_sync(kFull, q, src), __shfl_sync(kFull, r, src), lane);
+    }
+  }
+}
+
+// The cluster form (kCluster: a cluster of `blocks` blocks a cloud, block j
+// holding rows [j m, j m + m)) and the global form's tiles (b x
+// `blocks` blocks, tile j of a cloud holding rows [j m, j m + m), writing
+// flags[cloud * blocks + j] = 1 when its ranks are out of order).
+template <int D, bool kCluster>
+__global__ void __launch_bounds__(kSegThreads, 1)
+    segment_tile_kernel(const float* __restrict__ data,
+                        const int* __restrict__ rank, float* __restrict__ out,
+                        int* __restrict__ flags, int n, int m, int blocks) {
+  extern __shared__ __align__(16) uint4 tile_smem[];
+  __shared__ int votes[kClusterBlocks];  // each block's: ranks out of order
+  __shared__ int warp_total[kSegWarps];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long cloud = blockIdx.x / blocks;
+  const int j = static_cast<int>(blockIdx.x % blocks);  // the cluster rank
+  const int t0 = j * m;
+  const int rows = max(0, min(n, t0 + m) - t0);
+  const int staged = min(n, t0 + m + kShortRun) - min(n, t0);
+  const int* r_in = rank + cloud * n;
+  const float* d_in = data + cloud * n * D;
+  float* o_out = out + cloud * n * D;
+
+  int* rank_s = reinterpret_cast<int*>(tile_smem);  // [q + 1]: row t0 + q
+  float* rows_s = reinterpret_cast<float*>(rank_s + tile_rank_words(m));
+  float* ring = rows_s + tile_rows_words<D>(m);
+
+  if constexpr (kCluster) {  // waited for before the first remote access
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  }
+  // Stage: the rows (cp.async, behind the checks) and the ranks, -1 before
+  // row 0 and n past the last row (no rank equals either), every load in
+  // flight at once.
+  if (staged > 0) {
+    stage_rows<D>(rows_s, d_in + static_cast<long long>(t0) * D, staged);
+  }
+  {
+    constexpr int kLoads =
+        (kSharedMaxRows + kShortRun + 2 + kSegThreads - 1) / kSegThreads;
+    int v[kLoads];
+#pragma unroll
+    for (int a = 0; a < kLoads; ++a) {
+      const int q = tid + a * kSegThreads;
+      const int row = t0 - 1 + q;
+      v[a] = q > m + kShortRun + 1 || row < 0 ? -1 : (row < n ? r_in[row] : n);
+    }
+#pragma unroll
+    for (int a = 0; a < kLoads; ++a) {
+      const int q = tid + a * kSegThreads;
+      if (q <= m + kShortRun + 1) rank_s[q] = v[a];
+    }
+  }
+  __syncthreads();
+  int bad = 0;
+  for (int q = tid; q < rows; q += kSegThreads) {
+    const int r = rank_s[q + 1];
+    if (r < 0 || r >= n) __trap();  // outside [0, n)
+    bad |= rank_s[q] > r;           // below the row before
+  }
+  bad = __syncthreads_or(bad);
+
+  if constexpr (!kCluster) {
+    if (tid == 0) flags[cloud * blocks + j] = bad;
+    if (bad) return;  // segment_sum_kernel recomputes the cloud
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    if (tid < blocks) *cluster.map_shared_rank(&votes[j], tid) = bad;
+    cluster_sync_all();  // every vote is in
+    int any = 0;
+#pragma unroll
+    for (int b = 0; b < kClusterBlocks; ++b) any |= b < blocks ? votes[b] : 0;
+    if (any) {
+      // Any order: an LSD radix sort of (rank, row) by 8-bit digits over
+      // the cluster; block j holds sorted positions [j m, j m + rows).
+      const int mr = round4(m);
+      int* sort_s = rank_s + tile_rank_words(m);  // keys, keys, rows, rows
+      int* seg_start = sort_s + 4 * mr;  // own segments t0 + k
+      int* seg_end = sort_s + 5 * mr;
+      unsigned char* cnt = reinterpret_cast<unsigned char*>(sort_s + 6 * mr);
+      unsigned char* ebuf = cnt + 256 * kSegWarps;
+      int* dtot = sort_s + 6 * mr + 256 * kSegWarps / 4 + mr / 4;
+      int* base = dtot + 256;
+      stage_wait();  // the rows' copy lands before its space is reused
+      __syncthreads();
+      for (int q = tid; q < rows; q += kSegThreads) {
+        sort_s[q] = rank_s[q + 1];
+        sort_s[2 * mr + q] = t0 + q;
+        seg_start[q] = -1;
+      }
+      const unsigned lower_lanes = (1u << lane) - 1u;
+      const int per_warp = (m + kSegWarps - 1) / kSegWarps;  // <= 160
+      const int w0 = min(rows, warp * per_warp);
+      const int w1 = min(rows, w0 + per_warp);
+      const int passes = (32 - __clz(n - 1) + 7) / 8;
+      for (int pass = 0; pass < passes; ++pass) {
+        const int* kc = sort_s + (pass & 1) * mr;
+        const int* vc = kc + 2 * mr;
+        int* kn = sort_s + ((pass & 1) ^ 1) * mr;
+        int* vn = kn + 2 * mr;
+        const int shift = 8 * pass;
+        for (int q = tid; q < 256 * kSegWarps / 16; q += kSegThreads) {
+          reinterpret_cast<uint4*>(cnt)[q] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncthreads();
+        // per-warp digit counts; each row's earlier rows of its digit in
+        // its warp
+        for (int i0 = w0; i0 < w1; i0 += 32) {
+          const int i = i0 + lane;
+          const int g = i < w1 ? (kc[i] >> shift) & 255 : -1;
+          const unsigned peers = match_lanes(g, 8);
+          int before = 0;
+          unsigned char* c = cnt + 32 * max(g, 0) + warp;
+          if (g >= 0) before = *c;
+          __syncwarp();
+          if (g >= 0 && (peers & lower_lanes) == 0) {
+            *c = static_cast<unsigned char>(before + __popc(peers));
+          }
+          __syncwarp();
+          if (g >= 0) {
+            ebuf[i] = static_cast<unsigned char>(before + __popc(peers & lower_lanes));
+          }
+        }
+        __syncthreads();
+        if (tid < 256) {
+          const unsigned* words = reinterpret_cast<const unsigned*>(cnt + 32 * tid);
+          unsigned t = 0;
+#pragma unroll
+          for (int w = 0; w < kSegWarps / 4; ++w) t = __dp4a(words[w], 0x01010101u, t);
+          dtot[tid] = static_cast<int>(t);
+        }
+        cluster_sync_all();  // every block's digit totals are in place
+        // base[g]: the positions of smaller digits in the cluster, then
+        // digit g's rows in the blocks before this one
+        int total = 0, inc = 0;
+        if (tid < 256) {
+          int t[kClusterBlocks];
+#pragma unroll
+          for (int b = 0; b < kClusterBlocks; ++b) {
+            t[b] = b < blocks ? *cluster.map_shared_rank(&dtot[tid], b) : 0;
+          }
+          int before = 0;
+#pragma unroll
+          for (int b = 0; b < kClusterBlocks; ++b) {
+            total += t[b];
+            if (b < j) before += t[b];
+          }
+          inc = total;
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const int o = __shfl_up_sync(kFull, inc, off);
+            if (lane >= off) inc += o;
+          }
+          if (lane == 31) warp_total[warp] = inc;
+          inc += before - total;  // exclusive, plus the earlier blocks'
+        }
+        __syncthreads();
+        if (tid < 256) {
+          for (int w = 0; w < warp; ++w) inc += warp_total[w];
+          base[tid] = inc;
+        }
+        __syncthreads();
+        // stable placement into the owner block of each position
+        for (int i = w0 + lane; i < w1; i += 32) {
+          const int k = kc[i];
+          const int g = (k >> shift) & 255;
+          const int dest = base[g] + warps_before(cnt + 32 * g, warp) + ebuf[i];
+          const int o = dest / m;
+          const int l = dest - o * m;
+          *cluster.map_shared_rank(kn + l, o) = k;
+          *cluster.map_shared_rank(vn + l, o) = vc[i];
+        }
+        cluster_sync_all();  // placed; every read of this pass is done
+      }
+      // Segment bounds: a position heads its segment when its rank differs
+      // from the position before; the owner block of each segment gets its
+      // start and end.
+      const int* kf = sort_s + (passes & 1) * mr;
+      const int* vf = kf + 2 * mr;
+      for (int q = tid; q < rows; q += kSegThreads) {
+        const int p = t0 + q;
+        const int k = kf[q];
+        int prev = -1;
+        if (q > 0) {
+          prev = kf[q - 1];
+        } else if (j > 0) {
+          prev = *cluster.map_shared_rank(const_cast<int*>(kf) + (m - 1), j - 1);
+        }
+        if (k != prev) {
+          *cluster.map_shared_rank(seg_start + k % m, k / m) = p;
+          if (prev >= 0) *cluster.map_shared_rank(seg_end + prev % m, prev / m) = p;
+        }
+        if (p == n - 1) *cluster.map_shared_rank(seg_end + k % m, k / m) = n;
+      }
+      cluster_sync_all();
+      walk_segments<D, false, false>(
+          d_in, rows,
+          [&](int k) { return make_int2(seg_start[k], seg_end[k]); },
+          [&](int p) {
+            return *cluster.map_shared_rank(const_cast<int*>(vf) + p % m, p / m);
+          },
+          o_out + static_cast<long long>(t0) * D, lane);
+      cluster_sync_all();  // no peer reads this block's rows any more
+      return;
+    }
+  }
+  stage_wait();
+  __syncthreads();
+  tile_runs<D>(rows_s, rank_s, ring, d_in, r_in, o_out, t0, rows,
+               staged, n, lane);
+}
+
+template <int D, bool kCluster>
+int launch_tiles(const float* data, const int* rank, float* out, int* flags,
+                 long long b, int n, int m, int blocks, cudaStream_t s) {
+  auto kernel = segment_tile_kernel<D, kCluster>;
+  const int smem = 4 * tile_words<D>(m, kCluster);
+  // the dynamic shared memory granted so far, a device (set once: a call
+  // a launch costs the host more than the kernel takes at small b)
+  static int allowed[64];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= 64 || smem > allowed[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (device < 64) allowed[device] = smem;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(b * blocks));
+  config.blockDim = dim3(kSegThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster ? blocks : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = kCluster ? 1 : 0;
+  err = cudaLaunchKernelEx(&config, kernel, data, rank, out, flags, n, m,
+                           blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_segment_sum(const float* data, const int* rank, float* out,
-                       int* scratch, long long b, long long n, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>(b);
+                       int* scratch, long long b, long long n, int blocks,
+                       cudaStream_t s) {
+  const unsigned clouds = static_cast<unsigned>(b);
   const int rows = static_cast<int>(n);
-  if (n > kSharedMaxRows) {
-    segment_sum_kernel<D, false><<<blocks, kSegThreads, 0, s>>>(
-        data, rank, out, scratch, rows);
+  if (n > kClusterMaxRows) {  // tiles, then the counting sort where needed
+    int* flags = scratch + kScratchInts * n * b;
+    const int err = launch_tiles<D, false>(data, rank, out, flags, b, rows,
+                                           kGlobalTileRows, blocks, s);
+    if (err != 0) return err;
+    segment_sum_kernel<D, false><<<clouds, kSegThreads, 0, s>>>(
+        data, rank, out, scratch, flags, rows, blocks);
     return static_cast<int>(cudaGetLastError());
+  }
+  if (blocks > 1) {
+    return launch_tiles<D, true>(data, rank, out, nullptr, b, rows,
+                                 (rows + blocks - 1) / blocks, blocks, s);
   }
   const int smem = static_cast<int>(n * (32 + 3 * sizeof(int)));
   cudaError_t err = cudaFuncSetAttribute(
@@ -718,8 +1354,8 @@ int launch_segment_sum(const float* data, const int* rank, float* out,
                                cudaSharedmemCarveoutMaxShared);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  segment_sum_kernel<D, true><<<blocks, kSegThreads, smem, s>>>(
-      data, rank, out, nullptr, rows);
+  segment_sum_kernel<D, true><<<clouds, kSegThreads, smem, s>>>(
+      data, rank, out, nullptr, nullptr, rows, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -755,33 +1391,70 @@ extern "C" int pcp_sorted_segment_sum(const float* data, const int* rank,
   return static_cast<int>(cudaGetLastError());
 }
 
+
 // Any-rank segment sum.  data: (b, n, d) f32 with 1 <= d <= 8, rank: (b, n)
-// int32 in [0, n), out: (b, n, d) f32, every row written.  scratch: for
-// n > 5,120, (b, 35 n) int32 of device memory (no need to initialise it);
-// else unused.  Takes n <= 2^30.  Returns a cudaError_t code (0 on
-// success).
+// int32 in [0, n), out: (b, n, d) f32, 16-byte aligned, every row written.
+// blocks: the blocks a cloud, as ops/cuda/voxel_reduce.py::segment_sum_form
+// gives them: 1 (the shared form, n <= 5,120), 2 to 8 holding at most 5,120
+// rows each (a cluster), or ceil(n / 2,048) for n > 40,960 (the global
+// form's tiles).  scratch: in the global form, (b, 35 n + blocks) int32 of
+// device memory (no need to initialise it); else unused.  Takes n <= 2^30.
+// Returns a cudaError_t code (0 on success).
 extern "C" int pcp_segment_sum(const float* data, const int* rank, float* out,
                                int* scratch, long long b, long long n, int d,
-                               void* stream) {
+                               int blocks, void* stream) {
   if (b == 0 || n == 0) return 0;
-  if (b < 0 || n < 0 || b > 0x7fffffffLL || n > kMaxRows ||
-      (n > kSharedMaxRows && scratch == nullptr)) {
+  const bool global = n > kClusterMaxRows;
+  const bool form = global ? blocks == (n + kGlobalTileRows - 1) / kGlobalTileRows
+                    : blocks == 1 ? n <= kSharedMaxRows
+                                  : blocks >= 2 && blocks <= kClusterBlocks &&
+                                        (n + blocks - 1) / blocks <= kSharedMaxRows;
+  if (b < 0 || n < 0 || b > 0x7fffffffLL || n > kMaxRows || !form ||
+      b * blocks > 0x7fffffffLL || reinterpret_cast<uintptr_t>(out) % 16 ||
+      (global && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch_segment_sum<1>(data, rank, out, scratch, b, n, s);
-    case 2: return launch_segment_sum<2>(data, rank, out, scratch, b, n, s);
-    case 3: return launch_segment_sum<3>(data, rank, out, scratch, b, n, s);
-    case 4: return launch_segment_sum<4>(data, rank, out, scratch, b, n, s);
-    case 5: return launch_segment_sum<5>(data, rank, out, scratch, b, n, s);
-    case 6: return launch_segment_sum<6>(data, rank, out, scratch, b, n, s);
-    case 7: return launch_segment_sum<7>(data, rank, out, scratch, b, n, s);
-    case 8: return launch_segment_sum<8>(data, rank, out, scratch, b, n, s);
+    case 1: return launch_segment_sum<1>(data, rank, out, scratch, b, n, blocks, s);
+    case 2: return launch_segment_sum<2>(data, rank, out, scratch, b, n, blocks, s);
+    case 3: return launch_segment_sum<3>(data, rank, out, scratch, b, n, blocks, s);
+    case 4: return launch_segment_sum<4>(data, rank, out, scratch, b, n, blocks, s);
+    case 5: return launch_segment_sum<5>(data, rank, out, scratch, b, n, blocks, s);
+    case 6: return launch_segment_sum<6>(data, rank, out, scratch, b, n, blocks, s);
+    case 7: return launch_segment_sum<7>(data, rank, out, scratch, b, n, blocks, s);
+    case 8: return launch_segment_sum<8>(data, rank, out, scratch, b, n, blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The clusters of `blocks` blocks of the cluster form (d 4, the rows of n =
+// 5,120 * blocks / 2) that the card holds at once, by
+// cudaOccupancyMaxActiveClusters; a negative cudaError_t code on failure.
+extern "C" int pcp_segment_clusters_a_wave(int blocks) {
+  auto kernel = segment_tile_kernel<4, true>;
+  const int m = kSharedMaxRows / 2;
+  const int smem = 4 * tile_words<4>(m, true);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(blocks));
+  config.blockDim = dim3(kSegThreads);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
 extern "C" const char* pcp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+

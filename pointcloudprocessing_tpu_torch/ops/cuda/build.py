@@ -41,7 +41,8 @@ _L = ctypes.c_longlong
 # C signatures of each library's entry points: {name: argtypes}
 _ENTRY = {
     "voxel_reduce": {"pcp_sorted_segment_sum": [_P, _P, _P, _L, _L, _I, _I, _P],
-                     "pcp_segment_sum": [_P, _P, _P, _P, _L, _L, _I, _P]},
+                     "pcp_segment_sum": [_P, _P, _P, _P, _L, _L, _I, _I, _P],
+                     "pcp_segment_clusters_a_wave": [_I]},
     "fps": {"pcp_fps": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
             "pcp_fps_large": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
     "pooled_chain": {

@@ -11,16 +11,17 @@ Counterparts of ``pointcloudprocessing_tpu/ops/pallas/voxel_reduce.py``:
   and each run's warp writes the empty rows below it as zeros, so the
   output needs no zero fill.
   :func:`sorted_sum_plan` spells out who writes which output row.
-- :func:`segment_reduce` (``segment_reduce_pallas``): any rank. A stable
-  counting sort per cloud, one block a cloud: per-warp counts of the ranks,
-  a scan into segment starts, a stable placement of the row indices, then
-  a thread adds each segment's rows in row order, so the sums equal
-  PyTorch's CPU ``scatter_add_`` bit for bit. Ranks that never decrease
-  (all that the voxel and stride paths give) are already in segment
-  order, and the kernel then only finds each run's head.
-  :func:`segment_sum_form` says where its working set lives: shared
-  memory up to ``SHARED_MAX_ROWS`` rows a cloud, else a device-memory
-  scratch.
+- :func:`segment_reduce` (``segment_reduce_pallas``): any rank. Each
+  segment's rows are found in row order (the runs of a rank in order, or a
+  stable sort by rank) and added in that order from 0, so the sums equal
+  PyTorch's CPU ``scatter_add_`` bit for bit; a segment longer than
+  ``SHORT_WALK`` rows is walked by a whole warp, a lane a component.
+  :func:`segment_sum_form` picks the form by b and n: one block a cloud in
+  shared memory up to ``SHARED_MAX_ROWS``, a thread-block cluster of 2 to
+  ``CLUSTER_BLOCKS`` blocks a cloud (as many as one wave holds) up to
+  ``CLUSTER_MAX_ROWS``, tiles of ``GLOBAL_TILE_ROWS`` rows and a
+  device-memory scratch (:func:`segment_scratch_ints`) above.
+  :func:`segment_walk_plan` spells out who writes which output row.
 
 ``csrc/voxel_reduce.cu`` says why and how. :func:`monotone_segment_sum`, what
 the voxel downsample and the stride sampler call, picks between the two as
@@ -91,24 +92,145 @@ def sorted_sum_plan(rank) -> list[tuple[int, str, int, int, int]]:
     return writes
 
 
-#: the any-rank kernel's shared-memory form takes up to this many rows a
-#: cloud (44 B a row of the 227 KB a block may have); above it the kernel
-#: works in a device-memory scratch of SCRATCH_INTS int32 a row (a 32-bit
-#: count for each of a block's 32 warps, a start, a permutation entry and
-#: an earlier-rows count)
+#: kernel 3's forms (``csrc/voxel_reduce.cu`` holds the same constants):
+#: 'shared' (one block a cloud, 44 B a row of the 227 KB a block may have,
+#: up to SHARED_MAX_ROWS rows); 'cluster' up to CLUSTER_MAX_ROWS (a
+#: thread-block cluster of 2 to CLUSTER_BLOCKS blocks a cloud, block j
+#: holding rows [j m, j m + m), each at most SHARED_MAX_ROWS); 'global'
+#: above: tiles of GLOBAL_TILE_ROWS rows, then, for a cloud whose ranks are
+#: out of order, one block a cloud over a device-memory scratch of
+#: SCRATCH_INTS int32 a row (a 32-bit count for each of a block's 32 warps,
+#: a start, a permutation entry and an earlier-rows count) and a flag a tile
 SHARED_MAX_ROWS = 5120
+CLUSTER_BLOCKS = 8
+CLUSTER_MAX_ROWS = CLUSTER_BLOCKS * SHARED_MAX_ROWS
+#: the clusters of 2, 4 and 8 blocks (one 1,024-thread block an SM) that
+#: the H100 holds at once: cudaOccupancyMaxActiveClusters, printed by
+#: tools/segment_bench.py (NVIDIA H100 80GB HBM3)
+CLUSTERS_A_WAVE = {2: 66, 4: 30, 8: 15}
+GLOBAL_TILE_ROWS = 2048
 SCRATCH_INTS = 35
 #: the most rows a cloud either segment-sum kernel takes
 MAX_ROWS = 2**30
+#: kernel 3's threads a block; a segment of at most SHORT_WALK rows is
+#: summed by one thread, a longer one by a warp (WARP_SHARE: see
+#: segment_walk_plan)
+SEG_THREADS = 1024
+SHORT_WALK = 32
+WARP_SHARE = 4
 
 
-def segment_sum_form(n: int) -> str:
-    """Where the any-rank kernel keeps a cloud of n rows: 'shared' up to
-    ``SHARED_MAX_ROWS``, else 'global' (a scratch the wrapper allocates)."""
+def segment_sum_form(b: int, n: int) -> tuple[str, int]:
+    """Kernel 3's form for b clouds of n rows, and its blocks a cloud:
+    'shared' (one block) up to ``SHARED_MAX_ROWS``; 'global' above
+    ``CLUSTER_MAX_ROWS`` (a tile of ``GLOBAL_TILE_ROWS`` rows a block, and a
+    scratch the wrapper allocates); between, a 'cluster' of C blocks, C a
+    power of two up to ``CLUSTER_BLOCKS``: the largest of which C blocks
+    hold a cloud (ceil(n / ``SHARED_MAX_ROWS``) or more) and one wave holds
+    b clusters (``CLUSTERS_A_WAVE``), else the smallest that holds a
+    cloud."""
     if not 1 <= n <= MAX_ROWS:
         raise ValueError(f"the segment-sum kernels take 1..{MAX_ROWS} rows a "
                          f"cloud, got {n}")
-    return "shared" if n <= SHARED_MAX_ROWS else "global"
+    if b < 1:
+        raise ValueError(f"kernel 3 takes at least one cloud, got {b}")
+    if n <= SHARED_MAX_ROWS:
+        return "shared", 1
+    if n > CLUSTER_MAX_ROWS:
+        return "global", -(-n // GLOBAL_TILE_ROWS)
+    need = -(-n // SHARED_MAX_ROWS)
+    sizes = [c for c in sorted(CLUSTERS_A_WAVE) if c >= need]
+    fits = [c for c in sizes if b <= CLUSTERS_A_WAVE[c]]
+    return "cluster", max(fits) if fits else min(sizes)
+
+
+def segment_block_rows(n: int, form: tuple[str, int]) -> int:
+    """The rows each block of ``form`` (:func:`segment_sum_form`) holds."""
+    kind, blocks = form
+    return GLOBAL_TILE_ROWS if kind == "global" else -(-n // blocks)
+
+
+def segment_scratch_ints(n: int) -> int:
+    """The int32 scratch kernel 3 takes a cloud of n rows: none but in the
+    'global' form, where it is SCRATCH_INTS a row and a flag a tile."""
+    if n <= CLUSTER_MAX_ROWS:
+        return 0
+    return SCRATCH_INTS * n + -(-n // GLOBAL_TILE_ROWS)
+
+
+def _owned_walks(lengths, block: int) -> list[tuple[int, str, int, int]]:
+    """Who sums each of a block's segments k (``lengths[k]`` rows, 0 for an
+    empty one; output row ``k`` of the block's): thread k % SEG_THREADS in
+    round k // SEG_THREADS; a round's segments of more than SHORT_WALK rows
+    in one warp are walked by that warp when their rows total at most
+    WARP_SHARE times the longest, else each by its thread. Returns ``(k,
+    kind, block, who)``, kind 'zero' (an empty segment, by its thread),
+    'thread' or 'warp'."""
+    writes = []
+    for g0 in range(0, len(lengths), 32):  # a warp's 32 segments of a round
+        group = range(g0, min(g0 + 32, len(lengths)))
+        longs = [lengths[k] for k in group if lengths[k] > SHORT_WALK]
+        by_warp = bool(longs) and sum(longs) <= WARP_SHARE * max(longs)
+        for k in group:
+            thread = k % SEG_THREADS
+            if lengths[k] == 0:
+                writes.append((k, "zero", block, thread))
+            elif by_warp and lengths[k] > SHORT_WALK:
+                writes.append((k, "warp", block, thread // 32))
+            else:
+                writes.append((k, "thread", block, thread))
+    return writes
+
+
+def segment_walk_plan(rank, b: int = 1) -> list[tuple[int, str, int, int]]:
+    """Who writes each output row of one cloud of a batch of b in kernel 3:
+    ``(row, kind, block, who)`` for each write, kind 'thread' or 'warp'
+    (``who`` the thread or warp of ``block`` that sums segment ``row``) or
+    'zero' (an empty row, written by thread ``who``, or in the run forms by
+    warp ``who``).
+
+    Ranks in order, in the 'cluster' and 'global' forms: kernel 1's
+    ownership over the blocks' rows (:func:`segment_block_rows`): a run
+    belongs to the block holding its head, summed by the head's thread if it
+    has at most SHORT_WALK rows, else by the head's warp; the empty rows
+    below a run, and above the last rank, by the warp of its head (of row
+    n - 1). Otherwise each block owns segments: all n in the 'shared' form
+    and in the 'global' form's any-order pass, ``[j m, j m + m)`` in block
+    j of the 'cluster' form (after its stable sort), summed as
+    :func:`_owned_walks` says."""
+    rank = [int(r) for r in rank]
+    n = len(rank)
+    form = segment_sum_form(b, n)
+    m = segment_block_rows(n, form)
+    in_order = all(a <= c for a, c in zip(rank, rank[1:]))
+    if form[0] != "shared" and in_order:
+        writes = []
+        for i, r in enumerate(rank):
+            prev = rank[i - 1] if i else -1
+            if prev != r:  # a head
+                end = i + 1
+                while end < n and rank[end] == r:
+                    end += 1
+                thread = i % m % SEG_THREADS
+                kind = "thread" if end - i <= SHORT_WALK else "warp"
+                writes.append((r, kind, i // m, thread if kind == "thread"
+                               else thread // 32))
+                writes += [(k, "zero", i // m, thread // 32)
+                           for k in range(prev + 1, r)]
+        writes += [(k, "zero", (n - 1) // m, (n - 1) % m % SEG_THREADS // 32)
+                   for k in range(rank[-1] + 1, n)]
+        return writes
+    lengths = [0] * n
+    for r in rank:
+        lengths[r] += 1
+    if form[0] != "cluster":
+        return _owned_walks(lengths, 0)
+    writes = []
+    for j in range(form[1]):
+        own = lengths[j * m:(j + 1) * m]
+        writes += [(j * m + k, kind, j, who)
+                   for k, kind, _, who in _owned_walks(own, j)]
+    return writes
 
 
 def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
@@ -134,13 +256,13 @@ def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
 
 
 def _launch(entry: str, data: torch.Tensor, rank: torch.Tensor,
-            out: torch.Tensor, *scratch, tiles: int | None = None) -> None:
+            out: torch.Tensor, *scratch, grid: int) -> None:
     """Launch ``entry`` on PyTorch's current stream; ``scratch``: the
-    pointers an entry takes between ``out`` and the shapes; ``tiles``: kernel
-    1's tiles a cloud, which its entry takes after the shapes."""
+    pointers an entry takes between ``out`` and the shapes; ``grid``: the
+    blocks a cloud, which both entries take after the shapes."""
     b, n, d = data.shape
     lib = build.load("voxel_reduce")
-    grid = () if tiles is None else (tiles,)
+    grid = (grid,)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
@@ -166,7 +288,7 @@ def sorted_segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tenso
     _check(data, rank, (4, 5))
     out = torch.empty_like(data)  # the kernel writes every row
     _launch("pcp_sorted_segment_sum", data, rank, out,
-            tiles=sorted_sum_tiles(data.shape[1]))
+            grid=sorted_sum_tiles(data.shape[1]))
     sorted_segment_reduce.launches += 1
     return out
 
@@ -191,12 +313,15 @@ def segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     _check(data, rank, range(1, 9))
     out = torch.empty_like(data)  # the kernel writes every row
     b, n, _ = data.shape
+    if b == 0 or n == 0:
+        return out
     scratch = None
-    if n and segment_sum_form(n) == "global":
-        scratch = torch.empty((b, SCRATCH_INTS * n), dtype=torch.int32,
+    if segment_scratch_ints(n):
+        scratch = torch.empty((b, segment_scratch_ints(n)), dtype=torch.int32,
                               device=data.device)
     _launch("pcp_segment_sum", data, rank, out,
-            None if scratch is None else scratch.data_ptr())
+            None if scratch is None else scratch.data_ptr(),
+            grid=segment_sum_form(b, n)[1])
     segment_reduce.launches += 1
     return out
 
