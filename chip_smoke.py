@@ -147,8 +147,12 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    their plain versions as phase 3 holds the f32 forms (8x8192 and
    32x1024, ragged n and one cloud, c_in 256 -> 4096, dead channels, exact
    ties, NaN, a non-symmetric m, the running-statistics chain; dx within
-   one bf16 ulp), beside the bf16 GEMM alone; kernel 7's bf16 form at
-   DGCNN's widths, w 40, NaN, k 1 and the L2 form, bit-identical; cases A
+   one bf16 ulp), beside the bf16 GEMM alone; kernel 7's bf16 form (the
+   ring form of ``gather_plan``) at DGCNN's widths, w 40, w 72, NaN, k 1,
+   16x1024, the 128-byte ring's last row and one past it, the kc46 DGCNN
+   stage's 8x8192 at w 64 / 128 / 256 and the L2 form, bit-identical, each
+   line with its launches and tiles, and an index outside [0, n) trapping
+   in the ring form (a child process); cases A
    and B in bf16 (phase 6's checks and tie rule, the one-ulp sensitivity
    taken in bf16; steps/s, busy share, device ms by kind beside phase 6's);
    DGCNN 64x1024 and PointNet++ 256x1024 in bf16 (clouds/s, device ms by
@@ -2070,17 +2074,57 @@ def check_bit_identical(torch, got, want) -> bool:
                 and torch.equal(got[~nan], want[~nan]))
 
 
+#: phase 11's own generator for kernel 7's bf16 cases past phase 3's, so
+#: later phases draw as before
+GATHER_SEED = 19
+#: an index outside [0, n) must trap in the bf16 ring form; run in a child
+#: process, since a trap loses the CUDA context
+GATHER_TRAP_PROBE = """
+import sys
+import torch
+sys.path.insert(0, REPO)
+from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
+q = torch.ones(4, 1024, 64, dtype=torch.bfloat16, device="cuda")
+idx = torch.zeros(4, 1024, 20, dtype=torch.int32, device="cuda")
+idx[2, 700, 13] = 1024
+try:
+    gather_maxmin(q, idx)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", str(e).splitlines()[0])
+    sys.exit(0)
+print("no error")
+sys.exit(3)
+"""
+
+
+def plan_text(gm, plan, b: int) -> str:
+    """Kernel 7's launches as ``gather_plan`` chose them, for a log line."""
+    parts = []
+    for step in plan:
+        if step.form == "ring":
+            parts.append(f"ring S {step.slice} from channel {step.c_begin}: "
+                         f"{step.tiles(b)} tiles ({step.parts} a slab) on "
+                         f"{step.blocks} blocks")
+        else:
+            parts.append(f"{step.form}" + (f" S {step.slice}" if step.slice else ""))
+    return " + ".join(parts)
+
+
 def phase_gather_kernel(torch, rng, dtype=None) -> dict:
     """Kernel 7 against its plain version at DGCNN's four edge widths (64x1024
     clouds, k 20, the graph of normal(0, 1) clouds), at w 3, 40 and 96 (no
     multiple of 32, or of the slice), with NaN in q, with k 1, and on clouds
-    of 16,384 points (the L2 form): bit-identical, with the form each took.
-    Phase 10 holds the 8x8192 calls of the trainer's DGCNN stage. ``dtype``
-    bf16 holds the bf16 form (phase 11) at the three widths, w 40, NaN, k 1
-    and the L2 form."""
+    of 16,384 points (the L2 form): bit-identical, with the launches each
+    took. Phase 10 holds the 8x8192 calls of the trainer's DGCNN stage.
+    ``dtype`` bf16 holds the bf16 form (phase 11) at the three widths, w 40,
+    NaN, k 1 and the L2 form, and, from ``GATHER_SEED``, at w 72 (a full
+    64-channel slice and an 8-channel rest), 16x1024, the 128-byte ring's
+    last row and one past it (``ring_rows(128)``) and the kc46 DGCNN
+    stage's 8x8192 at w 64 / 128 / 256; an index outside [0, n) traps."""
     from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
+    from pointcloudprocessing_tpu_torch.ops.cuda import gather_maxmin as gm
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
-        gather_form,
         gather_maxmin,
         gather_maxmin_reference,
     )
@@ -2094,15 +2138,31 @@ def phase_gather_kernel(torch, rng, dtype=None) -> dict:
         rng.integers(0, big, (4, big, k)).astype(np.int32)).to(dev)
     results = {"err": 0.0}
     tag = "[11 bf16]" if dtype is not None else "[3 kernels]"
-    cases = ((64, "layers 1-2"), (128, "layer 3"), (256, "layer 4"),
-             (3, "w 3"), (40, "w 40"), (96, "w 96"), (64, "NaN in q"),
-             (64, "k 1"), (64, "L2 form"))
+    # (w, label, idx, the generator of q)
+    cases = [(64, "layers 1-2", graph, rng), (128, "layer 3", graph, rng),
+             (256, "layer 4", graph, rng), (3, "w 3", graph, rng),
+             (40, "w 40", graph, rng), (96, "w 96", graph, rng),
+             (64, "NaN in q", graph, rng),
+             (64, "k 1", graph[..., :1].contiguous(), rng),
+             (64, "L2 form", big_idx, rng)]
     if dtype is not None:
-        cases = tuple(case for case in cases if case[1] not in ("w 3", "w 96"))
-    for w, label in cases:
-        idx = {"k 1": graph[..., :1].contiguous(), "L2 form": big_idx}.get(label, graph)
+        cases = [case for case in cases if case[1] not in ("w 3", "w 96")]
+        own = np.random.default_rng(GATHER_SEED)
+        last = gm.ring_rows(128)
+        edge = {m: torch.from_numpy(own.integers(0, m, (8, m, k)).astype(np.int32)).to(dev)
+                for m in (last, last + 1)}
+        wide = torch.from_numpy(own.normal(size=(8, 8192, 3)).astype(np.float32)).to(dev)
+        wide_graph = knn_graph(wide, k)
+        del wide
+        cases += [(72, "w 72", graph, own), (64, "16x1024", graph[:16], own),
+                  (64, "the ring's last row", edge[last], own),
+                  (64, "one past the ring", edge[last + 1], own),
+                  (64, "kc46 stage w 64", wide_graph, own),
+                  (128, "kc46 stage w 128", wide_graph, own),
+                  (256, "kc46 stage w 256", wide_graph, own)]
+    for w, label, idx, gen in cases:
         shape = (idx.shape[0], idx.shape[1], w)
-        q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+        q = torch.from_numpy(gen.normal(size=shape).astype(np.float32)).to(dev)
         if dtype is not None:
             q = q.to(dtype)
         if label == "NaN in q":
@@ -2128,16 +2188,27 @@ def phase_gather_kernel(torch, rng, dtype=None) -> dict:
         # gathered value for the max and one for the min
         bound = roofline(nbytes(q, idx, *got), 2 * cb * cn * ck * w)
         nans = int(torch.isnan(got[0]).sum())
-        form, slice_ = gather_form(cb, cn, w, q.element_size())
-        log(f"{tag} gather_maxmin {name} {q.dtype}, {form} form"
-            + (f" S {slice_}" if slice_ else "") + ": bit-identical"
+        plan = gm.gather_plan(cb, cn, w, q.element_size(), gm._sms(dev))
+        log(f"{tag} gather_maxmin {name} {q.dtype}, {plan_text(gm, plan, cb)}: "
+            "bit-identical"
             + (f", NaN at the plain version's {nans} entries" if nans else "")
             + f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}; per call "
             f"with launch kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}; "
             f"bound {bound[0]:.4f} ms ({bound[1]})")
         if label == "layer 4":
             results["ms"], results["plain_ms"], results["bound"] = ms, plain_ms, bound
+            results["call_ms"] = per_call[0]
         del q, got, want
+    if dtype is not None:
+        probe = subprocess.run(
+            [sys.executable, "-c", f"REPO = {REPO!r}\n" + GATHER_TRAP_PROBE],
+            capture_output=True, text=True, timeout=300)
+        if probe.returncode != 0:
+            raise AssertionError(f"{tag} gather_maxmin trap probe: rc {probe.returncode}, "
+                                 f"{probe.stdout.strip()} {probe.stderr[-500:]}")
+        log(f"{tag} gather_maxmin 4x1024x64 bf16 ("
+            f"{plan_text(gm, gm.gather_plan(4, 1024, 64, 2, gm._sms(dev)), 4)}) with an "
+            f"index outside [0, n), in a child process: {probe.stdout.strip()}")
     return results
 
 
@@ -5517,7 +5588,7 @@ def main() -> int:
               dgcnn["launches"] + trainer["launches"]["gather"] + exported["gather"]
               + multi["gather"],
               max(gather["err"], trainer["gather_err"]), gather["ms"],
-              gather["plain_ms"], gather["bound"]),
+              gather["plain_ms"], gather["bound"], per_call_ms=gather["call_ms"]),
         entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU,
               pn2["any_launches"] + wide["any_launches"],
               any_rank["err"], any_rank["ms"], any_rank["plain_ms"],
@@ -5533,7 +5604,7 @@ def main() -> int:
         entry("gather_maxmin_bf16", GATHER_SRC, GATHER_TPU,
               bf16["launches"]["gather"], bf16["gather"]["err"],
               bf16["gather"]["ms"], bf16["gather"]["plain_ms"],
-              bf16["gather"]["bound"]),
+              bf16["gather"]["bound"], per_call_ms=bf16["gather"]["call_ms"]),
     ]
     for row in rows:  # phase 15's main path, the flagship
         row["launches"] += flagship["launches"].get(row["name"], 0)

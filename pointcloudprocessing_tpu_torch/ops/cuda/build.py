@@ -63,7 +63,9 @@ _ENTRY = {
         "pcp_window_moments": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]},
     "gather_maxmin": {
         "pcp_gather_maxmin": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
-        "pcp_gather_maxmin_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
+        "pcp_gather_maxmin_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
+        "pcp_gather_maxmin_bf16_ring":
+            [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

@@ -207,6 +207,41 @@ def test_gather_maxmin_bf16_matches_lane_kernel(b, n, w, k, seed):
                                       np.asarray(wnt.astype(jnp.float32)))
 
 
+
+@pytest.mark.parametrize("b,n,w,k,seed,plan_b", [
+    # w 72: the ring form's full 64-channel slice and its 8-channel rest
+    (2, 128, 72, 20, 4, 64),
+    # k 1 at w 72
+    (2, 256, 72, 1, 5, 64),
+    # n 1,000: the plan cuts each slab into 7 point ranges, which 1,000 is
+    # no multiple of (the JAX function's gather fallback: n % 128 != 0)
+    (2, 1000, 64, 20, 6, 2),
+    # NaN and infinities at n 1,000 and w 136 (two full slices and a rest)
+    (1, 1000, 136, 9, 7, 8),
+], ids=["w72", "w72-k1", "n1000-ragged-ranges", "n1000-w136"])
+def test_gather_maxmin_bf16_matches_jax_at_ring_edges(b, n, w, k, seed, plan_b):
+    """The plain version at shapes whose ring plan has a rest launch, k 1
+    or point ranges that do not divide n, bit for bit against the JAX
+    function in bf16: its lane kernel in interpret mode where n % 128 == 0,
+    else its gather_rows fallback; NaN and infinities included
+    (``_gather_case``)."""
+    plan = gm.gather_plan(plan_b, n, w, 2)
+    assert all(step.form == "ring" for step in plan)
+    if w % 64:
+        assert len(plan) == 2 and plan[1].c_begin == 64 * (w // 64)
+    if n % 128:
+        assert any(n % step.parts for step in plan)
+    q, idx = _gather_case(b, n, w, k, seed)
+    want = jax_gather_maxmin(jnp.asarray(q, jnp.bfloat16), jnp.asarray(idx),
+                             interpret=n % 128 == 0, allow_pallas=False)
+    got = gm.gather_maxmin(torch.from_numpy(q).to(BF16), torch.from_numpy(idx))
+    for g, wnt in zip(got, want):
+        assert g.dtype == BF16 and wnt.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(wnt.astype(jnp.float32)))
+    assert np.isnan(got[0].float().numpy()[0, :, :3]).all()
+
+
 def test_pooled_kernel_form_rule():
     assert pc.kernel_form(torch.float32, torch.float32) == "tf32x3"
     assert pc.kernel_form(BF16, BF16) == "bf16"

@@ -17,7 +17,13 @@ calls:
 - kernel 7 at 64x1024, k 20, w 64 / 128 / 256 (DGCNN's edge widths), and
   16x1024 at w 64, on the ``knn_graph`` of normal(0, 1) clouds,
   bit-identical to the plain version; where the checkout has
-  ``gather_form``, also every other form that fits;
+  ``gather_form``, also every other f32 form that fits;
+- kernel 7's bf16 form (7-bf16) at the same shapes and at 8x8192 w 64 /
+  128 / 256 (the kc46 DGCNN stage) and 4x16384 w 64 (the L2 form), on the
+  same kind of graph, bit-identical to the plain version, each beside its
+  bound (q and idx read once, both outputs written once, at 3.35 TB/s);
+  with ``--plans``, where the checkout has ``gather_plan``, also its ring
+  launches cut into other point ranges and ``gather_form``'s launch;
 - kernel 1 on the ranks the slice builds (the voxel downsample at 0.4 and
   the stride sampler to 1,024 over its output) from 256x2048 uniform,
   zero-padded and dense scans, and on the synthetic long-run ranks (256x
@@ -26,7 +32,7 @@ calls:
 
 Needs CUDA; exits non-zero without it.
 
-Usage: python tools/gather_bench.py [--root DIR]...
+Usage: python tools/gather_bench.py [--root DIR]... [--plans] [--only bf16|f32|segment]...
 """
 
 from __future__ import annotations
@@ -88,13 +94,28 @@ def line(torch, label: str, fn, check: str) -> None:
           flush=True)
 
 
-def gather_cases(torch, rng, dev) -> None:
+def _graph(torch, rng, dev, b, n, k):
     from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
+
+    pts = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
+    return knn_graph(pts, k)
+
+
+def _timed_identical(torch, label, fn, want, note="") -> None:
+    got = fn()
+    same = all(torch.equal(torch.isnan(g), torch.isnan(wt))
+               and torch.equal(g[~torch.isnan(wt)], wt[~torch.isnan(wt)])
+               for g, wt in zip(got, want))
+    line(torch, label, fn, ("bit-identical" if same else "NOT IDENTICAL") + note)
+    if not same:
+        raise SystemExit(f"gather_bench: {label} differs from the plain version")
+
+
+def gather_cases(torch, rng, dev) -> None:
     from pointcloudprocessing_tpu_torch.ops.cuda import gather_maxmin as gm
 
     n, k = 1024, 20
-    pts = torch.from_numpy(rng.normal(size=(64, n, 3)).astype(np.float32)).to(dev)
-    graph = knn_graph(pts, k)
+    graph = _graph(torch, rng, dev, 64, n, k)
     for b, w in ((64, 64), (64, 128), (64, 256), (16, 64)):
         idx = graph[:b]
         q = torch.from_numpy(rng.normal(size=(b, n, w)).astype(np.float32)).to(dev)
@@ -110,18 +131,72 @@ def gather_cases(torch, rng, dev) -> None:
                 def fn():
                     return gm.gather_maxmin(q, idx)
                 name = "gather_maxmin"
+            elif hasattr(gm, "gather_plan"):
+                step = (gm.Launch("l2", 0, 0, 0, 1, 0) if form[0] == "l2" else
+                        gm.Launch("shared", form[1], 0, -(-w // form[1]), 1, 0))
+
+                def fn(plan=(step,)):
+                    return gm.launch(q, idx, plan)
             else:
                 def fn(form=form):
                     return gm.launch(q, idx, form)
+            if form is not None:
                 name = f"form {form[0]} {form[1]}" + (
                     " (gather_form's)" if form == forms[0] else "")
-            got = fn()
-            same = all(torch.equal(g, wt) for g, wt in zip(got, want))
-            line(torch, f"kernel 7 {b}x{n}x{w} k{k}, {name}", fn,
-                 "bit-identical" if same else "NOT IDENTICAL")
-            if not same:
-                raise SystemExit(f"gather_bench: kernel 7 w {w} {name} differs "
-                                 "from the plain version")
+            _timed_identical(torch, f"kernel 7 {b}x{n}x{w} k{k}, {name}", fn, want)
+        del q, want
+        torch.cuda.empty_cache()
+
+
+#: 7-bf16's shapes: DGCNN at 64x1024 (its four launches take w 64, 64, 128,
+#: 256), 16 clouds, the kc46 DGCNN stage's 8x8192 and the L2 form's 4x16384
+BF16_SHAPES = ((64, 1024, 64), (64, 1024, 128), (64, 1024, 256), (16, 1024, 64),
+               (8, 8192, 64), (8, 8192, 128), (8, 8192, 256), (4, 16384, 64))
+
+
+def bf16_cases(torch, rng, dev, plans: bool) -> None:
+    from pointcloudprocessing_tpu_torch.ops.cuda import gather_maxmin as gm
+
+    k = 20
+    graphs = {}
+    for b, n, w in BF16_SHAPES:
+        if n not in graphs:
+            graphs = {n: _graph(torch, rng, dev, max(s[0] for s in BF16_SHAPES
+                                                  if s[1] == n), n, k)}
+            torch.cuda.empty_cache()
+        idx = graphs[n][:b].contiguous()
+        q = torch.from_numpy(rng.normal(size=(b, n, w)).astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+        want = gm.gather_maxmin_reference(q, idx)
+        bound = (q.numel() * 2 * 3 + idx.numel() * 4) / 3.35e12 * 1e3
+        note = f"; bound {bound:.4f} ms (bytes)"
+        if hasattr(gm, "gather_plan"):
+            note += "; plan " + " + ".join(
+                f"{s.form} S {s.slice}" + (f" from c {s.c_begin}, {s.tiles(b)} tiles "
+                                           f"({s.parts} a slab) on {s.blocks} blocks"
+                                           if s.form == "ring" else "")
+                for s in gm.gather_plan(b, n, w, 2,
+                                        gm._sms(q.device)))
+        elif hasattr(gm, "gather_form"):
+            form = gm.gather_form(b, n, w, 2)
+            note += f"; form {form[0]} {form[1]}"
+        _timed_identical(torch, f"7-bf16 {b}x{n}x{w} k{k}, gather_maxmin",
+                         lambda: gm.gather_maxmin(q, idx), want, note)
+        if plans and hasattr(gm, "gather_plan"):
+            sms = gm._sms(q.device)
+            chosen = gm.gather_plan(b, n, w, 2, sms)
+            others = []
+            for parts in (1, 2, 4, 8, 16):
+                alt = tuple(s._replace(parts=parts, blocks=min(b * s.slices * parts, sms))
+                            if s.form == "ring" else s for s in chosen)
+                if alt != chosen and all(s.parts <= n for s in alt) and alt not in others:
+                    others.append(alt)
+            form, sl = gm.gather_form(b, n, w, 2)
+            others.append((gm.Launch(form, sl, 0, -(-w // sl) if sl else 0, 1, 0),))
+            for alt in others:
+                name = " + ".join(f"{s.form} S {s.slice} parts {s.parts}" for s in alt)
+                _timed_identical(torch, f"7-bf16 {b}x{n}x{w} k{k}, plan {name}",
+                                 lambda alt=alt: gm.launch(q, idx, alt), want)
         del q, want
         torch.cuda.empty_cache()
 
@@ -173,7 +248,7 @@ def segment_cases(torch, rng, dev, smoke) -> None:
                  "the library call (with its zero fill)")
 
 
-def run_checkout(root: str) -> None:
+def run_checkout(root: str, only: tuple, plans: bool) -> None:
     sys.path.insert(0, root)
     import torch
 
@@ -183,17 +258,26 @@ def run_checkout(root: str) -> None:
         raise SystemExit("gather_bench: needs CUDA")
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    gather_cases(torch, rng, dev)
-    segment_cases(torch, rng, dev, chip_smoke)
+    if "f32" in only:
+        gather_cases(torch, rng, dev)
+    if "bf16" in only:
+        bf16_cases(torch, np.random.default_rng(1), dev, plans)
+    if "segment" in only:
+        segment_cases(torch, rng, dev, chip_smoke)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", action="append", help="a checkout (repeatable)")
+    parser.add_argument("--plans", action="store_true",
+                        help="also time 7-bf16's other plans (where the checkout has them)")
+    parser.add_argument("--only", action="append", choices=("f32", "bf16", "segment"),
+                        help="run only these groups (repeatable; default all)")
     parser.add_argument("--child", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    only = tuple(args.only or ("f32", "bf16", "segment"))
     if args.child:
-        run_checkout(args.child)
+        run_checkout(args.child, only, args.plans)
         return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -203,7 +287,9 @@ def main() -> int:
         root = os.path.abspath(root)
         print(f"== {root}", flush=True)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child", root])
+                               "--child", root]
+                              + [f"--only={g}" for g in only]
+                              + (["--plans"] if args.plans else []))
         if proc.returncode:
             return proc.returncode
     return 0
