@@ -8,8 +8,10 @@ checkpoints for all three model families, the bf16 compute path,
 synthesized LiDAR frames trained on, with hidden-point removal, ICP, the
 legacy models and the hyperparameter grid, the trained stages leaving
 the port as ``.pt2`` and ONNX artifacts, with the sensor toolkit, and the
-multi-device training and serving forms and the last FPS forms, and
-the hardware acceptance checks and the flagship smoke.
+multi-device training and serving forms and the last FPS forms, the
+hardware acceptance checks and the flagship smoke, and the JAX tools'
+twins (per-kernel device time, ingest) held to the launch counters and
+the kernels' bounds.
 
 Phases, one line each (any failure exits non-zero, and no result is printed):
 
@@ -241,6 +243,18 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    bf16 stages of 3 epochs at batch 16 with their artifacts, and serve
    over one collect (voxel 2 cm -> FPS 8,192); its seconds by part and its
    launches (kernels 1, 2, 4-bf16 and 5-bf16 must launch).
+16. trace tools: ``tools/torch/trace_ops.py``'s four workloads at the JAX
+   tool's shapes (train: PointNet 23/12 bf16, both regularizers, 2 x 32
+   steps at 32x1024; preprocess: config 2, 20 dispatches of 8x8192;
+   infer: PointNet 23/12 f32 at 2048x1024, 10 dispatches; pn2: PointNet++
+   bf16 at 256x1024, 10 forwards), each traced window held to (a) the
+   launch counters (every counted kernel in the table under its CUDA
+   symbol, its rows a step the counter's launches a step; infer none),
+   (b) each kernel's roofline bound at the calls' shapes (no traced time
+   a call below it), (c) the CUDA-event window (the traced device total
+   within it plus 2%), (d) a whole trace; the peak memory of infer; then
+   ``tools/torch/bench_ingest.py 20 8192`` (host only) and what this run's
+   earlier traces recorded (retries, the pre-roll's lost rows by age).
 
 The second-to-last line is a JSON object with each of the seven kernels'
 and the three bf16 forms' launches on their paths (kernels 4 and 5 count
@@ -250,9 +264,10 @@ FPS forms in this process and its ranks, kernels 1, 2, 4-bf16 and 5-bf16
 phase 15's flagship), error against the plain
 version, times and bound: ``ms``,
 ``plain_ms`` and ``library_ms`` (a single PyTorch call computing the same
-function, where there is one) are device times from ``torch.profiler``, or
-null with ``"ms_source": "not traced"`` if every trace came back without
-device rows (never another clock's time); ``bound_ms`` is the larger of
+function, where there is one) are device times from ``torch.profiler``
+(``utils/profiling.device_trace``: a trace is whole, a device row for each
+launch call, or it is not used), or null with ``"ms_source": "not traced"``
+if no trace was whole (never another clock's time); ``bound_ms`` is the larger of
 the bytes the function must move over 3.35 TB/s and its operations: f32
 ones over 67 TFLOP/s, plus the pooled chain's GEMM products on the tensor
 cores over 495 TFLOP/s of dense TF32, three a product in 3xTF32, or over
@@ -304,7 +319,13 @@ BF16_OPS_PER_S = 989e12
 #: as they are (case B's first batch is the one a fresh default_rng(0)
 #: draws after case A's)
 TRAIN_SEED = 0
-
+#: the process's start, for the trace log's times
+STARTED = time.monotonic()
+#: what this run's traces (:func:`device_trace`) recorded: traces taken,
+#: those retried, those with no whole attempt or no device rows, and each
+#: change in the count of pre-roll launch calls that lost their device
+#: rows, as (process age s, traces so far, launch calls lost)
+TRACE_LOG = {"traces": 0, "retried": 0, "not_whole": 0, "empty": 0, "lost": []}
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -330,46 +351,39 @@ def call_ms(torch, fn, reps: int, repeats: int = 5) -> float:
 
 
 def device_trace(torch, fn) -> tuple[list, float] | None:
-    """Run ``fn`` once under ``torch.profiler``. Returns the device events it
-    recorded (kernels, copies, memsets: the rows whose device type is CUDA,
-    so no host op that launched them is counted a second time) and the host
-    wall time of the call in us; None if no trace recorded device rows.
+    """``utils/profiling.device_trace`` of one call of ``fn``: its device
+    rows and the host wall time of the call in us; None if no attempt was
+    whole (a device row for each of the call's launch calls). Retries and
+    the pre-roll's lost rows are logged (``TRACE_LOG``)."""
+    from pointcloudprocessing_tpu_torch.utils import profiling
 
-    On the H100 machine a trace has come back without device rows partway
-    through this script (once at its first trace), while 60 traces in a row
-    came back whole in a fresh process; so an empty trace is retried, once
-    with CUDA activity only and once with CPU activity too, and the caller
-    reports the metric as not traced (None) instead of failing the run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    tries = ([ProfilerActivity.CUDA], [ProfilerActivity.CUDA],
-             [ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    seen = []
-    for activities in tries:
-        torch.cuda.synchronize()
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = prof.events()
-        events = [e for e in rows if e.device_type == DeviceType.CUDA]
-        if events:
-            if seen:
-                log(f"    (torch.profiler: {len(seen)} trace(s) without device "
-                    f"rows before this one: {seen})")
-            return events, wall_us
-        seen.append(f"{len(rows)} rows")
-    log(f"    (torch.profiler recorded no device rows in {len(tries)} traces: "
-        f"{seen})")
-    return None
+    traced = profiling.device_trace(fn)
+    age = time.monotonic() - STARTED
+    TRACE_LOG["traces"] += 1
+    if traced is None:
+        TRACE_LOG["empty"] += 1
+        log(f"    (torch.profiler recorded no device rows in 3 traces, at {age:.1f} s)")
+        return None
+    lost = traced.attempts[-1].preroll_lost
+    if not TRACE_LOG["lost"] or TRACE_LOG["lost"][-1][2] != lost:
+        TRACE_LOG["lost"].append((round(age, 1), TRACE_LOG["traces"], lost))
+    TRACE_LOG["retried"] += len(traced.attempts) > 1
+    if len(traced.attempts) > 1 or not traced.whole:
+        log(f"    (torch.profiler at {age:.1f} s: "
+            + "; ".join(a.describe() for a in traced.attempts)
+            + ("" if traced.whole else "; not whole: not traced") + ")")
+    if not traced.whole:
+        TRACE_LOG["not_whole"] += 1
+        return None
+    return traced.events, traced.wall_us
 
 
 def device_ms(torch, fn, reps: int) -> float | None:
     """Device time per call of ``fn``: the summed durations of the kernels,
     copies and memsets it runs, over ``reps`` calls after one warm-up; None
     if the profiler recorded nothing."""
+    from pointcloudprocessing_tpu_torch.utils.profiling import summarize
+
     fn()
 
     def calls():
@@ -379,7 +393,7 @@ def device_ms(torch, fn, reps: int) -> float | None:
     traced = device_trace(torch, calls)
     if traced is None:
         return None
-    return sum(e.time_range.elapsed_us() for e in traced[0]) / reps / 1e3
+    return summarize(traced[0], reps).total_us_per_step / 1e3
 
 
 def fmt(ms: float | None) -> str:
@@ -423,18 +437,20 @@ DGCNN_KINDS = (("gather_maxmin", ("gather_maxmin",)), ("topk", ("topk", "sort"))
 
 def kernel_breakdown(torch, fn, calls: int = 1, kinds=TRAIN_KINDS) -> dict:
     """Device ms per call of ``fn`` (which makes ``calls`` calls) by kind of
-    kernel, from the kernel names as CUPTI reports them; empty if the
-    profiler recorded nothing."""
+    kernel, from ``utils/profiling.summarize``'s rows (kernel names as
+    CUPTI reports them); empty if the profiler recorded nothing."""
+    from pointcloudprocessing_tpu_torch.utils.profiling import summarize
+
     traced = device_trace(torch, fn)
     if traced is None:
         return {}
     out = {kind: 0.0 for kind, _ in kinds}
     out["other"] = 0.0
-    for e in traced[0]:
-        name = e.name.lower()
+    for row in summarize(traced[0], calls).by_name.values():
+        name = row.name.lower()
         kind = next((k for k, keys in kinds if any(key in name for key in keys)),
                     "other")
-        out[kind] += e.time_range.elapsed_us() / 1e3 / calls
+        out[kind] += row.us_per_step / 1e3
     return out
 
 
@@ -462,6 +478,54 @@ def roofline(bytes_moved: float, operations: float,
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def segment_sum_bound(data, rank, out) -> tuple[float, str]:
+    """Kernels 1 and 3: each row read once with its rank, each output row
+    written once; one add a value."""
+    return roofline(nbytes(data, rank, out), data.numel())
+
+
+def fps_bound(points, k: int, mask, start, idx, sampled) -> tuple[float, str]:
+    """Kernel 2: k - 1 steps over every valid point: 3 sub, 3 mul, 2 add,
+    1 min."""
+    return roofline(nbytes(points, mask, start, idx, sampled),
+                    (k - 1) * int(mask.sum()) * 9)
+
+
+def pooled_forward_bound(x, w, a, c_row, pooled, argmax) -> tuple[float, str]:
+    """Kernel 4: the GEMM's products on the tensor cores (three a product
+    in 3xTF32, one in bf16), then affine, relu and max per
+    pre-activation."""
+    (b, n, c_in), c = x.shape, w.shape[0]
+    bf16 = x.element_size() == 2
+    gemm_ops = 2 * b * n * c_in * c
+    return roofline(nbytes(x, w, a, c_row, pooled, argmax), 3 * b * n * c,
+                    0.0 if bf16 else 3 * gemm_ops, gemm_ops if bf16 else 0.0)
+
+
+def pooled_backward_bound(x, w, coef, am, m, row, dx, dk) -> tuple[float, str]:
+    """Kernel 5: x@M on the tensor cores (three products each in 3xTF32,
+    one in bf16) and the row, plus one coef*W row into dx and one x row
+    into dk per (cloud, channel) winner."""
+    (b, n, c_in), c = x.shape, w.shape[0]
+    bf16 = x.element_size() == 2
+    xm_ops = 2 * b * n * c_in * c_in
+    return roofline(nbytes(x, w, coef, am, m, row, dx, dk),
+                    b * n * c_in + 4 * b * c * c_in, 0.0 if bf16 else 3 * xm_ops,
+                    xm_ops if bf16 else 0.0)
+
+
+def window_bound(centered, mask, got, window: int, q_block: int) -> tuple[float, str]:
+    """Kernel 6 on plane-major ``centered`` (b, 3, n), ``got`` its 10 sums
+    stacked: what the function needs per query and candidate: the
+    distance once (8 flops), a compare for m, one for the k-th distance
+    and one for the selection; then 19 flops per selected candidate
+    (shift, 6 products, 10 sums)."""
+    b, _, n = centered.shape
+    c = q_block + 2 * window
+    return roofline(nbytes(centered, mask, got),
+                    b * n * c * 11 + 19 * got[0].sum().item())
 
 
 #: kernel 4's f32 pooled values may err this many times the plain f32
@@ -807,9 +871,7 @@ def phase_kernels(torch, rng) -> dict:
             f"kernel {per_call[0]:.4f}, plain {per_call[1]:.4f}")
         if label == "main-path uniform voxel":
             results["seg_ms"], results["seg_plain_ms"] = ms, plain_ms
-            # each row read once with its rank, each output row written once;
-            # one add a value
-            results["seg_bound"] = roofline(nbytes(data, rank, want), data.numel())
+            results["seg_bound"] = segment_sum_bound(data, rank, want)
             # the one PyTorch call for the same sums: index_add_ over the
             # cloud-offset ranks (computed outside the timed call)
             flat = (rank.long() + n * torch.arange(b, device=dev)[:, None]).reshape(-1)
@@ -872,10 +934,7 @@ def phase_kernels(torch, rng) -> dict:
                 f"{fmt(plain_ms)}; per call with launch kernel {per_call[0]:.4f}, "
                 f"plain {per_call[1]:.4f}")
             results["fps_ms"], results["fps_plain_ms"] = ms, plain_ms
-            # k - 1 steps over every valid point: 3 sub, 3 mul, 2 add, 1 min
-            results["fps_bound"] = roofline(
-                nbytes(pts, mask, start, idx, sampled),
-                (k - 1) * int(mask.sum()) * 9)
+            results["fps_bound"] = fps_bound(pts, k, mask, start, idx, sampled)
     # clouds in random order with holes (phase 3's synthetic case)
     for b, n, k, layout in ((256, 2048, 1024, "bcn"), (256, 2048, 1024, "bnc"),
                             (64, 8192, 1024, "bcn")):
@@ -1035,13 +1094,7 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
         if timed and label == "some dead channels":
             key = f"{b}x{n}"
             results[f"fwd_ms_{key}"] = ms
-            # the GEMM's products on the tensor cores (three a product in
-            # 3xTF32, one in bf16), then affine, relu and max per
-            # pre-activation
-            gemm_ops = 2 * b * n * c_in * c
-            fwd_bound = roofline(
-                nbytes(x, w, a, c_row, pooled, argmax), 3 * b * n * c,
-                0.0 if bf16 else 3 * gemm_ops, gemm_ops if bf16 else 0.0)
+            fwd_bound = pooled_forward_bound(x, w, a, c_row, pooled, argmax)
             # yardstick, not a library time for the kernel: the GEMM alone
             # (f32 with TF32 off, or bf16), without affine, relu or max
             if torch.backends.cuda.matmul.allow_tf32:
@@ -1055,7 +1108,6 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
                 f"{fmt(ms)}); bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
             if (b, n) == (8, 8192):
                 results["fwd_ms"], results["fwd_plain_ms"] = ms, plain_ms
-                results["fwd_call_ms"] = per_call[0]
                 results["fwd_bound"], results["gemm_ms"] = fwd_bound, gemm_ms
 
         coef = torch.randn(b, c, device=dev, generator=gen)
@@ -1093,15 +1145,8 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
             if (b, n, label, winners) == (8, 8192, "some dead channels",
                                           "forward's winners"):
                 results["bwd_ms"], results["bwd_plain_ms"] = ms, plain_ms
-                results["bwd_call_ms"] = per_call[0]
-                # x@M on the tensor cores (three products each in 3xTF32,
-                # one in bf16) and the row, plus one coef*W row into dx and
-                # one x row into dk per (cloud, channel) winner
-                xm_ops = 2 * b * n * c_in * c_in
-                results["bwd_bound"] = roofline(
-                    nbytes(x, w, coef, am, m_small, const_row, dx, dk),
-                    b * n * c_in + 4 * b * c * c_in, 0.0 if bf16 else 3 * xm_ops,
-                    xm_ops if bf16 else 0.0)
+                results["bwd_bound"] = pooled_backward_bound(
+                    x, w, coef, am, m_small, const_row, dx, dk)
 
     # exact ties: clouds built of 16 distinct rows, each repeated at many
     # indices, so every channel's max is attained at several points and the
@@ -2044,13 +2089,7 @@ def phase_window_kernel(torch, rng) -> dict:
             plain = functools.partial(windowed_moment_sums_reference, *args)
             plain_ms = device_ms(torch, plain, 3)
             per_call = (call_ms(torch, kernel, 10), call_ms(torch, plain, 3, 3))
-            # what the function needs per query and candidate: the distance
-            # once (8 flops), a compare for m, one for the k-th distance and
-            # one for the selection; then 19 flops per selected candidate
-            # (shift, 6 products, 10 sums)
-            c = q_block + 2 * window
-            bound = roofline(nbytes(centered, mask, got),
-                             b * n * c * 11 + 19 * got[0].sum().item())
+            bound = window_bound(centered, mask, got, window, q_block)
             timing += (f", plain {fmt(plain_ms)}; per call with launch kernel "
                        f"{per_call[0]:.4f}, plain {per_call[1]:.4f}; bound "
                        f"{bound[0]:.4f} ms ({bound[1]})")
@@ -2197,7 +2236,6 @@ def phase_gather_kernel(torch, rng, dtype=None) -> dict:
             f"bound {bound[0]:.4f} ms ({bound[1]})")
         if label == "layer 4":
             results["ms"], results["plain_ms"], results["bound"] = ms, plain_ms, bound
-            results["call_ms"] = per_call[0]
         del q, got, want
     if dtype is not None:
         probe = subprocess.run(
@@ -2679,9 +2717,7 @@ def phase_any_rank_kernel(torch, rng) -> dict:
             ms, plain_ms = device_ms(torch, kernel, 20), device_ms(torch, plain, 20)
             lib_ms = device_ms(torch, library, 20)
             per_call = (call_ms(torch, kernel, 20), call_ms(torch, plain, 20))
-            # each row read once with its rank, each output row written once;
-            # one add a value
-            bound = roofline(nbytes(data, rank, got), data.numel())
+            bound = segment_sum_bound(data, rank, got)
             line += (f"; device ms kernel {fmt(ms)}, plain {fmt(plain_ms)}, "
                      f"scatter_add_ {fmt(lib_ms)}, bound {bound[0]:.4f} "
                      f"({bound[1]}); per call with launch kernel "
@@ -5487,6 +5523,238 @@ def phase_acceptance(torch, card: str) -> dict:
     return {"launches": launches, "errs": errs}
 
 
+# ---- phase 16: the port's twins of the JAX tools, held to the counters and bounds
+
+#: the hand-written kernels each counted wrapper call launches once, in
+#: the forms the traced workloads take (bf16 pooled chains at c_in 128,
+#: FPS up to 8,192 points, kernel 1 where 128 divides n)
+CALL_SYMBOLS = {
+    "sorted_segment_sum": ("sorted_segment_sum_kernel",),
+    "fps_with_points": ("fps_kernel",),
+    "windowed_moment_sums": ("window_moments_prep_kernel", "window_moments_kernel"),
+    "pooled_chain_forward_bf16": ("pooled_forward_tma_kernel",),
+    "pooled_chain_backward_bf16": ("pooled_backward_prep_tma_kernel",
+                                   "pooled_backward_dx_tma_kernel"),
+}
+#: each workload's counted kernels (infer: none, running statistics)
+PHASE16_KERNELS = {"train": ("pooled_chain_forward_bf16", "pooled_chain_backward_bf16"),
+                   "preprocess": ("sorted_segment_sum", "windowed_moment_sums"),
+                   "infer": (), "pn2": ("fps_with_points",)}
+#: the traced device total may exceed the CUDA-event window by this share
+WINDOW_SLACK = 0.02
+
+
+def handwritten_symbols() -> set:
+    """The ``__global__`` function names of ``csrc/*.cu``."""
+    names = set()
+    csrc = os.path.join(REPO, "pointcloudprocessing_tpu_torch", "csrc")
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith(".cu"):
+            with open(os.path.join(csrc, name)) as f:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                    f.read()))
+    return names
+
+
+def symbol_of(row_name: str, symbols) -> str | None:
+    """The hand-written kernel a trace row names, if any (CUPTI names a
+    template instance ``void name<...>(...)``)."""
+    found = [s for s in symbols if re.search(rf"(?<!\w){s}(?!\w)", row_name)]
+    return found[0] if len(found) == 1 else None
+
+
+@contextlib.contextmanager
+def record_bounds(bounds: dict):
+    """Route the traced workloads' kernel wrappers through recorders that
+    append each call's roofline bound (ms) under the counter's name; the
+    wrappers launch and count as before."""
+    import torch
+
+    from pointcloudprocessing_tpu_torch.models import fused_pool
+    from pointcloudprocessing_tpu_torch.models import pointnet2 as pn2_mod
+    from pointcloudprocessing_tpu_torch.ops import normals as normals_mod
+    from pointcloudprocessing_tpu_torch.ops import voxel as voxel_mod
+
+    def keep(name, bound):
+        bounds.setdefault(name, []).append(bound[0])
+
+    real_fwd, real_bwd = fused_pool.pooled_chain_forward, fused_pool.pooled_chain_backward
+    real_seg = voxel_mod.monotone_segment_sum
+    real_window = normals_mod.windowed_moment_sums
+    real_sample = pn2_mod.farthest_point_sample_batch
+
+    def forward(x, w, a, c_row):
+        pooled, argmax = real_fwd(x, w, a, c_row)
+        keep("pooled_chain_forward" + ("_bf16" if x.element_size() == 2 else ""),
+             pooled_forward_bound(x, w, a, c_row, pooled, argmax))
+        return pooled, argmax
+
+    def backward(x, w, coef, am, m, row):
+        dx, dk = real_bwd(x, w, coef, am, m, row)
+        keep("pooled_chain_backward" + ("_bf16" if x.element_size() == 2 else ""),
+             pooled_backward_bound(x, w, coef, am, m, row, dx, dk))
+        return dx, dk
+
+    def segment_sum(data, rank):
+        out = real_seg(data, rank)
+        keep("segment_reduce" if data.shape[1] % 128 else "sorted_segment_sum",
+             segment_sum_bound(data, rank, out))
+        return out
+
+    def sample(xyz, k):
+        # PointNet++'s FPS: every point valid, seeds at row 0, the picked
+        # coordinates written by the kernel though only indices return
+        idx = real_sample(xyz, k)
+        b, n = xyz.shape[:2]
+        keep("fps_with_points", fps_bound(
+            xyz, k, torch.ones((b, n), dtype=torch.bool, device=xyz.device),
+            torch.zeros(b, dtype=torch.int32, device=xyz.device), idx,
+            torch.empty((b, k, 3), dtype=torch.float32, device=xyz.device)))
+        return idx
+
+    def window(centered, mask, k, window=256, q_block=256, layout="bnc"):
+        got = real_window(centered, mask, k, window=window, q_block=q_block,
+                          layout=layout)
+        planes = centered if layout == "bcn" else centered.transpose(1, 2)
+        keep("windowed_moment_sums",
+             window_bound(planes, mask, torch.stack(got), window, q_block))
+        return got
+
+    with patched(fused_pool, "pooled_chain_forward", forward), \
+            patched(fused_pool, "pooled_chain_backward", backward), \
+            patched(normals_mod, "windowed_moment_sums", window), \
+            patched(pn2_mod, "farthest_point_sample_batch", sample), \
+            patched(voxel_mod, "monotone_segment_sum", segment_sum):
+        yield
+
+
+def check_traced(what: str, workload, traced, launches: dict, bounds: dict,
+                 symbols: set) -> list:
+    """Phase 16's checks (a)-(d) on one workload's traced window; returns
+    the failures and logs each kernel's row against its counter and bound."""
+    tag = f"[16 trace_ops] {what}:"
+    trace = traced.trace
+    if trace is None:
+        return [f"{what}: (d) the trace has no device rows"]
+    failures = []
+    if not trace.whole:
+        failures.append(f"{what}: (d) no attempt was whole: "
+                        + "; ".join(a.describe() for a in trace.attempts))
+    summary, steps = traced.summary, workload.steps
+    attempts = len(trace.attempts)
+    per_window = {}
+    for name, count in launches.items():
+        if count % attempts:
+            failures.append(f"{what}: {name} launched {count} times in {attempts} "
+                            "runs of the window")
+        per_window[name] = count // attempts
+    if set(per_window) != set(PHASE16_KERNELS[what]):
+        failures.append(f"{what}: (a) counted kernels {sorted(per_window)}, want "
+                        f"{sorted(PHASE16_KERNELS[what])}")
+    rows_of: dict = {}
+    for row in summary.by_name.values():
+        sym = symbol_of(row.name, symbols)
+        if sym is not None:
+            rows_of.setdefault(sym, []).append(row)
+    expected = {sym for name in per_window for sym in CALL_SYMBOLS.get(name, ())}
+    stray = sorted(set(rows_of) - expected)
+    if stray:
+        failures.append(f"{what}: (a) hand-written kernels in the trace that no "
+                        f"counter accounts for: {stray}")
+    for name, count in sorted(per_window.items()):
+        if name not in CALL_SYMBOLS:
+            failures.append(f"{what}: (a) no symbols known for counter {name}")
+            continue
+        call_us = 0.0
+        for sym in CALL_SYMBOLS[name]:
+            rows = rows_of.get(sym, [])
+            n_step = sum(r.n_per_step for r in rows)
+            us_step = sum(r.us_per_step for r in rows)
+            call_us += us_step * steps / max(count, 1)
+            ok = abs(n_step * steps - count) < 0.5
+            log(f"{tag} {sym}: n/step {n_step:.3f}, counter {name} {count} "
+                f"launches / {steps} steps = {count / steps:.3f}"
+                f"{'' if ok else ' MISMATCH'}; {us_step:.2f} us/step, "
+                f"{us_step * steps / max(round(n_step * steps), 1):.2f} us a launch")
+            if not rows:
+                failures.append(f"{what}: (a) {sym} ({name}) is counted but not in "
+                                "the trace")
+            elif not ok:
+                failures.append(f"{what}: (a) {sym}: {n_step * steps:.0f} rows, "
+                                f"{count} launches counted")
+        calls = bounds.get(name, [])
+        bound_ms = sum(calls) / len(calls) if calls else None
+        if bound_ms is None:
+            failures.append(f"{what}: (b) no bound recorded for {name}")
+            continue
+        below = call_us / 1e3 < bound_ms
+        log(f"{tag} {name}: traced {call_us / 1e3:.4f} ms a call ({'+'.join(CALL_SYMBOLS[name])}) "
+            f"against a bound of {bound_ms:.4f} ms (mean of {len(calls)} calls of one "
+            f"dispatch){' BELOW THE BOUND' if below else ''}")
+        if below:
+            failures.append(f"{what}: (b) {name} reads {call_us / 1e3:.4f} ms a "
+                            f"call, below its bound {bound_ms:.4f}")
+    traced_ms = summary.total_us_per_step * steps / 1e3
+    fits = traced_ms <= traced.window_ms * (1 + WINDOW_SLACK)
+    log(f"{tag} traced device total {traced_ms:.3f} ms in a CUDA-event window of "
+        f"{traced.window_ms:.3f} ms ({traced_ms / traced.window_ms:.4f}; host wall "
+        f"{trace.wall_us / 1e3:.3f} ms){'' if fits else ' LONGER THAN THE WINDOW'}")
+    if not fits:
+        failures.append(f"{what}: (c) traced {traced_ms:.3f} ms in a "
+                        f"{traced.window_ms:.3f} ms window")
+    return failures
+
+
+def phase_trace_tools(torch, card: str) -> None:
+    """Phase 16: ``tools/torch/trace_ops.py``'s four workloads at the JAX
+    tool's shapes in this process, each traced window held to (a) the
+    launch counters (each counted kernel in the table under its CUDA
+    symbol, its rows a step the counter's launches a step; infer none),
+    (b) each kernel's bound (the traced time a call no less than its
+    roofline bound at the calls' shapes, recorded on the warm-up
+    dispatch), (c) the CUDA-event window (the traced device total within
+    it, plus 2%), (d) a trace with device rows, whole; then
+    ``tools/torch/bench_ingest.py 20 8192`` (host only)."""
+    t_phase = time.perf_counter()
+    trace_ops = load_file("trace_ops_torch", "tools/torch/trace_ops.py")
+    symbols = handwritten_symbols()
+    failures = []
+    with tempfile.TemporaryDirectory() as root:
+        for what in ("train", "preprocess", "infer", "pn2"):
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()
+            bounds: dict = {}
+            with record_bounds(bounds):  # the build and warm-up dispatch
+                workload = trace_ops.WORKLOADS[what]("cuda")
+            zero_launches()
+            # ---- the traced window (each attempt of the trace runs it)
+            traced = trace_ops.measure(workload, os.path.join(root, what))
+            torch.cuda.synchronize()
+            launches = read_launches()
+            # ---- the traced window ends here
+            log(f"[16 trace_ops] {what}: {workload.n_dispatch} dispatches of "
+                f"{workload.steps_per_dispatch} step(s), inputs "
+                f"{'x'.join(map(str, workload.inputs.shape))}; launches {launches}")
+            for line in trace_ops.report(workload, traced).splitlines()[:17]:
+                log(f"[16 trace_ops] {what}:   {line}")
+            failures += check_traced(what, workload, traced, launches, bounds, symbols)
+            if what == "infer":
+                log(f"[16 trace_ops] infer: peak device memory allocated "
+                    f"{traced.peak_bytes / 2**30:.2f} GiB in the window")
+            del workload, traced
+            log(f"[16 trace_ops] {what}: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("[16 trace_ops] " + " | ".join(failures))
+    bench = load_file("bench_ingest_torch", "tools/torch/bench_ingest.py")
+    with contextlib.redirect_stdout(io.StringIO()):
+        lines = bench.main(["20", "8192"])
+    for line in lines:
+        log(f"[16 bench_ingest] 20 frames x 8192 points: {line.strip()}")
+    log(f"[16 trace tools] the run's earlier traces: {TRACE_LOG}")
+    log(f"[16 trace tools] phase 16 took {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -5510,8 +5778,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = phase_kernels(torch, rng)
     pooled = phase_pooled_kernels(torch)
-    # phase 11's bf16 pooled-chain kernels, checked and timed here: traces
-    # late in this long process have read them below their bound
+    # phase 11's bf16 pooled-chain kernels, checked and timed beside phase
+    # 3's f32 forms
     pooled_bf16 = phase_pooled_kernels(torch, torch.bfloat16)
     window = phase_window_kernel(torch, rng)
     gather = phase_gather_kernel(torch, rng)
@@ -5546,14 +5814,12 @@ def main() -> int:
         for k in ("fwd", "bwd")}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
-              library_ms=None, per_call_ms=None) -> dict:
+              library_ms=None) -> dict:
         traced = ms is not None and plain_ms is not None
         ms_source = "torch.profiler device rows" if traced else "not traced"
-        if traced and per_call_ms is not None and ms < bound[0]:
-            # a trace below the bound under-counts (seen late in a long
-            # process): the events' time a call, launch included, instead
-            ms, ms_source = per_call_ms, ("CUDA events a call with launch (the "
-                                          "trace read below the bound)")
+        if traced and ms < bound[0]:
+            log(f"chip_smoke: {name} reads {ms:.4f} ms, below its bound "
+                f"{bound[0]:.4f} ms")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
                 "ms": ms if traced else None,
@@ -5563,6 +5829,8 @@ def main() -> int:
                 "library_ms": library_ms}
 
     log(f"chip_smoke: phases 1-15 took {time.perf_counter() - t_start:.1f} s")
+    phase_trace_tools(torch, card)
+    log(f"chip_smoke: phases 1-16 took {time.perf_counter() - t_start:.1f} s")
     rows = [
         entry("sorted_segment_sum", SEG_SUM_SRC, SEG_SUM_TPU,
               sliced["launches"]["seg"] + multi["seg"], kernels["seg_err"],
@@ -5576,19 +5844,17 @@ def main() -> int:
               kernels["fps_bound"]),
         entry("pooled_chain_forward", POOLED_SRC, POOLED_FWD_TPU,
               pooled_launches["fwd"], pooled["fwd_err"], pooled["fwd_ms"],
-              pooled["fwd_plain_ms"], pooled["fwd_bound"],
-              per_call_ms=pooled["fwd_call_ms"]),
+              pooled["fwd_plain_ms"], pooled["fwd_bound"]),
         entry("pooled_chain_backward", POOLED_SRC, POOLED_BWD_TPU,
               pooled_launches["bwd"], pooled["bwd_err"], pooled["bwd_ms"],
-              pooled["bwd_plain_ms"], pooled["bwd_bound"],
-              per_call_ms=pooled["bwd_call_ms"]),
+              pooled["bwd_plain_ms"], pooled["bwd_bound"]),
         entry("windowed_moment_sums", WINDOW_SRC, WINDOW_TPU, normals["launches"],
               window["err"], window["ms"], window["plain_ms"], window["bound"]),
         entry("gather_maxmin", GATHER_SRC, GATHER_TPU,
               dgcnn["launches"] + trainer["launches"]["gather"] + exported["gather"]
               + multi["gather"],
               max(gather["err"], trainer["gather_err"]), gather["ms"],
-              gather["plain_ms"], gather["bound"], per_call_ms=gather["call_ms"]),
+              gather["plain_ms"], gather["bound"]),
         entry("segment_reduce", SEG_SUM_SRC, SEG_ANY_TPU,
               pn2["any_launches"] + wide["any_launches"],
               any_rank["err"], any_rank["ms"], any_rank["plain_ms"],
@@ -5596,15 +5862,15 @@ def main() -> int:
         entry("pooled_chain_forward_bf16", POOLED_SRC, POOLED_FWD_TPU,
               bf16["launches"]["fwd"], bf16["pooled"]["fwd_err"],
               bf16["pooled"]["fwd_ms"], bf16["pooled"]["fwd_plain_ms"],
-              bf16["pooled"]["fwd_bound"], per_call_ms=bf16["pooled"]["fwd_call_ms"]),
+              bf16["pooled"]["fwd_bound"]),
         entry("pooled_chain_backward_bf16", POOLED_SRC, POOLED_BWD_TPU,
               bf16["launches"]["bwd"], bf16["pooled"]["bwd_err"],
               bf16["pooled"]["bwd_ms"], bf16["pooled"]["bwd_plain_ms"],
-              bf16["pooled"]["bwd_bound"], per_call_ms=bf16["pooled"]["bwd_call_ms"]),
+              bf16["pooled"]["bwd_bound"]),
         entry("gather_maxmin_bf16", GATHER_SRC, GATHER_TPU,
               bf16["launches"]["gather"], bf16["gather"]["err"],
               bf16["gather"]["ms"], bf16["gather"]["plain_ms"],
-              bf16["gather"]["bound"], per_call_ms=bf16["gather"]["call_ms"]),
+              bf16["gather"]["bound"]),
     ]
     for row in rows:  # phase 15's main path, the flagship
         row["launches"] += flagship["launches"].get(row["name"], 0)

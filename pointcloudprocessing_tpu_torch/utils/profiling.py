@@ -6,12 +6,19 @@
   TensorBoard) of host and, on CUDA, device activity into ``path``.
 - ``annotate(name)``: a named region on the profiler's timeline.
 - ``StepTimer``: wall-clock step timing with a percentile summary.
+- ``device_trace(fn)``: the device rows (kernels, copies, memsets) of one
+  call of ``fn`` on the card, each CUDA call that launched device work
+  checked to have its row, with the host wall time of the call.
+- ``summarize(events, steps)``: device time a step by kernel name, the
+  counterpart of ``tools/trace_ops.py::summarize``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
+import re
 import time
 
 import numpy as np
@@ -67,3 +74,196 @@ class StepTimer:
             "p90_s": float(np.percentile(d, 90)),
             "items_per_s": float(items_per_step / d.mean()),
         }
+
+
+#: CUDA runtime and driver calls that put one activity on the device (a
+#: kernel, a copy, a memset); in a whole trace each has a device row of
+#: its correlation id
+LAUNCH_CALL = re.compile(r"^cu(da)?(Launch|Memcpy|Memset)")
+SYNC_CALL = re.compile(r"^cu(da)?(Device|Stream|Ctx)Synchronize")
+
+#: tiny kernels launched in each profiled window before the call. A
+#: profiling session records no device row for its first launch calls, a
+#: count that grows with the process's age (none in a fresh process,
+#: about 30 after eight minutes of ``chip_smoke.py`` on an H100, whatever
+#: the host waits first; PERF.md section 7): the pre-roll's launches take
+#: that loss, and an attempt whose pre-roll was too short is retried with
+#: a longer one.
+PREROLL = 64
+
+#: host wait inside the window after the call (a trace of ~100,000 rows
+#: has lost its last rows without it)
+PAD_S = 0.02
+
+
+@dataclasses.dataclass
+class Attempt:
+    """One profiled run of the call: what it recorded."""
+
+    activities: str       # "cuda" or "cpu+cuda"
+    preroll: int          # tiny launches before the call
+    rows: int             # the call's device rows
+    launches: int         # the call's launch calls (kernels, copies, memsets)
+    missing: list[int]    # their positions (in start order) without a row
+    preroll_lost: int     # pre-roll launch calls without a row
+
+    @property
+    def whole(self) -> bool:
+        return self.rows > 0 and not self.missing
+
+    def describe(self) -> str:
+        runs = []
+        for i in self.missing:
+            if runs and runs[-1][1] == i - 1:
+                runs[-1][1] = i
+            else:
+                runs.append([i, i])
+        where = ",".join(f"{a}" if a == b else f"{a}-{b}" for a, b in runs)
+        return (f"{self.activities}, pre-roll {self.preroll}: "
+                f"{self.rows} device rows, {self.launches} launch calls, "
+                f"{len(self.missing)} without a row" + (f" (at {where})" if where else "")
+                + f"; {self.preroll_lost} of the pre-roll's without a row")
+
+
+@dataclasses.dataclass
+class DeviceTrace:
+    """The device rows of one call, from its first whole attempt."""
+
+    events: list          # FunctionEvents whose device type is CUDA
+    wall_us: float        # host wall time of the call
+    attempts: list[Attempt]  # every attempt, the accepted one last
+
+    @property
+    def whole(self) -> bool:
+        return self.attempts[-1].whole
+
+
+def _audit(rows: list, preroll: int, activities: str) -> tuple[Attempt, list]:
+    """Split a window's rows into the pre-roll's and the call's (the
+    launch calls before the pre-roll's synchronize, which must be
+    ``preroll`` of them), and match each launch call to its device row by
+    correlation id. Returns the attempt and the call's device rows."""
+    from torch.autograd import DeviceType
+
+    device_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
+    launches = sorted((e for e in rows if LAUNCH_CALL.match(e.name)),
+                      key=lambda e: e.time_range.start)
+    pre = []
+    if preroll and launches:
+        first = launches[0].time_range.start
+        boundary = min((e.time_range.start for e in rows
+                        if SYNC_CALL.match(e.name) and e.time_range.start > first),
+                       default=float("inf"))
+        pre = [e for e in launches if e.time_range.start < boundary]
+    calls = launches[len(pre):]
+    pre_ids = {e.id for e in pre}
+    ids = {e.id for e in device_rows}
+    kept = [e for e in device_rows if e.id not in pre_ids]
+    missing = [i for i, e in enumerate(calls) if e.id not in ids]
+    if len(pre) != preroll:  # the pre-roll is not where it must be
+        missing = missing or [-1]
+    return Attempt(activities, preroll, len(kept), len(calls), missing,
+                   sum(e.id not in ids for e in pre)), kept
+
+
+def device_trace(fn, log_dir: str | None = None) -> DeviceTrace | None:
+    """Run ``fn`` once under ``torch.profiler`` on the card. Returns its
+    device rows (kernels, copies, memsets: the rows whose device type is
+    CUDA, so no host op that launched them is counted a second time) and
+    the host wall time of the call, from the first attempt that is whole:
+    device rows, and one for every CUDA call of ``fn`` that launched
+    device work. None if no attempt recorded a device row. ``log_dir``
+    takes the accepted attempt's Chrome trace (``trace.json``).
+
+    Each window opens with ``PREROLL`` tiny launches and a synchronize
+    before the call (their rows are not the call's) and closes ``PAD_S``
+    after it. An attempt that is not whole is retried with a longer
+    pre-roll: with CUDA activity only, then with CPU activity too. The
+    returned trace's ``attempts`` say what each try recorded; if none was
+    whole, the one with the most device rows is returned and ``whole`` is
+    False."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda, cpu = ProfilerActivity.CUDA, ProfilerActivity.CPU
+    tries = (("cuda", [cuda]), ("cuda", [cuda]), ("cpu+cuda", [cpu, cuda]))
+    scratch = torch.zeros(1, device=torch.cuda.current_device())
+    preroll, runs = PREROLL, []
+    for name, activities in tries:
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            for _ in range(preroll):
+                scratch.add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            time.sleep(PAD_S)
+        attempt, kept = _audit(list(prof.events()), preroll, name)
+        runs.append((attempt, prof, kept, wall_us))
+        if attempt.whole:
+            break
+        preroll = 2 * (preroll + len(attempt.missing))
+    attempt, prof, kept, wall_us = max(runs, key=lambda r: (r[0].whole, r[0].rows))
+    if attempt.rows == 0:
+        return None
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    return DeviceTrace(kept, wall_us,
+                       [r[0] for r in runs if r[0] is not attempt] + [attempt])
+
+
+@dataclasses.dataclass(frozen=True)
+class OpRow:
+    """One line of :func:`summarize`'s table."""
+
+    name: str
+    us_per_step: float
+    percent: float
+    n_per_step: float | None  # None on the "(+N more)" line
+
+
+@dataclasses.dataclass(frozen=True)
+class Summary:
+    steps: int
+    total_us_per_step: float
+    rows: tuple[OpRow, ...]      # the top rows, then "(+N more)" if any
+    by_name: dict                # every name's OpRow
+
+    def table(self) -> str:
+        lines = [f"{'us/step':>9}  {'%':>5}  {'n/step':>6}  op"]
+        for r in self.rows:
+            n = f"{'':>6}" if r.n_per_step is None else f"{r.n_per_step:6.1f}"
+            lines.append(f"{r.us_per_step:9.1f}  {r.percent:5.1f}  {n}  {r.name[:110]}")
+        return "\n".join(lines)
+
+
+def summarize(events, steps: int, top: int = 40) -> Summary:
+    """Device time a step by name over ``steps`` steps: the total, then
+    each name's us a step, its share in %, and its rows a step, largest
+    first; the first ``top`` names, then one "(+N more)" row for the rest.
+
+    ``events`` are device rows (``device_trace(...).events``), named as
+    CUPTI reports them: a kernel under its CUDA symbol, copies and memsets
+    under their own names. Rows on one stream do not nest, so the JAX
+    tool's split of async and parent spans has no counterpart here."""
+    us: dict[str, float] = {}
+    count: dict[str, int] = {}
+    for e in events:
+        us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
+    grand = sum(us.values())
+
+    def row(name: str) -> OpRow:
+        return OpRow(name, us[name] / steps, 100 * us[name] / grand if grand else 0.0,
+                     count[name] / steps)
+
+    by_name = {name: row(name) for name in us}
+    ranked = sorted(by_name.values(), key=lambda r: -r.us_per_step)
+    rows = ranked[:top]
+    rest_us = sum(r.us_per_step for r in ranked[top:])
+    if rest_us:
+        rows.append(OpRow(f"(+{len(ranked) - top} more)", rest_us,
+                          100 * rest_us * steps / grand, None))
+    return Summary(steps, grand / steps, tuple(rows), by_name)

@@ -121,6 +121,7 @@ for sub in ("ops", "train", "models", "data", "utils", "parallel", "export",
     importlib.import_module("pointcloudprocessing_tpu_torch." + sub)
 paths = sorted(glob.glob(os.path.join(REPO, "examples", "torch", "*.py")))
 paths.append(os.path.join(REPO, "tools", "gpu_acceptance.py"))
+paths += sorted(glob.glob(os.path.join(REPO, "tools", "torch", "*.py")))
 for path in paths:
     name = os.path.splitext(os.path.basename(path))[0]
     spec = importlib.util.spec_from_file_location("checked_" + name, path)
@@ -136,7 +137,9 @@ SURFACE_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pointcloudprocessing_tpu
 
 def test_surface_examples_and_acceptance_import_nothing_of_jax():
     """Importing every port subpackage (their re-exports), every
-    ``examples/torch`` script and ``tools/gpu_acceptance.py`` leaves no
+    ``examples/torch`` script, ``tools/gpu_acceptance.py`` and the JAX
+    tools' twins in ``tools/torch`` (``trace_ops.py``, ``bench_ingest.py``)
+    leaves no
     module of JAX, Flax, optax, the JAX package, PyQt6, pandas or joblib in
     ``sys.modules``; no import statement of those files names one either."""
     import ast
@@ -150,10 +153,13 @@ def test_surface_examples_and_acceptance_import_nothing_of_jax():
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["bad"] == [], f"imports pulled in {report['bad']}"
-    assert len(report["paths"]) >= 13  # twelve twins and the acceptance tool
+    assert len(report["paths"]) >= 15  # twelve twins, the acceptance tool, two tools
+    for tool in ("trace_ops.py", "bench_ingest.py"):
+        assert os.path.join("tools", "torch", tool) in report["paths"]
 
     files = glob.glob(os.path.join(REPO, "examples", "torch", "*.py"))
     files.append(os.path.join(REPO, "tools", "gpu_acceptance.py"))
+    files += glob.glob(os.path.join(REPO, "tools", "torch", "*.py"))
     bad = []
     for path in files:
         with open(path) as f:
