@@ -36,6 +36,7 @@ import torch
 
 from pointcloudprocessing_tpu_torch.data import tfrecord
 from pointcloudprocessing_tpu_torch.utils.native import read_tfrecord_chunk_native
+from pointcloudprocessing_tpu_torch.utils.profiling import span
 
 
 class DeviceLoader:
@@ -201,18 +202,19 @@ def _prefetch_to_device(
         # check the budget BEFORE pulling: a persistent stream must not have
         # a batch consumed and discarded at the epoch boundary
         while not stop.is_set() and (num_steps is None or produced < num_steps):
-            try:
-                batch = next(it)
-            except StopIteration:
-                break
-            except BaseException as e:  # forward, never die silently
-                _put(_ProducerFailure(e))
-                return
-            try:
-                staged = _stage(batch, device, copy_stream, rows)
-            except BaseException as e:
-                _put(_ProducerFailure(e))
-                return
+            with span("pcp.loader.stage"):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                except BaseException as e:  # forward, never die silently
+                    _put(_ProducerFailure(e))
+                    return
+                try:
+                    staged = _stage(batch, device, copy_stream, rows)
+                except BaseException as e:
+                    _put(_ProducerFailure(e))
+                    return
             if not _put((batch, staged)):
                 if pushback is not None:
                     pushback(batch)  # consumer left: keep the pulled batch
@@ -224,19 +226,20 @@ def _prefetch_to_device(
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is None:
-                return
-            if isinstance(item, _ProducerFailure):
-                raise item.exc
-            _, (staged, done) = item
-            if done is not None:
-                compute = torch.cuda.current_stream(device)
-                compute.wait_event(done)
-                x, targets = staged
-                # the copy stream allocated them; the compute stream uses them
-                for t in (x, *targets.values()):
-                    t.record_stream(compute)
+            with span("pcp.loader.wait"):
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, _ProducerFailure):
+                    raise item.exc
+                _, (staged, done) = item
+                if done is not None:
+                    compute = torch.cuda.current_stream(device)
+                    compute.wait_event(done)
+                    x, targets = staged
+                    # the copy stream allocated them; the compute stream uses them
+                    for t in (x, *targets.values()):
+                        t.record_stream(compute)
             yield staged
     finally:
         stop.set()

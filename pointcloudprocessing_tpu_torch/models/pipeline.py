@@ -43,6 +43,7 @@ from pointcloudprocessing_tpu_torch.ops.fps import (
 )
 from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
 from pointcloudprocessing_tpu_torch.parallel.mesh import DataParallelMesh, local_mesh
+from pointcloudprocessing_tpu_torch.utils.profiling import span
 
 
 class PointCloudPipeline:
@@ -109,10 +110,11 @@ class PointCloudPipeline:
     def _run(self, shards: list[torch.Tensor]) -> dict[str, torch.Tensor]:
         """One batch's shards, each on its device -> the model outputs,
         concatenated on the first device."""
-        outs = [self._run_one(self.replicas[s.device], s) for s in shards]
-        if len(outs) == 1:
-            return outs[0]
-        return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
+        with span("pcp.pipeline.batch"):
+            outs = [self._run_one(self.replicas[s.device], s) for s in shards]
+            if len(outs) == 1:
+                return outs[0]
+            return {k: torch.cat([o[k].to(self.device) for o in outs]) for k in outs[0]}
 
     @torch.inference_mode()
     def _run_one(self, model: nn.Module, points: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -122,18 +124,21 @@ class PointCloudPipeline:
         layout = "bcn" if (self.voxel_size is not None and self.sampler == "fps") \
             else "bnc"
         if self.voxel_size is not None:
-            points, mask = voxel_downsample_batch(
-                points, self.voxel_size, layout=layout
-            )
-        if self.sampler == "fps":
-            _, sampled = farthest_point_sample_and_gather(
-                points, self.model_width, mask, layout=layout
-            )
-        elif self.sampler == "stride":
-            _, sampled = stride_sample_and_gather(points, self.model_width, mask)
-        else:
-            sampled = points[:, : self.model_width]
-        return model(sampled, heads=self.heads)
+            with span("pcp.pipeline.voxel"):
+                points, mask = voxel_downsample_batch(
+                    points, self.voxel_size, layout=layout
+                )
+        with span("pcp.pipeline.sample"):
+            if self.sampler == "fps":
+                _, sampled = farthest_point_sample_and_gather(
+                    points, self.model_width, mask, layout=layout
+                )
+            elif self.sampler == "stride":
+                _, sampled = stride_sample_and_gather(points, self.model_width, mask)
+            else:
+                sampled = points[:, : self.model_width]
+        with span("pcp.pipeline.model"):
+            return model(sampled, heads=self.heads)
 
     def _split(self, b: int) -> list[slice]:
         shards = len(self.devices)
@@ -199,7 +204,9 @@ class PointCloudPipeline:
             # iterator raises — otherwise q.get() blocks forever
             try:
                 for batch in batches:
-                    if not _put(self._stage(batch, copy_streams)):
+                    with span("pcp.pipeline.stage"):
+                        staged = self._stage(batch, copy_streams)
+                    if not _put(staged):
                         return
             finally:
                 _put(None)
@@ -208,15 +215,16 @@ class PointCloudPipeline:
         thread.start()
         try:
             while True:
-                item = q.get()
-                if item is None:
-                    return
-                for staged, done in item:
-                    if done is not None:
-                        compute = torch.cuda.current_stream(staged.device)
-                        compute.wait_event(done)
-                        # the copy stream allocated it; the compute stream uses it
-                        staged.record_stream(compute)
+                with span("pcp.pipeline.queue_wait"):
+                    item = q.get()
+                    if item is None:
+                        return
+                    for staged, done in item:
+                        if done is not None:
+                            compute = torch.cuda.current_stream(staged.device)
+                            compute.wait_event(done)
+                            # the copy stream allocated it; the compute stream uses it
+                            staged.record_stream(compute)
                 yield self._run([staged for staged, _ in item])
         finally:
             stop.set()

@@ -70,6 +70,7 @@ from pointcloudprocessing_tpu_torch.models.pointnet import (
 from pointcloudprocessing_tpu_torch.ops.augment import jitter
 from pointcloudprocessing_tpu_torch.parallel.mesh import DataParallelMesh, RowDraws
 from pointcloudprocessing_tpu_torch.train.losses import multi_head_loss
+from pointcloudprocessing_tpu_torch.utils.profiling import span
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7  # Keras's epsilon
 
@@ -342,16 +343,18 @@ def _forward_backward(model, loss_weights, freeze, jitter_stdev, x, targets,
                       jitter_g, dropout_g, batch_size=None) -> dict[str, torch.Tensor]:
     """Jitter, the train-mode forward, the loss and its backward (each
     trained parameter's ``.grad``); returns the step's logs."""
-    x = jitter(x, jitter_g, jitter_stdev)
-    model.zero_grad(set_to_none=True)
-    with torch.enable_grad():
-        outputs, reg = forward_with_reg(
-            model, x, train=True, freeze=freeze, generator=dropout_g)
-        total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg,
-                                             batch_size)
-        if total.requires_grad:  # False only when every parameter is frozen
+    with span("pcp.train.forward"):
+        x = jitter(x, jitter_g, jitter_stdev)
+        model.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            outputs, reg = forward_with_reg(
+                model, x, train=True, freeze=freeze, generator=dropout_g)
+            total, head_losses = multi_head_loss(outputs, targets, loss_weights, reg,
+                                                 batch_size)
+    if total.requires_grad:  # False only when every parameter is frozen
+        with torch.enable_grad(), span("pcp.train.backward"):
             total.backward()
-    with torch.no_grad():
+    with torch.no_grad(), span("pcp.train.metrics"):
         return {"loss": total.detach(),
                 **{k: v.detach() for k, v in head_losses.items()},
                 **_metric_sums(outputs, targets)}
@@ -370,10 +373,12 @@ def _train_step_impl(
 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     if state.model is not model:
         raise ValueError("the train step was built for another model")
-    jitter_g, dropout_g = step_generators(seed, state.step, x.device)
-    logs = _forward_backward(model, loss_weights, freeze, jitter_stdev, x,
-                             targets, jitter_g, dropout_g)
-    optimizer.update_(dict(model.named_parameters()), state.opt_state)
+    with span("pcp.train.step"):
+        jitter_g, dropout_g = step_generators(seed, state.step, x.device)
+        logs = _forward_backward(model, loss_weights, freeze, jitter_stdev, x,
+                                 targets, jitter_g, dropout_g)
+        with span("pcp.train.optimizer"):
+            optimizer.update_(dict(model.named_parameters()), state.opt_state)
     state.step += 1
     return state, logs
 
@@ -467,15 +472,18 @@ def _global_train_step(model, optimizer, loss_weights, freeze, jitter_stdev,
                        mesh, state, x, targets, seed):
     if state.model is not model:
         raise ValueError("the train step was built for another model")
-    batch, rows = _global_rows(x.shape[0], mesh, x.device)
-    jitter_g, dropout_g = step_generators(seed, state.step, x.device)
-    logs = _forward_backward(
-        model, loss_weights, freeze, jitter_stdev, x, targets,
-        RowDraws(jitter_g, batch, rows), RowDraws(dropout_g, batch, rows), batch)
-    _all_reduce_grads(model, mesh, average=False)
-    optimizer.update_(dict(model.named_parameters()), state.opt_state)
+    with span("pcp.train.step"):
+        batch, rows = _global_rows(x.shape[0], mesh, x.device)
+        jitter_g, dropout_g = step_generators(seed, state.step, x.device)
+        logs = _forward_backward(
+            model, loss_weights, freeze, jitter_stdev, x, targets,
+            RowDraws(jitter_g, batch, rows), RowDraws(dropout_g, batch, rows), batch)
+        _all_reduce_grads(model, mesh, average=False)
+        with span("pcp.train.optimizer"):
+            optimizer.update_(dict(model.named_parameters()), state.opt_state)
+        logs = _reduce_logs(logs, mesh)
     state.step += 1
-    return state, _reduce_logs(logs, mesh)
+    return state, logs
 
 
 def make_shardmap_train_step(
@@ -508,22 +516,25 @@ def make_shardmap_train_step(
     def step(state, x, targets, seed):
         if state.model is not model:
             raise ValueError("the train step was built for another model")
-        jitter_g, dropout_g = step_generators(seed, state.step, x.device, mesh.rank)
-        logs = _forward_backward(model, loss_weights, freeze, jitter_stdev, x,
-                                 targets, jitter_g, dropout_g)
-        _all_reduce_grads(model, mesh, average=True)
-        if stats:
-            with torch.no_grad():
-                flat = torch.cat(stats)
-                dist.all_reduce(flat, group=mesh.group)
-                flat /= mesh.world
-                torch._foreach_copy_(stats, list(flat.split(
-                    [t.numel() for t in stats])))
-        optimizer.update_(dict(model.named_parameters()), state.opt_state)
+        with span("pcp.train.step"):
+            jitter_g, dropout_g = step_generators(seed, state.step, x.device, mesh.rank)
+            logs = _forward_backward(model, loss_weights, freeze, jitter_stdev, x,
+                                     targets, jitter_g, dropout_g)
+            _all_reduce_grads(model, mesh, average=True)
+            if stats:
+                with torch.no_grad():
+                    flat = torch.cat(stats)
+                    dist.all_reduce(flat, group=mesh.group)
+                    flat /= mesh.world
+                    torch._foreach_copy_(stats, list(flat.split(
+                        [t.numel() for t in stats])))
+            with span("pcp.train.optimizer"):
+                optimizer.update_(dict(model.named_parameters()), state.opt_state)
+            logs = _reduce_logs(logs, mesh, mean_keys=(
+                "loss", "classification_output_loss", "segmentation_output_loss",
+                "se3_loss"))
         state.step += 1
-        return state, _reduce_logs(logs, mesh, mean_keys=(
-            "loss", "classification_output_loss", "segmentation_output_loss",
-            "se3_loss"))
+        return state, logs
 
     return step
 

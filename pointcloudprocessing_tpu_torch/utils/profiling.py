@@ -4,13 +4,15 @@
 - ``trace(path)``: context manager around ``torch.profiler.profile`` that
   writes a Chrome trace (``trace.json``, loadable in Perfetto or
   TensorBoard) of host and, on CUDA, device activity into ``path``.
-- ``annotate(name)``: a named region on the profiler's timeline.
-- ``StepTimer``: wall-clock step timing with a percentile summary.
+- ``span(name)``: a named host range at a layer boundary, recorded only
+  while a profiler session is active.
 - ``device_trace(fn)``: the device rows (kernels, copies, memsets) of one
   call of ``fn`` on the card, each CUDA call that launched device work
-  checked to have its row, with the host wall time of the call.
+  checked to have its row, with the host wall time of the call and the
+  host events.
 - ``summarize(events, steps)``: device time a step by kernel name, the
   counterpart of ``tools/trace_ops.py::summarize``.
+- ``by_span(events)``: device time by the ``pcp.`` span that launched it.
 """
 
 from __future__ import annotations
@@ -21,59 +23,52 @@ import os
 import re
 import time
 
-import numpy as np
 import torch
+import torch.autograd.profiler as autograd_profiler
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Capture a torch.profiler trace into ``log_dir/trace.json``."""
+    """Capture a torch.profiler trace into ``log_dir/trace.json``, of every
+    thread: the loader's and the pipeline's producers too, whose ``span``
+    ranges a default session, recording only the thread that opened it,
+    would not see."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    every_thread = torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=activities,
+                                experimental_config=every_thread) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named region for the profiler timeline."""
-    return torch.profiler.record_function(name)
+#: the prefix of every span's name
+SPAN_PREFIX = "pcp."
+
+_OFF = contextlib.nullcontext()
 
 
-# copied from pointcloudprocessing_tpu/utils/profiling.py::StepTimer
-class StepTimer:
-    def __init__(self):
-        self._durations: list[float] = []
-        self._t0: float | None = None
+def span(name: str):
+    """A named host range on the profiler's timeline, around one layer's
+    work (``pcp.pipeline.batch``, ``pcp.train.step``, ...).
 
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self._durations.append(time.perf_counter() - self._t0)
-        return False
-
-    @property
-    def count(self) -> int:
-        return len(self._durations)
-
-    def summary(self, items_per_step: float = 1.0) -> dict[str, float]:
-        """p50/p90/mean step latency and items/sec throughput."""
-        if not self._durations:
-            return {}
-        d = np.asarray(self._durations)
-        return {
-            "steps": float(len(d)),
-            "mean_s": float(d.mean()),
-            "p50_s": float(np.percentile(d, 50)),
-            "p90_s": float(np.percentile(d, 90)),
-            "items_per_s": float(items_per_step / d.mean()),
-        }
+    With no profiler session active it costs one read of the profiler's
+    enabled flag and returns a shared null context. In a session it opens
+    a host range in the profiler's own buffer, on the clock of the device
+    rows, and the session writes it out with them. Spans nest on one
+    thread; none is held open across a ``yield``. The range is a plain
+    host op (``_RecordFunctionFast``), not ``record_function``'s user
+    annotation, which also puts a device row of the span's name among the
+    kernels. A default session records only the thread that opened it
+    (the profiler's callbacks are thread-local); :func:`trace` records
+    every thread."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 #: CUDA runtime and driver calls that put one activity on the device (a
@@ -94,6 +89,9 @@ PREROLL = 64
 #: host wait inside the window after the call (a trace of ~100,000 rows
 #: has lost its last rows without it)
 PAD_S = 0.02
+
+#: profiled attempts of one call at most, each with a longer pre-roll
+TRIES = 3
 
 
 @dataclasses.dataclass
@@ -132,6 +130,7 @@ class DeviceTrace:
     events: list          # FunctionEvents whose device type is CUDA
     wall_us: float        # host wall time of the call
     attempts: list[Attempt]  # every attempt, the accepted one last
+    host: list = dataclasses.field(default_factory=list)  # the attempt's host events
 
     @property
     def whole(self) -> bool:
@@ -173,24 +172,25 @@ def device_trace(fn, log_dir: str | None = None) -> DeviceTrace | None:
     the host wall time of the call, from the first attempt that is whole:
     device rows, and one for every CUDA call of ``fn`` that launched
     device work. None if no attempt recorded a device row. ``log_dir``
-    takes the accepted attempt's Chrome trace (``trace.json``).
+    takes the accepted attempt's Chrome trace (``trace.json``). Host
+    activity is recorded too (the launch calls, host ops and ``span``
+    ranges: ``host``), so that :func:`by_span` can give each row to the
+    span that launched it.
 
     Each window opens with ``PREROLL`` tiny launches and a synchronize
     before the call (their rows are not the call's) and closes ``PAD_S``
     after it. An attempt that is not whole is retried with a longer
-    pre-roll: with CUDA activity only, then with CPU activity too. The
-    returned trace's ``attempts`` say what each try recorded; if none was
-    whole, the one with the most device rows is returned and ``whole`` is
-    False."""
+    pre-roll, up to ``TRIES`` attempts. The returned trace's ``attempts``
+    say what each try recorded; if none was whole, the one with the most
+    device rows is returned and ``whole`` is False."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cuda, cpu = ProfilerActivity.CUDA, ProfilerActivity.CPU
-    tries = (("cuda", [cuda]), ("cuda", [cuda]), ("cpu+cuda", [cpu, cuda]))
     scratch = torch.zeros(1, device=torch.cuda.current_device())
     preroll, runs = PREROLL, []
-    for name, activities in tries:
+    for _ in range(TRIES):
         torch.cuda.synchronize()
-        with profile(activities=activities) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(preroll):
                 scratch.add_(1)
             torch.cuda.synchronize()
@@ -199,19 +199,21 @@ def device_trace(fn, log_dir: str | None = None) -> DeviceTrace | None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
             time.sleep(PAD_S)
-        attempt, kept = _audit(list(prof.events()), preroll, name)
-        runs.append((attempt, prof, kept, wall_us))
+        events = list(prof.events())
+        attempt, kept = _audit(events, preroll, "cpu+cuda")
+        host = [e for e in events if e.device_type == DeviceType.CPU]
+        runs.append((attempt, prof, kept, wall_us, host))
         if attempt.whole:
             break
         preroll = 2 * (preroll + len(attempt.missing))
-    attempt, prof, kept, wall_us = max(runs, key=lambda r: (r[0].whole, r[0].rows))
+    attempt, prof, kept, wall_us, host = max(runs, key=lambda r: (r[0].whole, r[0].rows))
     if attempt.rows == 0:
         return None
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     return DeviceTrace(kept, wall_us,
-                       [r[0] for r in runs if r[0] is not attempt] + [attempt])
+                       [r[0] for r in runs if r[0] is not attempt] + [attempt], host)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,3 +269,82 @@ def summarize(events, steps: int, top: int = 40) -> Summary:
         rows.append(OpRow(f"(+{len(ranked) - top} more)", rest_us,
                           100 * rest_us * steps / grand, None))
     return Summary(steps, grand / steps, tuple(rows), by_name)
+
+
+#: the spans that hold one batch or one step: a launch from a thread with
+#: no span open is given to the span open on their thread at that instant
+UNIT_SPANS = ("pcp.pipeline.batch", "pcp.train.step")
+
+#: :func:`by_span`'s name for the device time that no span launched
+NO_SPAN = "(no span)"
+
+
+def _thread(e) -> tuple:
+    """A host event's thread. The profiler numbers the threads it records;
+    the CUDA calls of a thread it does not record carry the number of the
+    thread that read the trace, but a resource id of their own."""
+    return e.thread, getattr(e, "device_resource_id", 0)
+
+
+def _innermost(spans: list, t: float):
+    """The innermost of one thread's spans (sorted by start; they nest)
+    open at ``t``, or None."""
+    inner = None
+    for s in spans:
+        if s.time_range.start > t:
+            break
+        if t <= s.time_range.end:
+            inner = s
+    return inner
+
+
+def _spans_by_thread(events) -> dict[tuple, list]:
+    """The ``pcp.`` spans among ``events`` by thread, each thread's sorted
+    by start."""
+    from torch.autograd import DeviceType
+
+    spans: dict[tuple, list] = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith(SPAN_PREFIX):
+            spans.setdefault(_thread(e), []).append(e)
+    for thread_spans in spans.values():
+        thread_spans.sort(key=lambda s: s.time_range.start)
+    return spans
+
+
+def span_of_rows(events) -> list[tuple]:
+    """Each device row of ``events`` (host and device events of one trace)
+    with the span it is given to, or None: the innermost ``pcp.`` span
+    open on the thread of its launch call (matched by correlation id) when
+    the call started, else the innermost open then on the thread of the
+    unit spans (``UNIT_SPANS``): autograd's device thread launches the
+    backward while the step's thread waits inside its span."""
+    from torch.autograd import DeviceType
+
+    spans = _spans_by_thread(events)
+    unit = next((spans[t] for t in spans if any(s.name in UNIT_SPANS for s in spans[t])), [])
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    launches = {e.id: e for e in host if LAUNCH_CALL.match(e.name)}
+    out = []
+    for row in (e for e in events if e.device_type != DeviceType.CPU):
+        call = launches.get(row.id)
+        given = None
+        if call is not None:
+            t = call.time_range.start
+            given = _innermost(spans.get(_thread(call), []), t)
+            if given is None:
+                given = _innermost(unit, t)
+        out.append((row, given))
+    return out
+
+
+def by_span(events) -> dict[str, float]:
+    """Device us by the ``pcp.`` span that launched each row
+    (:func:`span_of_rows`), largest first; rows no span launched under
+    ``NO_SPAN``. ``events``: a trace's host and device events
+    (``DeviceTrace.host + DeviceTrace.events``)."""
+    us: dict[str, float] = {}
+    for row, given in span_of_rows(events):
+        name = NO_SPAN if given is None else given.name
+        us[name] = us.get(name, 0.0) + row.time_range.elapsed_us()
+    return dict(sorted(us.items(), key=lambda kv: -kv[1]))

@@ -178,6 +178,33 @@ def test_report_prints_the_jax_header_and_the_table():
         workload, trace_ops.Traced(None, None, 0.0, 0))
 
 
+def test_report_prints_device_time_by_span():
+    """With host events the report ends with the device time a step by
+    the ``pcp.`` span that launched it, rows of no span last."""
+    host, device = [], []
+    for span_name, start, end in [("pcp.train.forward", 0, 10),
+                                  ("pcp.train.backward", 10, 20)]:
+        span = _row(span_name, start, end - start)
+        span.device_type, span.thread = DeviceType.CPU, 1
+        host.append(span)
+    for ident, (t, us) in enumerate([(1, 30.0), (12, 50.0), (30, 20.0)]):
+        call = _host("cudaLaunchKernel", t, ident)
+        call.thread = 1
+        host.append(call)
+        row = _device(t + 100, ident)
+        row.time_range = _row("k", t + 100, us).time_range
+        device.append(row)
+    attempt = profiling.Attempt("cpu+cuda", 64, 3, 3, [], 0)
+    trace = profiling.DeviceTrace(device, 500.0, [attempt], host)
+    traced = trace_ops.Traced(trace, profiling.summarize(device, 2), 0.4, 0)
+    workload = trace_ops.Workload("train", lambda: None, 2, 1, np.zeros(1))
+    text = trace_ops.report(workload, traced).splitlines()
+    assert text[-4].split() == ["us/step", "%", "span"]
+    assert [line.split() for line in text[-3:]] == [
+        ["25.0", "50.0", "pcp.train.backward"], ["15.0", "30.0", "pcp.train.forward"],
+        ["10.0", "20.0", "(no", "span)"]]
+
+
 @pytest.mark.parametrize("what,kwargs", [
     ("train", dict(chunk=2, batch=2, width=64)),
     ("preprocess", dict(batch=2, width=256)),

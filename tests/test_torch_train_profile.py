@@ -239,7 +239,17 @@ def test_profile_dir_traces_the_second_epoch(tmp_path):
     tp.profile_dir = str(tmp_path / "prof")
     tp.train()
     with open(tmp_path / "prof" / "final" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert events
+    # the step's spans on its thread, the loader's staging on its own
+    tids = {}
+    for e in events:
+        if str(e.get("name", "")).startswith("pcp."):
+            tids.setdefault(e["name"], set()).add(e["tid"])
+    assert {"pcp.train.step", "pcp.train.forward", "pcp.train.backward",
+            "pcp.train.metrics", "pcp.train.optimizer", "pcp.loader.wait",
+            "pcp.loader.stage"} <= set(tids)
+    assert tids["pcp.loader.stage"].isdisjoint(tids["pcp.train.step"])
 
 
 def _killed_after(epoch):

@@ -6,7 +6,9 @@ Runs one of the JAX tool's workloads on the card under
 work checked to have its device row) and prints the device time a step,
 then the kernels by total device time: us a step, share, rows a step,
 named as CUPTI reports them (a hand-written kernel under its CUDA symbol,
-copies and memsets under their own names).
+copies and memsets under their own names); then the device time a step by
+the program's ``pcp.`` span that launched it (``utils/profiling.by_span``:
+the train step's forward, backward, metrics and optimizer).
 
 Usage:
   python tools/torch/trace_ops.py train       # b32/1024pt bf16 train step, 2 x 32 steps
@@ -210,6 +212,11 @@ def report(workload: Workload, traced: Traced) -> str:
     lines.append(("trace: " if traced.trace.whole else "NOT WHOLE: ")
                  + "; ".join(a.describe() for a in traced.trace.attempts))
     lines += ["", s.table()]
+    if traced.trace.host:
+        by_span = profiling.by_span(traced.trace.host + traced.trace.events)
+        lines += ["", f"{'us/step':>9}  {'%':>5}  span"]
+        lines += [f"{us / workload.steps:9.1f}  {100 * us / sum(by_span.values()):5.1f}  {name}"
+                  for name, us in by_span.items()]
     return "\n".join(lines)
 
 
