@@ -58,9 +58,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
 4. slice: a full-width PointNet (23 classes, 12 parts, random seeded init)
    serves streamed 256x2048 scans through voxel 0.4 -> FPS -> 1024 points
    (clouds/s over three timed windows after a stream warm-up), then a
-   zero-padded batch, a stride-sampler batch and a 64x8192 batch; both
-   kernels' launch counters must rise, and batches must agree with the
-   plain versions. Also the device's busy share over a stream and each
+   zero-padded batch, a stride-sampler batch and a 64x8192 batch; kernels
+   1, 2 and 4 (the pooled chains' forward, running statistics) must
+   launch, and batches must agree with the plain versions of all three.
+   Also the device's busy share over a stream and each
    stage's device time.
 5. serve: the serving CLI over a collect of written frames, its last batch
    zero-padded.
@@ -168,7 +169,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    frames of 8,192; 16 frames a collect), frames/s and Qhull's share;
    ``write_collect``; the config's ``final`` stage for 2 epochs on them
    through the CLI in a subprocess that reports its launch counts: exit 0,
-   finite history, kernels 4 and 5 at phase 6 case A's rate a train step.
+   finite history, kernels 4 and 5 at phase 6 case A's rate a train step,
+   kernel 4 once a chain a val forward.
    (b) ``hidden_point_removal_mask`` on 64 of those frames from their
    viewpoints against a CPU copy (equal but within one ulp of a window
    edge), device ms. (c) ICP, 8,192 vs 8,192 points, 5 deg / 0.2 m, 20
@@ -178,8 +180,9 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    1e-4 of a CPU copy; ``TNetRegressor`` on ``random_so3_rotation``
    batches (the MSE falls, det 1 within 1e-5); clouds/s. (e) ``run_grid``
    at full width (23/12, 32x1024, vanilla, 3x3 grid, 4 steps a cell):
-   finite histories, kernels 4 and 5 counted against the route's rule (36
-   each), ``HyperTune`` over the result; seconds a cell.
+   finite histories, kernels 4 and 5 counted against the route's rule (45
+   and 36: 36 train steps, and 9 val steps that launch kernel 4 alone),
+   ``HyperTune`` over the result; seconds a cell.
 13. export and toolkit: (a) every stage phases 10 and 11 trained to its end
    (phase 12 checks its own) holds ``{name}_{stage}.pt2`` and ``.onnx``
    (the trainer's end-of-stage export, PointNet++'s FPS a ``while_loop`` in
@@ -249,7 +252,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    infer: PointNet 23/12 f32 at 2048x1024, 10 dispatches; pn2: PointNet++
    bf16 at 256x1024, 10 forwards), each traced window held to (a) the
    launch counters (every counted kernel in the table under its CUDA
-   symbol, its rows a step the counter's launches a step; infer none),
+   symbol, its rows a step the counter's launches a step; infer kernel 4
+   alone, three a forward),
    (b) each kernel's roofline bound at the calls' shapes (no traced time
    a call below it), (c) the CUDA-event window (the traced device total
    within it plus 2%), (d) a whole trace; the peak memory of infer; then
@@ -1343,6 +1347,11 @@ def phase_slice(torch, rng, model) -> dict:
         fps_with_points,
         fps_with_points_reference,
     )
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
+        pooled_chain_backward_reference,
+        pooled_chain_forward,
+        pooled_chain_forward_reference,
+    )
     from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
         sorted_segment_reduce,
         sorted_segment_reduce_reference,
@@ -1370,6 +1379,7 @@ def phase_slice(torch, rng, model) -> dict:
 
     sorted_segment_reduce.launches = 0
     fps_with_points.launches = 0
+    pooled_chain_forward.launches = 0
     # ---- the main path: counted launches start here
     first = fps_pipe(pool[0])  # warm-up (cuBLAS handles, allocator)
     # warm-up of stream() itself: its first side stream builds CUDA's
@@ -1392,9 +1402,10 @@ def phase_slice(torch, rng, model) -> dict:
     wide_out = wide_pipe(wide_batch)
     torch.cuda.synchronize()
     launches = {"seg": sorted_segment_reduce.launches,
-                "fps": fps_with_points.launches}
+                "fps": fps_with_points.launches,
+                "pooled_fwd": pooled_chain_forward.launches}
     # ---- the main path ends here
-    if launches["seg"] == 0 or launches["fps"] == 0:
+    if launches["seg"] == 0 or launches["fps"] == 0 or launches["pooled_fwd"] == 0:
         raise AssertionError(f"a kernel was not launched by the slice: {launches}")
     for out in [first, *warm, *lasts, padded_out, stride_out]:
         check_outputs(torch, out, b, k)
@@ -1434,7 +1445,9 @@ def phase_slice(torch, rng, model) -> dict:
         f"{kind} {ms:.4f}" for kind, ms in kinds.items()) or "not traced"))
 
     with route_kernels(sorted_segment_reduce_reference,
-                       fps_with_points_reference):
+                       fps_with_points_reference), \
+            route_pooled(pooled_chain_forward_reference,
+                         pooled_chain_backward_reference):
         plain_first = fps_pipe(pool[0])
         plain_padded = fps_pipe(padded_batch)
         plain_stride = stride_pipe(stride_batch)
@@ -3455,7 +3468,12 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     launches = read()
     # ---- the main path ends here
     train_steps = steps_per_epoch * (2 + 2 + 3)  # killed 0-1, resumed 1-2, stage 2
-    per_step = {k: launches[k] / train_steps for k in ("fwd", "bwd")}
+    # each epoch's val forwards launch kernel 4 once a chain (running
+    # statistics, no gradient) and kernel 5 never
+    chains = 1 if kc46["params"]["vanilla"] else 3
+    val_forwards = val_steps * (2 + 2 + 3)
+    per_step = {"fwd": (launches["fwd"] - chains * val_forwards) / train_steps,
+                "bwd": launches["bwd"] / train_steps}
     want_per_step = {k: trained["A"]["launches"][k] / trained["A"]["steps"]
                      for k in ("fwd", "bwd")}
     if per_step != want_per_step:
@@ -3484,8 +3502,9 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         f"stages against the CLI run's: largest difference {worst:.3e} (bar: "
         f"phase 6's for one step, 8x its one-ulp loss change + floors; "
         f"accuracies equal); pooled launches {launches['fwd']} / {launches['bwd']} "
-        f"over {train_steps} train steps: {per_step['fwd']:g} / {per_step['bwd']:g} "
-        f"a step, as phase 6 case A (same freeze flags)")
+        f"over {train_steps} train steps and {val_forwards} val forwards: "
+        f"{per_step['fwd']:g} / {per_step['bwd']:g} a train step, as phase 6 case A "
+        f"(same freeze flags), and {chains} / 0 a val forward")
     times = epoch_times(messages, steps_per_epoch, val_steps)
     rate = float(np.median(times["train"]))
     log(f"[10 trainer] train steps/s of the resumed run, {steps_per_epoch}-step "
@@ -3597,7 +3616,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
             raise AssertionError(f"trainer streaming: epoch {epoch} saw "
                                  f"{len(prints)} clouds, {len(np.unique(prints))} "
                                  f"distinct")
-    if got["fwd"] != 2 * steps_per_epoch * per_step["fwd"]:
+    if got["fwd"] != 2 * (steps_per_epoch * per_step["fwd"] + val_steps * chains):
         raise AssertionError(f"trainer streaming: pooled launches {got}")
     log(f"[10 trainer] streaming stage ({stages[-1]}, max_in_memory_bytes 1: "
         f"StreamingLoader on every split), 2 epochs: each epoch saw "
@@ -3837,12 +3856,17 @@ def synth_training(torch, root: str, synth: dict, trained: dict) -> dict:
     if sum(counts.values()) != len(synth["names"]) * SYNTH_FRAMES:
         raise AssertionError(f"synthesis CLI: ingested {counts}")
     train_steps = 2 * (counts["train"] // batch)
+    # the val forwards launch kernel 4 once a chain and kernel 5 never
+    val_forwards = 2 * max(counts["val"] // batch, 1)
+    chains = 1 if kc46["params"]["vanilla"] else 3
     per_step = {k: trained["A"]["launches"][k] / trained["A"]["steps"]
                 for k in ("fwd", "bwd")}
-    want = {k: train_steps * per_step[k] for k in ("fwd", "bwd")}
+    want = {"fwd": train_steps * per_step["fwd"] + val_forwards * chains,
+            "bwd": train_steps * per_step["bwd"]}
     if launches != want:
         raise AssertionError(f"synthesis CLI: pooled launches {launches}, want {want} "
-                             f"({train_steps} train steps x phase 6 case A's rate)")
+                             f"({train_steps} train steps x phase 6 case A's rate, "
+                             f"{val_forwards} val forwards x {chains} chains)")
     log(f"[12 synthesis] CLI kc46 stage {stage} on the synthesized collects "
         f"({batch}x{kc46['params']['input_width']}, 2 epochs; splits {counts}): "
         f"exit 0 in {cli_s:.1f} s; history with the 14 Keras keys, finite; .pt2 "
@@ -3851,7 +3875,8 @@ def synth_training(torch, root: str, synth: dict, trained: dict) -> dict:
         f"{hist['val_segmentation_output_sparse_categorical_accuracy'][-1]:.4f}; "
         f"pooled launches {launches['fwd']} / {launches['bwd']} = {train_steps} "
         f"train steps x {per_step['fwd']:g} / {per_step['bwd']:g} (phase 6 case A, "
-        f"the same freeze flags; val steps take the running-statistics route)")
+        f"the same freeze flags) + {val_forwards} val forwards x {chains} / 0 (the "
+        f"running-statistics route: kernel 4 alone)")
     return launches
 
 
@@ -4043,8 +4068,8 @@ def grid_on_card(torch, b: int = 32, n: int = 1024) -> dict:
     """(e) ``run_grid`` at full width (23/12, vanilla, the 3x3 grid, 1 epoch
     of ``GRID_STEPS`` steps a cell): finite histories with the notebook's
     keys, kernels 4 and 5 counted (once a train step each for the one
-    chain; eval steps run without autograd, where the running-statistics
-    chain takes the plain forward and no kernel), and HyperTune over it."""
+    chain; eval steps run without autograd on running statistics, where the
+    chain takes kernel 4 alone), and HyperTune over it."""
     from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
         pooled_chain_backward,
         pooled_chain_forward,
@@ -4072,9 +4097,9 @@ def grid_on_card(torch, b: int = 32, n: int = 1024) -> dict:
         raise AssertionError(f"grid: {len(results)} cells, histories {results}")
     # the route's rule: the vanilla model's one chain launches kernels 4 and
     # 5 once a train step (batch statistics); an eval step runs without
-    # autograd on running statistics, the plain forward, and launches neither
+    # autograd on running statistics and launches kernel 4 alone
     train_steps, val_steps = cells * GRID_STEPS, cells
-    rule = {"fwd": train_steps * 1 + val_steps * 0, "bwd": train_steps * 1}
+    rule = {"fwd": train_steps * 1 + val_steps * 1, "bwd": train_steps * 1}
     if PHASE12_DEVICE != "cuda":
         rule = {"fwd": 0, "bwd": 0}  # a CPU rehearsal runs the plain versions
     if launches != rule:
@@ -4091,7 +4116,7 @@ def grid_on_card(torch, b: int = 32, n: int = 1024) -> dict:
         f"cell; histories finite with the notebook's 5 keys; pooled launches "
         f"{launches['fwd']} / {launches['bwd']}, the rule's {rule['fwd']} / "
         f"{rule['bwd']} ({train_steps} train steps x 1 chain + {val_steps} val steps "
-        f"x 0); HyperTune table, overview and LaTeX over {cells} configurations "
+        f"x 1 / 0); HyperTune table, overview and LaTeX over {cells} configurations "
         f"(lowest val_loss: {best}, {overview[best]['val_loss']:.4f})")
     return launches
 
@@ -5526,20 +5551,23 @@ def phase_acceptance(torch, card: str) -> dict:
 # ---- phase 16: the port's twins of the JAX tools, held to the counters and bounds
 
 #: the hand-written kernels each counted wrapper call launches once, in
-#: the forms the traced workloads take (bf16 pooled chains at c_in 128,
-#: FPS up to 8,192 points, kernel 1 where 128 divides n)
+#: the forms the traced workloads take (f32 and bf16 pooled chains at c_in
+#: 128, FPS up to 8,192 points, kernel 1 where 128 divides n)
 CALL_SYMBOLS = {
     "sorted_segment_sum": ("sorted_segment_sum_kernel",),
     "fps_with_points": ("fps_kernel",),
+    "pooled_chain_forward": ("pooled_forward_split_kernel", "pooled_forward_kernel",
+                             "pooled_combine_kernel"),
     "windowed_moment_sums": ("window_moments_prep_kernel", "window_moments_kernel"),
     "pooled_chain_forward_bf16": ("pooled_forward_tma_kernel",),
     "pooled_chain_backward_bf16": ("pooled_backward_prep_tma_kernel",
                                    "pooled_backward_dx_tma_kernel"),
 }
-#: each workload's counted kernels (infer: none, running statistics)
+#: each workload's counted kernels (infer: the forward alone, once a chain,
+#: running statistics)
 PHASE16_KERNELS = {"train": ("pooled_chain_forward_bf16", "pooled_chain_backward_bf16"),
                    "preprocess": ("sorted_segment_sum", "windowed_moment_sums"),
-                   "infer": (), "pn2": ("fps_with_points",)}
+                   "infer": ("pooled_chain_forward",), "pn2": ("fps_with_points",)}
 #: the traced device total may exceed the CUDA-event window by this share
 WINDOW_SLACK = 0.02
 
@@ -5710,7 +5738,8 @@ def phase_trace_tools(torch, card: str) -> None:
     """Phase 16: ``tools/torch/trace_ops.py``'s four workloads at the JAX
     tool's shapes in this process, each traced window held to (a) the
     launch counters (each counted kernel in the table under its CUDA
-    symbol, its rows a step the counter's launches a step; infer none),
+    symbol, its rows a step the counter's launches a step; infer kernel 4
+    alone),
     (b) each kernel's bound (the traced time a call no less than its
     roofline bound at the calls' shapes, recorded on the warm-up
     dispatch), (c) the CUDA-event window (the traced device total within

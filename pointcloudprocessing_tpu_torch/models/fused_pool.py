@@ -22,14 +22,27 @@ chain goes through both kernels: both T-Nets' ``conv_layer_3`` and the
 trunk's ``mlp_2_3``, each with c_in = 128 and c = 1024. On the CPU the same
 code runs the kernels' plain versions.
 
-With running statistics the forward is plain PyTorch in the JAX package's
-operation order (it takes no kernel there either), and the backward is the
-JAX package's running-statistics branch: the winners' gradient alone, which
-is the backward kernel with a zero dense term (m = 0, row = 0). A training
-step reaches it only when a frozen chain sits below a trained parameter
-(the trunk frozen under a trained input T-Net): ``init_train_state`` turns
-``requires_grad`` off on frozen parameters, so a frozen input T-Net, which
-only raw points feed, runs without autograd.
+With running statistics and no gradient to keep (inference, or a frozen
+chain that nothing trained feeds), an f32 chain on a CUDA tensor takes the
+forward kernel alone, with the running statistics folded into its affine
+(``a = scale / sqrt(running_var + eps)``, ``c_row = bias - running_mean *
+a``), so no (b, n, c) activation is written. Every width the kernel does
+not take raises there, as in training. The JAX package takes no kernel
+there (its f32 chains keep the jnp path); the port's forward kernel is
+exact in f32, as above. On the CPU, and in bf16, the forward is plain
+PyTorch in the JAX package's operation order: the CPU keeps the JAX
+package's numbers for the parity tests and ``export/pt2.py``'s trace, and
+bf16 rounds each step as the jnp branch does (below), which the bf16
+kernel does not reproduce.
+
+With running statistics and a gradient to keep, the forward is that plain
+one and the backward is the JAX package's running-statistics branch: the
+winners' gradient alone, which is the backward kernel with a zero dense
+term (m = 0, row = 0). A training step reaches it only when a frozen chain
+sits below a trained parameter (the trunk frozen under a trained input
+T-Net): ``init_train_state`` turns ``requires_grad`` off on frozen
+parameters, so a frozen input T-Net, which only raw points feed, runs
+without autograd, and takes the kernel.
 
 Over a process group (``parallel.mesh.sync_batch_stats``, the global
 training mode) the forward sums ``x^T 1``, ``x^T x`` and the row count over
@@ -151,6 +164,13 @@ class _BatchStatsChain(torch.autograd.Function):
         return dx.to(ctx.in_dtype), dweight, dscale, dbias, None, None, None
 
 
+def _inference_kernel(device: torch.device, x_dtype: torch.dtype,
+                      dtype: torch.dtype | None) -> bool:
+    """Whether a running-statistics chain with no gradient to keep takes
+    the forward kernel: on CUDA, computed in f32 (``dtype`` None, x f32)."""
+    return device.type == "cuda" and dtype is None and x_dtype == torch.float32
+
+
 def _running_forward(x, weight, scale, bias, running_mean, running_var, eps,
                      dtype):
     """The running-statistics chain's forward in the JAX package's operation
@@ -220,7 +240,11 @@ def dense_bn_relu_max(
             t.requires_grad for t in (x, weight, scale, bias)):
         pooled = _RunningStatsChain.apply(
             x, weight, scale, bias, running_mean, running_var, eps, dtype)
-    else:  # inference: no winner bookkeeping
+    elif _inference_kernel(x.device, x.dtype, dtype):
+        a = scale * torch.rsqrt(running_var + eps)
+        c_row = torch.addcmul(bias, running_mean, a, value=-1.0)
+        pooled, _ = pooled_chain_forward(x, weight, a, c_row)
+    else:  # CPU or bf16 inference: no winner bookkeeping
         r, _ = _running_forward(x, weight, scale, bias, running_mean,
                                 running_var, eps, dtype)
         pooled = r.amax(dim=1).float()

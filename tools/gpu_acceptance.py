@@ -229,14 +229,16 @@ def check_inference_precision_drift(device="cuda", b: int = 16,
                                     n: int = 1024) -> list[Result]:
     """Logits at matmul precision "high" (TF32 on the card) against
     "highest" on the 23/12 PointNet: the drift must stay within the serving
-    tolerance, 1e-2 on the softmax outputs."""
+    tolerance, 1e-2 on the softmax outputs. Its three pooled chains take
+    kernel 4 (3xTF32 in either mode) on the card."""
     from pointcloudprocessing_tpu_torch.models import PointNet
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import pooled_chain_forward
 
     model = PointNet(23, 12, generator=torch.Generator().manual_seed(0),
                      device=device).eval()
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(device)
-    with torch.no_grad():
+    with torch.no_grad(), launching(device, (pooled_chain_forward, "launches")):
         with matmul_precision("high"):
             o_high = model(x)
         with matmul_precision("highest"):
@@ -296,11 +298,12 @@ def check_dgcnn_factored_edge(device="cuda", b: int = 8, n: int = 256) -> list[R
 
 
 def check_shardmap_pipeline(device="cuda") -> list[Result]:
-    """The serving pipeline (voxel -> FPS -> PointNet, kernels 1 and 2 on
-    the card) over a one-device mesh must match the plain pipeline bit for
-    bit (one shard: there is nothing to gather)."""
+    """The serving pipeline (voxel -> FPS -> PointNet, kernels 1, 2 and 4
+    on the card) over a one-device mesh must match the plain pipeline bit
+    for bit (one shard: there is nothing to gather)."""
     from pointcloudprocessing_tpu_torch.models import PointCloudPipeline, PointNet
     from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
+    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import pooled_chain_forward
     from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import sorted_segment_reduce
 
     model = PointNet(23, 12, generator=torch.Generator().manual_seed(0),
@@ -310,7 +313,8 @@ def check_shardmap_pipeline(device="cuda") -> list[Result]:
     kwargs = dict(scan_width=2048, model_width=1024, voxel_size=0.4, sampler="fps")
     plain = PointCloudPipeline(model, **kwargs)
     sharded = PointCloudPipeline(model, mesh=[device], **kwargs)
-    kernels = ((sorted_segment_reduce, "launches"), (fps_with_points, "launches"))
+    kernels = ((sorted_segment_reduce, "launches"), (fps_with_points, "launches"),
+               (pooled_chain_forward, "launches"))
     with launching(device, *kernels):
         want = plain(scans)
     with launching(device, *kernels):
