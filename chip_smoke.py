@@ -93,7 +93,9 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    through its plain version (bit-identical) and against the literal edge
    dataflow; clouds/s over three windows, busy share, device ms by kind
    (distance GEMM, topk, kernel 7, the rest); kernel 7 launches four times
-   a forward; one ``PointCloudPipeline.stream()`` with the DGCNN model.
+   a forward, and ``knn_graph.calls`` counts four graphs a dynamic forward
+   and one a static one; one ``PointCloudPipeline.stream()`` with the DGCNN
+   model.
 9. pointnet2: (a) the any-rank segment sum (kernel 3) against its plain
    version: bit-identical to it on a CPU copy and within a summation-order
    bar of it on the card, on the path's voxel and stride ranks at 256x2000,
@@ -2480,6 +2482,7 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
             model(x)  # warm-up
             count = 10
             setattr(gather_maxmin, counter, 0)
+            graphs_before = dgcnn_mod.knn_graph.calls
             # ---- the DGCNN path: counted launches start here
             rates = []
             for _ in range(3):
@@ -2490,10 +2493,15 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
                 torch.cuda.synchronize()
                 rates.append(b * count / (time.perf_counter() - t0))
             launches = getattr(gather_maxmin, counter)
+            graphs_built = dgcnn_mod.knn_graph.calls - graphs_before
             # ---- the DGCNN path ends here
             if launches != 4 * 3 * count:
                 raise AssertionError(f"DGCNN {graph}: kernel 7 launched {launches} "
                                      f"times in {3 * count} forwards (4 each)")
+            per_forward_graphs = 4 if graph == "dynamic" else 1
+            if graphs_built != per_forward_graphs * 3 * count:
+                raise AssertionError(f"DGCNN {graph}: {graphs_built} kNN graphs built in "
+                                     f"{3 * count} forwards ({per_forward_graphs} each)")
             results["launches"] += launches
             check_outputs(torch, out, b, n)
             with route_gather(gather_maxmin_reference):
@@ -2548,7 +2556,7 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
             + ", ".join(f"{r:.1f}" for r in rates)
             + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
             f"busy share {share} over 3 forwards; kernel 7 launches {launches} "
-            f"(4 a forward)")
+            f"(4 a forward); kNN graphs {graphs_built} ({per_forward_graphs} a forward)")
         log(f"{tag} {graph}: through kernel 7 vs its plain version: "
             f"bit-identical" + ("" if dtype is not None else
             "; vs the literal edge dataflow: max abs diff "

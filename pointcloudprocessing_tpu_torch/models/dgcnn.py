@@ -26,6 +26,13 @@ a CPU one, as the JAX package takes ``factored`` on its accelerator. kNN is
 exact (``torch.topk``) in f32 with TF32 off; the JAX package's approximate
 TPU search is not ported.
 
+Inside a profiler session each graph's search is the span
+``pcp.model.knn`` and each EdgeConv's edge block (p and q or the literal
+edges, ``gather_maxmin``, BatchNorm, relu, the max) the span
+``pcp.model.edge`` (``utils/profiling.span``); ``knn_graph.calls`` counts
+the graphs built, 4 a dynamic forward and 1 a static one (``chip_smoke.py``
+holds its DGCNN phases to it).
+
 ``dtype=torch.bfloat16`` casts the normalized points to bf16 before the
 trunk and runs every block but the heads' last layers in bf16, as the JAX
 package does: the static graph is built from the f32 points before the
@@ -55,6 +62,7 @@ from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
 from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
 from pointcloudprocessing_tpu_torch.utils.device import require_device
+from pointcloudprocessing_tpu_torch.utils.profiling import span
 
 EDGE_IMPLS = ("auto", "reference", "factored")
 GRAPHS = ("dynamic", "static")
@@ -65,12 +73,20 @@ def knn_graph(feats: torch.Tensor, k: int) -> torch.Tensor:
     included: (b, n, c) -> (b, n, k) int32. Exact ``topk`` on the clamped
     expanded distance ``|q|^2 + |p|^2 - 2 q.p`` in f32 with TF32 off (the
     expansion cancels; see ``ops/knn.py``)."""
-    f = feats.float()
-    sq = (f * f).sum(dim=-1)
-    with full_f32_matmul():
-        cross = torch.matmul(f, f.transpose(1, 2))
-    d = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * cross, min=0.0)
-    return torch.topk(-d, k, dim=-1).indices.int()
+    _COUNTED.calls += 1
+    with span("pcp.model.knn"):
+        f = feats.float()
+        sq = (f * f).sum(dim=-1)
+        with full_f32_matmul():
+            cross = torch.matmul(f, f.transpose(1, 2))
+        d = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * cross, min=0.0)
+        return torch.topk(-d, k, dim=-1).indices.int()
+
+
+#: graphs built in this process, counted on the function itself even while
+#: a recorder stands in for the module's name
+knn_graph.calls = 0
+_COUNTED = knn_graph
 
 
 def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -111,10 +127,11 @@ class EdgeConv(nn.Module):
             impl = "factored" if x.device.type == "cuda" else "reference"
         if idx is None:
             idx = knn_graph(x, self.k)
-        if impl == "reference":
-            h = self.l1(edge_features(x, idx), train=train, frozen=frozen)
-            return h.amax(dim=2)
-        return self._factored(x, idx, train=train, frozen=frozen)
+        with span("pcp.model.edge"):
+            if impl == "reference":
+                h = self.l1(edge_features(x, idx), train=train, frozen=frozen)
+                return h.amax(dim=2)
+            return self._factored(x, idx, train=train, frozen=frozen)
 
     def _factored(self, x, idx, *, train: bool, frozen: bool) -> torch.Tensor:
         c = x.shape[-1]

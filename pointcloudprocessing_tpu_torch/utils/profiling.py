@@ -65,8 +65,10 @@ def span(name: str):
     annotation, which also puts a device row of the span's name among the
     kernels. A default session records only the thread that opened it
     (the profiler's callbacks are thread-local); :func:`trace` records
-    every thread."""
-    if not autograd_profiler._is_profiler_enabled:
+    every thread. While a program is being traced for export or
+    compilation a span is the null context too, so that a span inside a
+    ``forward`` never reaches the traced graph."""
+    if not autograd_profiler._is_profiler_enabled or torch.compiler.is_compiling():
         return _OFF
     return torch._C._profiler._RecordFunctionFast(name)
 

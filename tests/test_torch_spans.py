@@ -199,22 +199,34 @@ def test_a_default_session_records_only_its_own_thread(every_thread):
     assert [s.name for s in _spans(prof)] == expect
 
 
-def test_exported_programs_hold_no_span(tmp_path):
-    """Spans sit around the model's call, never inside a ``forward``: a
-    ``.pt2`` traced while a session records spans, and the ONNX writer's
-    graph, hold no ``pcp.`` node."""
-    from pointcloudprocessing_tpu_torch.export.onnx_native import export_onnx_native
+@pytest.mark.parametrize("family", ["pointnet", "dgcnn"])
+def test_exported_programs_hold_no_span(tmp_path, family):
+    """Spans sit around PointNet's call and inside DGCNN's ``forward``
+    (``pcp.model.knn``, ``pcp.model.edge``), and neither reaches an exported
+    program: a ``.pt2`` traced while a session records spans, and the ONNX
+    writer's graph, hold no ``pcp.`` node."""
+    from pointcloudprocessing_tpu_torch.export.onnx_native import (
+        export_onnx_native,
+        export_onnx_native_dgcnn,
+    )
     from pointcloudprocessing_tpu_torch.export.pt2 import export_program
+    from pointcloudprocessing_tpu_torch.models.dgcnn import DGCNN
 
-    model = PointNet(C, P, vanilla=True, generator=torch.Generator().manual_seed(1),
-                     device="cpu").eval()
+    if family == "pointnet":
+        model = PointNet(C, P, vanilla=True, generator=torch.Generator().manual_seed(1),
+                         device="cpu").eval()
+        write_onnx = export_onnx_native
+    else:
+        model = DGCNN(C, P, k=8, edge_widths=(16, 16, 32, 32), emb_width=64,
+                      generator=torch.Generator().manual_seed(1), device="cpu").eval()
+        write_onnx = export_onnx_native_dgcnn
     with profile(activities=[ProfilerActivity.CPU]):
         exported = export_program(model, 32, str(tmp_path / "m.pt2"), batch_size=2,
                                   device="cpu")
     text = str(exported.graph_module.graph) + "".join(
         str(node.args) for node in exported.graph_module.graph.nodes)
     assert "pcp." not in text and "record_function" not in text
-    onnx = export_onnx_native(model, 32, str(tmp_path / "m.onnx"), print_func=lambda _: None)
+    onnx = write_onnx(model, 32, str(tmp_path / "m.onnx"), print_func=lambda _: None)
     with open(onnx, "rb") as f:
         assert b"pcp." not in f.read()
 
