@@ -92,10 +92,22 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    graph: the factored edge block through kernel 7 against the same
    through its plain version (bit-identical) and against the literal edge
    dataflow; clouds/s over three windows, busy share, device ms by kind
-   (distance GEMM, topk, kernel 7, the rest); kernel 7 launches four times
-   a forward, and ``knn_graph.calls`` counts four graphs a dynamic forward
-   and one a static one; one ``PointCloudPipeline.stream()`` with the DGCNN
-   model.
+   (the kNN kernel, kernel 7, GEMMs, the rest); kernel 7 launches four times
+   a forward, ``knn_graph.calls`` counts four graphs a dynamic forward and
+   one a static one, and the kNN kernel launches once a graph; one
+   ``PointCloudPipeline.stream()`` with the DGCNN model. Before that, the
+   kNN kernel (``ops/cuda/knn_select.py``, its own generator ``KNN_SEED``)
+   against its plain version (the expansion and ``torch.topk``) on the
+   features of the dynamic model's four graphs at 256x1024 (c 3, 64, 64,
+   128) and 8x8192, and through ``knn_graph`` (one launch each) on ragged n
+   and c, k 1 / 32 / n and k 33 to 256 (every list width), repeated
+   points, an integer grid and 4-byte-aligned features: every index in [0,
+   n), every row distinct and ascending, and every row that differs from
+   the plain version's a tie within tau (``KNN_TIE_SCALE`` 16 units of
+   2^-23 (|x_i|^2 + max |x_j|^2)) of the exact float64 k-th distance, the
+   largest excess a graph printed and held to ``KNN_EXCESS_LIMIT`` (8
+   units); a graph at 256x1024x128 adding under 64 MB of device memory;
+   device ms of both at 256x1024 beside the kernel's bound.
 9. pointnet2: (a) the any-rank segment sum (kernel 3) against its plain
    version: bit-identical to it on a CPU copy and within a summation-order
    bar of it on the card, on the path's voxel and stride ranks at 256x2000,
@@ -223,7 +235,7 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    DGCNN and PointNet++ (23/12, 8x1024) one global step each within the
    same bars (each DGCNN kNN row whose set differs from the ranks' a proven
    float64 tie, the single-device steps taking the ranks' sets there),
-   DGCNN's global eval step (kernel 7 four times a rank) within
+   DGCNN's global eval step (kernel 7 and the kNN kernel four times a rank) within
    1e-5 of the single-device one, PointNet++'s FPS twice a rank. (c)
    ``PointCloudPipeline(mesh=[cuda] * 2)`` at 256x2048 -> voxel 0.4 -> FPS
    -> 1024: FPS picks identical to the single-device pipeline's, heads
@@ -262,8 +274,12 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    ``tools/torch/bench_ingest.py 20 8192`` (host only) and what this run's
    earlier traces recorded (retries, the pre-roll's lost rows by age).
 
-The second-to-last line is a JSON object with each of the seven kernels'
-and the three bf16 forms' launches on their paths (kernels 4 and 5 count
+The second-to-last line is a JSON object with each of the seven kernels',
+the three bf16 forms' and the kNN kernel's launches on their paths (the kNN
+kernel phases 8 and 11's DGCNN windows and stream, phase 10's DGCNN stage,
+phase 13's eager references and phase 14's steps; its ``max_abs_err`` the
+largest excess of phase 8's graphs off the exact sets, in tau's units;
+kernels 4 and 5 count
 phase 12's CLI run and grid too, kernels 2 and 7 phase 13's eager
 reference forwards, kernels 1, 2, 4, 5 and 7 phase 14's steps, serving and
 FPS forms in this process and its ranks, kernels 1, 2, 4-bf16 and 5-bf16
@@ -436,7 +452,7 @@ NORMALS_KINDS = (("window_moments", ("window_moments",)),
                  ("segment_sum", ("sorted_segment_sum",)), ("fps", ("fps_kernel",)),
                  ("sort", ("sort", "radix")), ("gemm", ("gemm",)),
                  ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
-DGCNN_KINDS = (("gather_maxmin", ("gather_maxmin",)), ("topk", ("topk", "sort")),
+DGCNN_KINDS = (("gather_maxmin", ("gather_maxmin",)), ("knn_select", ("knn_select",)),
                ("gemm", ("gemm",)), ("elementwise", ("elementwise",)),
                ("reduce", ("reduce",)))
 
@@ -2436,6 +2452,259 @@ def record_knn():
         dgcnn_mod.knn_graph = real
 
 
+@contextlib.contextmanager
+def count_knn():
+    """Count the DGCNN kNN graphs built in the block by device type (a
+    stand-in for ``models.dgcnn.knn_graph``): the card's take the kernel,
+    the CPU copies that export traces do not."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+
+    real, graphs = dgcnn_mod.knn_graph, {"cuda": 0, "cpu": 0}
+
+    def counting(feats, k):
+        graphs[feats.device.type] = graphs.get(feats.device.type, 0) + 1
+        return real(feats, k)
+
+    dgcnn_mod.knn_graph = counting
+    try:
+        yield graphs
+    finally:
+        dgcnn_mod.knn_graph = real
+
+
+#: tau's constant of the kNN tie rule, in units of 2^-23 (|x_i|^2 + max_j
+#: |x_j|^2): the benchmark's (``gpubench/configs/dgcnn_kc46.py::TIE_SCALE``)
+KNN_TIE_SCALE = 16.0
+#: the largest excess of a graph's rows off the exact float64 sets that
+#: phase 8 takes, in the same units: half of tau (the benchmark's own
+#: reports reached 6.47 on the kernel's graphs)
+KNN_EXCESS_LIMIT = 8.0
+#: the kNN kernel checks' own generator, so later phases draw as before
+KNN_SEED = 26
+KNN_SRC = "pointcloudprocessing_tpu_torch/csrc/knn_select.cu"
+KNN_TPU = "none (the JAX package's knn_graph is an XLA einsum and lax.top_k / approx_min_k)"
+
+
+def knn_excess(torch, feats, idx):
+    """A kNN graph idx (b, n, k) of feats (b, n, c) against the exact
+    float64 graph of the same features, a row at a time: (its set differs
+    from the exact one, its members are distinct, its excess: how far its
+    farthest member lies past the exact k-th distance in units of 2^-23
+    (|x_i|^2 + max_j |x_j|^2) over the two sets, a member nearer than the
+    one before it by more than tau), each (b, n)."""
+    b, n, k = idx.shape
+    clouds = max(1, 2 ** 25 // (n * n))
+    parts = []
+    for at in range(0, b, clouds):
+        f = feats[at:at + clouds].double()
+        ix = idx[at:at + clouds].long()
+        sq = (f * f).sum(-1)
+        d = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * (f @ f.transpose(1, 2)),
+                        min=0.0)
+        own = torch.topk(d, k, dim=-1, largest=False).indices
+        got = d.gather(-1, ix)
+        rows = ix.shape[0]
+        reach = torch.maximum(sq.gather(1, own.reshape(rows, -1)).reshape(rows, n, k),
+                              sq.gather(1, ix.reshape(rows, -1)).reshape(rows, n, k))
+        unit = 2.0 ** -23 * (sq + reach.amax(-1))
+        excess = (got.amax(-1) - d.gather(-1, own).amax(-1)) / unit
+        ordered = ix.sort(-1).values
+        parts.append(((own.sort(-1).values != ordered).any(-1),
+                      (ordered.diff(dim=-1) != 0).all(-1), excess,
+                      (got.diff(dim=-1) < -KNN_TIE_SCALE * unit[..., None]).any(-1)))
+        del f, d
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def check_knn_graph(torch, label: str, feats, got, plain) -> dict:
+    """The kernel's graph ``got`` against the plain version's ``plain`` on
+    the same features: every index in [0, n), every row's members distinct
+    and ascending by distance (within tau), and every row whose set
+    differs from the plain version's within tau (``KNN_TIE_SCALE``) of the
+    exact float64 k-th distance; raises on any other row. Returns the rows
+    that differ from the plain version's and from the exact sets, and the
+    largest excess of the kernel's and of the plain version's rows that
+    differ from the exact sets."""
+    n = feats.shape[1]
+    if got.shape != plain.shape or got.dtype != torch.int32:
+        raise AssertionError(f"{label}: the kernel gave {tuple(got.shape)} {got.dtype}, "
+                             f"the plain version {tuple(plain.shape)}")
+    if bool(((got < 0) | (got >= n)).any()):
+        raise AssertionError(f"{label}: an index outside [0, {n})")
+    differ, distinct, excess, unordered = knn_excess(torch, feats, got)
+    differ_p, _, excess_p, _ = knn_excess(torch, feats, plain)
+    vs_plain = (got.sort(-1).values != plain.sort(-1).values).any(-1)
+    far = vs_plain & (excess > KNN_TIE_SCALE)
+    for what, bad in (("repeats a member", ~distinct), ("is out of order", unordered),
+                      (f"lies past tau ({KNN_TIE_SCALE:g} units)", far)):
+        if bool(bad.any()):
+            cloud, row = bad.nonzero()[0].tolist()
+            raise AssertionError(
+                f"{label}: {int(bad.sum())} rows where the kernel's set {what}, first "
+                f"cloud {cloud} row {row}: {got[cloud, row].tolist()} (plain "
+                f"{plain[cloud, row].tolist()}, excess {excess[cloud, row].item():.3g})")
+    return {"rows": got.shape[0] * n, "vs_plain": int(vs_plain.sum()),
+            "differ": int(differ.sum()), "differ_plain": int(differ_p.sum()),
+            "largest": float(excess[differ].max()) if bool(differ.any()) else 0.0,
+            "largest_plain": float(excess_p[differ_p].max()) if bool(differ_p.any())
+            else 0.0}
+
+
+def knn_line(stats: dict) -> str:
+    return (f"{stats['vs_plain']} of {stats['rows']} rows differ from the plain version's "
+            f"set, each a tie within tau; rows off the exact float64 set: kernel "
+            f"{stats['differ']}, plain {stats['differ_plain']}; largest excess of those "
+            f"(units of 2^-23 (|x_i|^2 + max |x_j|^2)): kernel {stats['largest']:.3g}, "
+            f"plain {stats['largest_plain']:.3g}")
+
+
+def knn_excess_limit(label: str, stats: dict) -> None:
+    """Raise where a graph's largest excess off the exact sets passes
+    ``KNN_EXCESS_LIMIT``."""
+    if stats["largest"] > KNN_EXCESS_LIMIT:
+        raise AssertionError(f"[8 knn] {label}: the largest excess taken "
+                             f"{stats['largest']:.3g} passes {KNN_EXCESS_LIMIT:g} units")
+
+
+def knn_bound(b: int, n: int, c: int, k: int) -> tuple[float, str]:
+    """The kNN graph's least time on the card in ms: the n^2 c f32
+    multiply-adds a cloud on the CUDA cores, or its features read and its
+    indices written once."""
+    return roofline(4.0 * b * n * (c + k), 2.0 * b * n * n * c)
+
+
+def knn_case(torch, rng, b: int, n: int, c: int, kind: str):
+    """Features (b, n, c) f32 on the card: normal(0, 1); "repeats" (every
+    point four times: exact ties at 0); "grid" (integer coordinates in
+    [0, 8): exact ties everywhere); "unaligned" (a view 4 bytes past a
+    16-byte boundary, the kernel's 4-byte copies at c % 4 == 0)."""
+    if kind == "repeats":
+        x = np.repeat(rng.normal(size=(b, n // 4, c)), 4, axis=1)
+    elif kind == "grid":
+        x = rng.integers(0, 8, size=(b, n, c))
+    else:
+        x = rng.normal(size=(b, n, c))
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    if kind == "unaligned":
+        flat = torch.empty(x.numel() + 1, dtype=torch.float32, device="cuda")
+        view = flat[1:].view(b, n, c)
+        view.copy_(x)
+        return view
+    return x
+
+
+#: the kernel's edge cases: (b, n, c, k, kind); ragged n and c, k 1 / 32 /
+#: n, exact ties, the 4-byte copies, and k past 32 in each list width (2,
+#: 4 and 8 registers a lane: k 33, 40, 64, 65, 128, 129, 256)
+KNN_CASES = ((4, 1000, 5, 20, "normal"), (2, 100, 130, 32, "normal"),
+             (3, 64, 3, 1, "normal"), (2, 20, 20, 20, "normal"),
+             (2, 1024, 64, 20, "repeats"), (2, 512, 3, 20, "grid"),
+             (2, 777, 64, 20, "unaligned"), (1, 8192, 64, 32, "normal"),
+             (2, 1024, 3, 33, "normal"), (4, 1024, 64, 40, "normal"),
+             (2, 600, 64, 40, "repeats"), (2, 1000, 20, 64, "unaligned"),
+             (2, 513, 128, 65, "normal"), (2, 512, 3, 128, "grid"),
+             (1, 2048, 64, 129, "normal"), (2, 300, 8, 256, "normal"),
+             (1, 256, 3, 256, "normal"))
+
+
+def knn_kernel_checks(torch, model) -> dict:
+    """Phase 8's kNN kernel (``ops/cuda/knn_select.py``) against its plain
+    version (the expansion and ``torch.topk``) on the features that the f32
+    dynamic DGCNN ``model``'s four graphs meet at 256 x 1,024 (c 3, 64, 64,
+    128) and at 8 x 8,192 normal(0, 1) clouds, and on ``KNN_CASES``
+    (:func:`check_knn_graph`), each graph's largest excess off the exact
+    sets at most ``KNN_EXCESS_LIMIT``; ``knn_select.launches`` held to
+    ``knn_graph.calls`` (``KNN_CASES`` through ``knn_graph``, one launch
+    each at every k); the device memory a graph at 256 x 1,024 x 128 adds
+    (under 64 MB); device ms of both beside the kernel's bound at the
+    serving shape. Inputs from a generator of its own (``KNN_SEED``)."""
+    from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import (
+        knn_select,
+        knn_select_reference,
+    )
+
+    rng = np.random.default_rng(KNN_SEED)
+    k = model.k
+    largest = []
+    for b, n in ((256, 1024), (8, 8192)):
+        x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).cuda()
+        knn_select.launches = 0
+        calls = dgcnn_mod.knn_graph.calls
+        with torch.inference_mode(), record_knn() as met:
+            model(x)
+        torch.cuda.synchronize()
+        launched = knn_select.launches
+        built = dgcnn_mod.knn_graph.calls - calls
+        if (launched, built) != (4, 4):
+            raise AssertionError(f"[8 knn] {b}x{n}: {launched} kernel launches for "
+                                 f"{built} graphs in one dynamic forward (4 each)")
+        per_graph = []
+        for layer, (feats, got) in enumerate(met):
+            f = feats.float().contiguous()
+            stats = check_knn_graph(torch, f"[8 knn] {b}x{n} graph {layer + 1}", f, got,
+                                    knn_select_reference(f, k))
+            per_graph.append(stats["largest"])
+            log(f"[8 knn] {b}x{n}, graph {layer + 1} (c {f.shape[-1]}, k {k}), the "
+                f"model's features: {knn_line(stats)}")
+            knn_excess_limit(f"{b}x{n} graph {layer + 1}", stats)
+        largest.append(per_graph)
+        log(f"[8 knn] {b}x{n}: knn_select launches {launched} = knn_graph.calls {built}; "
+            "largest excess taken a graph: " + " / ".join(f"{e:.3g}" for e in per_graph))
+        del met
+    for b, n, c, kk, kind in KNN_CASES:
+        f = knn_case(torch, rng, b, n, c, kind)
+        label = f"{b}x{n}x{c} k {kk} {kind}"
+        knn_select.launches = 0
+        got = dgcnn_mod.knn_graph(f, kk)
+        if knn_select.launches != 1:
+            raise AssertionError(f"[8 knn] {label}: knn_graph launched the kernel "
+                                 f"{knn_select.launches} times (once wanted)")
+        stats = check_knn_graph(torch, f"[8 knn] {label}", f, got,
+                                knn_select_reference(f, kk))
+        log(f"[8 knn] {label}: {knn_line(stats)}")
+        knn_excess_limit(label, stats)
+
+    # device memory and time at the serving shape, on the features a
+    # dynamic forward's graphs meet (c 3, 64 and 128)
+    x = torch.from_numpy(rng.normal(size=(256, 1024, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode(), record_knn() as met:
+        model(x)
+    feats = {f.shape[-1]: f.float().contiguous() for f, _ in met}
+    del met
+    rise = {}
+    for name, fn in (("kernel", dgcnn_mod.knn_graph), ("plain", knn_select_reference)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn(feats[128], k)
+        torch.cuda.synchronize()
+        rise[name] = torch.cuda.max_memory_allocated() - before
+        del out
+    if rise["kernel"] >= 64 * 2 ** 20:
+        raise AssertionError(f"[8 knn] a knn_graph call at 256x1024x128 raised the "
+                             f"peak by {rise['kernel']} B (under 64 MB wanted)")
+    log(f"[8 knn] a knn_graph call at 256x1024x128 k {k} raises the peak device memory "
+        f"by {rise['kernel']:,} B (the plain version by {rise['plain']:,} B)")
+    times = {}
+    for c, f in sorted(feats.items()):
+        ms = device_ms(torch, lambda: knn_select(f, k), 5)
+        plain_ms = device_ms(torch, lambda: knn_select_reference(f, k), 3)
+        bound = knn_bound(256, 1024, c, k)
+        times[c] = (ms, plain_ms, bound)
+        log(f"[8 knn] 256x1024 c {c} k {k}: kernel {fmt(ms)} device ms a graph, plain "
+            f"version {fmt(plain_ms)}, bound {bound[0]:.4f} ({bound[1]})")
+    graphs = [times[c] for c in (3, 64, 64, 128)]
+    traced = all(t[0] is not None and t[1] is not None for t in graphs)
+    total = [sum(t[i] for t in graphs) if traced else None for i in (0, 1)]
+    log(f"[8 knn] a dynamic forward's four graphs at 256x1024 (c 3, 64, 64, 128): kernel "
+        f"{fmt(total[0])} device ms, plain version {fmt(total[1])}, bound "
+        f"{sum(t[2][0] for t in graphs):.4f}")
+    return {"largest": largest, "ms": times[128][0], "plain_ms": times[128][1],
+            "bound": times[128][2],
+            "err": max(max(g) for g in largest)}
+
+
 def phase_dgcnn(torch, rng, dtype=None) -> dict:
     """DGCNN 23/12 at full width (edge widths 64, 64, 128, 256, embedding
     1024, k 20, f32, seeded init) built by model_from_config from a config
@@ -2454,6 +2723,7 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
         gather_maxmin,
         gather_maxmin_reference,
     )
+    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
 
     dev = torch.device("cuda")
     tag = "[11 bf16]" if dtype is not None else "[8 dgcnn]"
@@ -2461,7 +2731,7 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
     counter = "launches_bf16" if dtype is not None else "launches"
     b, n = 64, 1024
     x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
-    results = {"launches": 0}
+    results = {"launches": 0, "knn_launches": 0}
     for graph in ("dynamic", "static"):
         cfg = parse_config({
             "info": {"name": "smoke_dgcnn",
@@ -2478,10 +2748,13 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
         edges = [m for m in model.modules() if isinstance(m, dgcnn_mod.EdgeConv)]
         if next(model.parameters()).device.type != "cuda" or len(edges) != 4:
             raise AssertionError("model_from_config did not build DGCNN on the card")
+        if graph == "dynamic" and dtype is None:
+            results["knn"] = knn_kernel_checks(torch, model)
         with torch.inference_mode():
             model(x)  # warm-up
             count = 10
             setattr(gather_maxmin, counter, 0)
+            knn_select.launches = 0
             graphs_before = dgcnn_mod.knn_graph.calls
             # ---- the DGCNN path: counted launches start here
             rates = []
@@ -2494,6 +2767,7 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
                 rates.append(b * count / (time.perf_counter() - t0))
             launches = getattr(gather_maxmin, counter)
             graphs_built = dgcnn_mod.knn_graph.calls - graphs_before
+            knn_launches = knn_select.launches
             # ---- the DGCNN path ends here
             if launches != 4 * 3 * count:
                 raise AssertionError(f"DGCNN {graph}: kernel 7 launched {launches} "
@@ -2502,7 +2776,11 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
             if graphs_built != per_forward_graphs * 3 * count:
                 raise AssertionError(f"DGCNN {graph}: {graphs_built} kNN graphs built in "
                                      f"{3 * count} forwards ({per_forward_graphs} each)")
+            if knn_launches != graphs_built:
+                raise AssertionError(f"DGCNN {graph}: the kNN kernel launched "
+                                     f"{knn_launches} times for {graphs_built} graphs")
             results["launches"] += launches
+            results["knn_launches"] += knn_launches
             check_outputs(torch, out, b, n)
             with route_gather(gather_maxmin_reference):
                 plain = model(x)
@@ -2545,18 +2823,14 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
             kinds = kernel_breakdown(torch, lambda: [model(x) for _ in range(2)],
                                      calls=2, kinds=DGCNN_KINDS)
             per_forward = kernels_per_call(torch, lambda: [model(x) for _ in range(2)], 2)
-            # the distance GEMMs alone: each EdgeConv's kNN matmul on the
-            # features it met
-            feats = [f.float() for f, _ in met]
-            dist_ms = device_ms(torch, lambda: [torch.matmul(f, f.transpose(1, 2))
-                                                for f in feats], 3)
         rate = float(np.median(rates))
         log(f"{tag} DGCNN 23/12 {kind} k20 {graph} graph, {b}x{n} normal(0, 1): "
             f"clouds/s over 3 windows of {count} forwards: "
             + ", ".join(f"{r:.1f}" for r in rates)
             + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
             f"busy share {share} over 3 forwards; kernel 7 launches {launches} "
-            f"(4 a forward); kNN graphs {graphs_built} ({per_forward_graphs} a forward)")
+            f"(4 a forward); kNN graphs {graphs_built} ({per_forward_graphs} a forward), "
+            f"kNN kernel launches {knn_launches}")
         log(f"{tag} {graph}: through kernel 7 vs its plain version: "
             f"bit-identical" + ("" if dtype is not None else
             "; vs the literal edge dataflow: max abs diff "
@@ -2564,11 +2838,8 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
             + f"; segmentation rows beyond 1e-4: {seg_rows:.5f}; kNN rows with "
             f"another neighbour set, by layer: {swaps}"))
         if kinds:
-            gemm_rest = kinds["gemm"] - (dist_ms or 0.0)
-            log(f"{tag} {graph}: device ms per forward by kind: distance GEMM "
-                f"{fmt(dist_ms)} ({len(feats)} kNN graphs), other GEMM "
-                f"{gemm_rest:.4f}, " + ", ".join(
-                    f"{kind} {ms:.4f}" for kind, ms in kinds.items() if kind != "gemm")
+            log(f"{tag} {graph}: device ms per forward by kind: " + ", ".join(
+                    f"{kind} {ms:.4f}" for kind, ms in kinds.items())
                 + f"; total {sum(kinds.values()):.4f}; device activities a "
                 f"forward: {per_forward}")
         else:
@@ -2581,18 +2852,22 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
     # one stream through the pipeline: voxel 0.4 -> FPS -> 1024 -> DGCNN
     pipe = PointCloudPipeline(model, scan_width=2048, model_width=n, voxel_size=0.4)
     batches = [rng.uniform(-20, 20, (b, 2048, 3)).astype(np.float32) for _ in range(3)]
-    before = gather_maxmin.launches
+    gather_maxmin.launches = knn_select.launches = 0
+    # ---- the DGCNN stream: counted launches
     outs = list(pipe.stream(iter(batches)))
     torch.cuda.synchronize()
-    streamed = gather_maxmin.launches - before
+    streamed, knn_streamed = gather_maxmin.launches, knn_select.launches
+    # ---- the DGCNN stream ends here
     results["launches"] += streamed
-    if len(outs) != 3 or streamed != 12:
-        raise AssertionError(f"DGCNN stream: {len(outs)} batches, {streamed} launches")
+    results["knn_launches"] += knn_streamed
+    if len(outs) != 3 or streamed != 12 or knn_streamed != 3:
+        raise AssertionError(f"DGCNN stream: {len(outs)} batches, {streamed} kernel 7 "
+                             f"launches, {knn_streamed} kNN kernel launches")
     for o in outs:
         check_outputs(torch, o, b, n)
     log(f"[8 dgcnn] PointCloudPipeline.stream over 3 batches of {b}x2048 "
         f"(voxel 0.4 -> FPS -> {n} -> DGCNN, static graph): outputs ok, kernel 7 "
-        f"launches {streamed}")
+        f"launches {streamed}, kNN kernel launches {knn_streamed}")
     return results
 
 
@@ -3342,6 +3617,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     )
     from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
+    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
     from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
         pooled_chain_backward,
         pooled_chain_forward,
@@ -3357,16 +3633,17 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     classes = list(kc46["info"]["class_labels"].values())
     parts = list(kc46["info"]["part_labels"].values())
     stages = list(kc46["info"]["training_profiles"])
-    out = {"launches": {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0}}
+    out = {"launches": {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0}}
 
     def reset():
         for fn in (pooled_chain_forward, pooled_chain_backward, fps_with_points,
-                   gather_maxmin):
+                   gather_maxmin, knn_select):
             fn.launches = 0
 
     def read():
         got = {"fwd": pooled_chain_forward.launches, "bwd": pooled_chain_backward.launches,
-               "fps": fps_with_points.launches, "gather": gather_maxmin.launches}
+               "fps": fps_with_points.launches, "gather": gather_maxmin.launches,
+               "knn": knn_select.launches}
         for k, v in got.items():
             out["launches"][k] += v
         return got
@@ -3569,7 +3846,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         t0 = time.perf_counter()
         # ---- the main path (a family through the trainer): counted launches
         try:
-            with recording:
+            with recording, count_knn() as graphs:
                 hist = TrainProfile(fam_cfg, log_to_file=False).train()[stages[-1]]
         finally:
             logger.removeHandler(handler)
@@ -3589,11 +3866,16 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         if got[kernel] != per_forward * forwards:
             raise AssertionError(f"trainer {family}: {kernel} launches "
                                  f"{got[kernel]}, want {per_forward} x {forwards}")
+        if got["knn"] != graphs["cuda"] or (family == "dgcnn") != (got["knn"] > 0):
+            raise AssertionError(f"trainer {family}: {got['knn']} kNN kernel launches "
+                                 f"for {graphs['cuda']} kNN graphs on the card")
         log(f"[10 trainer] {family} 23/12 at {batch}x{width} (stage {stages[-1]}, "
             f"2 epochs) in {seconds:.1f} s (its export apart): loss {hist['loss'][0]:.4f} -> "
             f"{hist['loss'][-1]:.4f}; kernel {'2 (FPS)' if kernel == 'fps' else '7'} "
             f"launches {got[kernel]} = {per_forward} x {forwards} "
-            f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}")
+            f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}"
+            + (f"; kNN kernel launches {got['knn']} = kNN graphs on the card "
+               f"(and {graphs['cpu']} on the CPU)" if got["knn"] else ""))
         if family == "dgcnn":
             if [q.shape[2] for q, _, _ in gathers] != [64, 64, 128, 256]:
                 raise AssertionError("trainer dgcnn: recorded gathers of widths "
@@ -3735,7 +4017,7 @@ def phase_bf16(torch, rng, trained: dict, dgcnn: dict, pn2: dict,
                          + steps["B"]["launches"]["fwd"],
                          "bwd": steps["A"]["launches"]["bwd"]
                          + steps["B"]["launches"]["bwd"],
-                         "gather": dg["launches"]}}
+                         "gather": dg["launches"], "knn": dg["knn_launches"]}}
 
 
 # --------------------------- phase 12: synthesis, legacy models, ops, the grid
@@ -4620,6 +4902,7 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
     from pointcloudprocessing_tpu_torch.data.pointcloudset import load_from_file
     from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
+    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
 
     t_phase = time.perf_counter()
     exports = trainer["export"]
@@ -4640,19 +4923,25 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
         f"10 and 11 trained (f32 and bf16 compute); held on the {len(points)} test clouds of stage {stage}")
 
     per_forward = {"pointnet": {}, "pointnet2": {"fps": 2}, "dgcnn": {"gather": 4}}
-    launches = {"fps": 0, "gather": 0}
+    launches = {"fps": 0, "gather": 0, "knn": 0}
     with tempfile.TemporaryDirectory() as work:
         loaded = load_programs(card, exports, points, work)
         for family in ("pointnet", "pointnet2", "dgcnn"):
-            fps_with_points.launches = gather_maxmin.launches = 0
+            fps_with_points.launches = gather_maxmin.launches = knn_select.launches = 0
             # ---- the export path (eager references on the card): counted launches
-            got = export_family(torch, card, family, exports[family], points,
-                                loaded[family])
+            with count_knn() as graphs:
+                got = export_family(torch, card, family, exports[family], points,
+                                    loaded[family])
             torch.cuda.synchronize()
-            counts = {"fps": fps_with_points.launches, "gather": gather_maxmin.launches}
+            counts = {"fps": fps_with_points.launches, "gather": gather_maxmin.launches,
+                      "knn": knn_select.launches}
             # ---- the export path ends here
             want = {k: per_forward[family].get(k, 0) * got["forwards"]
                     for k in counts}
+            # the eager forwards' kNN graphs on the card take the kernel
+            want["knn"] = graphs["cuda"]
+            if (family == "dgcnn") != (want["knn"] > 0):
+                raise AssertionError(f"export {family}: {want['knn']} kNN graphs on the card")
             if counts != want:
                 raise AssertionError(f"export {family}: launches {counts}, want {want}")
             for k in counts:
@@ -4712,6 +5001,7 @@ def launch_counters() -> tuple:
     from pointcloudprocessing_tpu_torch.ops.cuda import (
         fps,
         gather_maxmin,
+        knn_select,
         pooled_chain,
         voxel_reduce,
         window_normals,
@@ -4729,6 +5019,7 @@ def launch_counters() -> tuple:
         (forward, "launches_bf16", "pooled_chain_forward_bf16"),
         (backward, "launches_bf16", "pooled_chain_backward_bf16"),
         (gather_maxmin.gather_maxmin, "launches_bf16", "gather_maxmin_bf16"),
+        (knn_select.knn_select, "launches", "knn_select"),
     )
 
 
@@ -4746,7 +5037,7 @@ def read_launches() -> dict:
 #: phase 14's short names of the f32 kernels' counters
 SHORT_NAMES = {"fwd": "pooled_chain_forward", "bwd": "pooled_chain_backward",
                "fps": "fps_with_points", "gather": "gather_maxmin",
-               "seg": "sorted_segment_sum"}
+               "seg": "sorted_segment_sum", "knn": "knn_select"}
 
 
 def kernel_counts() -> dict:
@@ -5166,7 +5457,7 @@ def gloo_ranks_on_card(torch) -> dict:
                               jitter=jitter_b, x=cpu(fx),
                               targets={k: cpu(v) for k, v in ft.items()},
                               eval=family == "dgcnn")
-    counts = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0}
+    counts = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0}
     with tempfile.TemporaryDirectory() as work:
         torch.save(inputs, os.path.join(work, "inputs.pt"))
         t0 = time.perf_counter()
@@ -5225,8 +5516,10 @@ def gloo_ranks_on_card(torch) -> dict:
             extra = f"; FPS launches {fps} (twice a forward a rank)"
         else:
             ev = [r[family]["eval_counts"]["gather"] for r in two]
-            if ev != [4, 4]:
-                raise AssertionError(f"[14 multi-device] dgcnn eval gather launches {ev}")
+            knn = [r[family]["eval_counts"]["knn"] for r in two]
+            if ev != [4, 4] or knn != [4, 4]:
+                raise AssertionError(f"[14 multi-device] dgcnn eval launches: kernel 7 "
+                                     f"{ev}, the kNN kernel {knn}")
             st, _ = steps.init_train_state(model, cfg.learning, freeze_b)
             want = steps.make_eval_step(model, weights_b, jitter_b)(
                 st, fx.to(dev), {k: v.to(dev) for k, v in ft.items()}, 5)
@@ -5235,8 +5528,9 @@ def gloo_ranks_on_card(torch) -> dict:
             if rel > 1e-5:
                 raise AssertionError(f"[14 multi-device] dgcnn global eval logs {rel:.3e} "
                                      "from the single-device eval step")
-            extra = (f"; global eval step: kernel 7 launches {ev} (four a forward a "
-                     f"rank), logs within {rel:.2e} of the single-device eval step")
+            extra = (f"; global eval step: kernel 7 launches {ev}, kNN kernel {knn} "
+                     f"(four each a forward a rank), logs within {rel:.2e} of the "
+                     "single-device eval step")
         if family == "dgcnn":
             extra += (f"; kNN rows flipped {worst['knn']}, each a proven tie, the "
                       "single-device steps taking the ranks' sets there")
@@ -5351,7 +5645,7 @@ def phase_multidevice(torch, trained: dict, model) -> dict:
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(PHASE14_SEED + 2)
-    launches = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "seg": 0}
+    launches = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "seg": 0, "knn": 0}
     for part in (one_rank_group(torch, trained), gloo_ranks_on_card(torch),
                  sharded_serving(torch, rng, model), fps_forms(torch, rng)):
         for k, v in part.items():
@@ -5570,6 +5864,7 @@ CALL_SYMBOLS = {
     "pooled_chain_forward_bf16": ("pooled_forward_tma_kernel",),
     "pooled_chain_backward_bf16": ("pooled_backward_prep_tma_kernel",
                                    "pooled_backward_dx_tma_kernel"),
+    "knn_select": ("knn_select_kernel",),
 }
 #: each workload's counted kernels (infer: the forward alone, once a chain,
 #: running statistics)
@@ -5908,6 +6203,13 @@ def main() -> int:
               bf16["launches"]["gather"], bf16["gather"]["err"],
               bf16["gather"]["ms"], bf16["gather"]["plain_ms"],
               bf16["gather"]["bound"]),
+        # max_abs_err: the largest excess of a graph's rows off the exact
+        # float64 sets, in units of 2^-23 (|x_i|^2 + max_j |x_j|^2)
+        entry("knn_select", KNN_SRC, KNN_TPU,
+              dgcnn["knn_launches"] + bf16["launches"]["knn"] + trainer["launches"]["knn"]
+              + exported["knn"] + multi["knn"],
+              dgcnn["knn"]["err"], dgcnn["knn"]["ms"], dgcnn["knn"]["plain_ms"],
+              dgcnn["knn"]["bound"]),
     ]
     for row in rows:  # phase 15's main path, the flagship
         row["launches"] += flagship["launches"].get(row["name"], 0)

@@ -23,8 +23,9 @@ An EdgeConv's edge MLP has two implementations over one parameter tree
 
 ``impl='auto'`` takes ``factored`` for a CUDA tensor and ``reference`` for
 a CPU one, as the JAX package takes ``factored`` on its accelerator. kNN is
-exact (``torch.topk``) in f32 with TF32 off; the JAX package's approximate
-TPU search is not ported.
+exact in f32: on CUDA the ``knn_select`` kernel, a distance tile and a
+register top-k a row; on the CPU an f32 product with TF32 off and
+``torch.topk``. The JAX package's approximate TPU search is not ported.
 
 Inside a profiler session each graph's search is the span
 ``pcp.model.knn`` and each EdgeConv's edge block (p and q or the literal
@@ -58,8 +59,8 @@ from pointcloudprocessing_tpu_torch.models.pointnet import (
     dropout,
 )
 from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
+from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
 from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
-from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
 from pointcloudprocessing_tpu_torch.utils.device import require_device
 from pointcloudprocessing_tpu_torch.utils.profiling import span
@@ -70,17 +71,15 @@ GRAPHS = ("dynamic", "static")
 
 def knn_graph(feats: torch.Tensor, k: int) -> torch.Tensor:
     """k nearest neighbours of every point within its own cloud, self
-    included: (b, n, c) -> (b, n, k) int32. Exact ``topk`` on the clamped
-    expanded distance ``|q|^2 + |p|^2 - 2 q.p`` in f32 with TF32 off (the
-    expansion cancels; see ``ops/knn.py``)."""
+    included: (b, n, c) -> (b, n, k) int32, ascending by the clamped
+    expanded distance ``|q|^2 + |p|^2 - 2 q.p`` of the f32 features (the
+    expansion cancels; see ``ops/knn.py``). A CUDA tensor takes the
+    ``knn_select`` kernel, which writes no (b, n, n) tensor; a CPU tensor
+    its plain version, an f32 product with TF32 off and an exact ``topk``
+    (``ops/cuda/knn_select.py``)."""
     _COUNTED.calls += 1
     with span("pcp.model.knn"):
-        f = feats.float()
-        sq = (f * f).sum(dim=-1)
-        with full_f32_matmul():
-            cross = torch.matmul(f, f.transpose(1, 2))
-        d = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * cross, min=0.0)
-        return torch.topk(-d, k, dim=-1).indices.int()
+        return knn_select(feats.float().contiguous(), k)
 
 
 #: graphs built in this process, counted on the function itself even while

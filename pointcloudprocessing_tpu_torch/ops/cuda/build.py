@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("voxel_reduce", "fps", "pooled_chain", "window_normals",
-           "gather_maxmin")
+           "gather_maxmin", "knn_select")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -66,6 +66,7 @@ _ENTRY = {
         "pcp_gather_maxmin_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _P],
         "pcp_gather_maxmin_bf16_ring":
             [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
+    "knn_select": {"pcp_knn_select": [_P, _P, _L, _I, _I, _I, _I, _P]},
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
