@@ -93,8 +93,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    through its plain version (bit-identical) and against the literal edge
    dataflow; clouds/s over three windows, busy share, device ms by kind
    (the kNN kernel, kernel 7, GEMMs, the rest); kernel 7 launches four times
-   a forward, ``knn_graph.calls`` counts four graphs a dynamic forward and
-   one a static one, and the kNN kernel launches once a graph; one
+   a forward, four graphs a dynamic forward and one a static one
+   (:func:`count_knn`), and the kNN kernel launches once a graph; one
    ``PointCloudPipeline.stream()`` with the DGCNN model. Before that, the
    kNN kernel (``ops/cuda/knn_select.py``, its own generator ``KNN_SEED``)
    against its plain version (the expansion and ``torch.topk``) on the
@@ -923,10 +923,10 @@ def phase_kernels(torch, rng) -> dict:
         time a selection step. Returns (device ms, indices, sampled)."""
         b = pts.shape[0]
         n = pts.shape[2] if layout == "bcn" else pts.shape[1]
-        before = fps_with_points.launches
+        before = counted("fps_with_points")
         idx, sampled, err = fps_against_plain(f"{b}x{n}->{k} {label}", pts, k,
                                               mask, start, layout)
-        if fps_with_points.launches != before + 1:
+        if counted("fps_with_points") != before + 1:
             raise AssertionError(f"FPS {b}x{n} {label}: the kernel did not launch")
         results["fps_err"] = max(results["fps_err"], err)
         ms = device_ms(torch, functools.partial(
@@ -1050,7 +1050,7 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
     dev = torch.device("cuda")
     bf16 = dtype is not None
     tag = "[11 bf16]" if bf16 else "[3 kernels]"
-    counter = "launches_bf16" if bf16 else "launches"
+    form = "_bf16" if bf16 else ""
     gen = torch.Generator(device=dev).manual_seed(3)
     c_in, c = 128, 1024
     results = {"fwd_err": 0.0, "bwd_err": 0.0}
@@ -1069,7 +1069,7 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
             pooled_chain_forward(*bad)
         except (TypeError, ValueError):
             refused += 1
-    if refused != 3 or getattr(pooled_chain_forward, counter):
+    if refused != 3 or counted("pooled_chain_forward" + form):
         raise AssertionError("pooled forward took a mixed-type, strided or "
                              "96-wide call")
     log(f"{tag} pooled forward refuses a {x0.dtype} x with a {mixed.dtype} "
@@ -1247,9 +1247,9 @@ def phase_pooled_kernels(torch, dtype=None) -> dict:
         (pooled * g_out).sum().backward()
         return pooled.detach(), [t.grad for t in leaves]
 
-    launched = getattr(pooled_chain_backward, counter)
+    launched = counted("pooled_chain_backward" + form)
     got_p, got_g = running_chain()
-    launched = getattr(pooled_chain_backward, counter) - launched
+    launched = counted("pooled_chain_backward" + form) - launched
     with route_pooled(pooled_chain_forward_reference, pooled_chain_backward_reference):
         want_p, want_g = running_chain()
     torch.cuda.synchronize()
@@ -1361,17 +1361,12 @@ def max_diff(a: dict, b: dict) -> float:
 
 def phase_slice(torch, rng, model) -> dict:
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import (
-        fps_with_points,
-        fps_with_points_reference,
-    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points_reference
     from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
         pooled_chain_backward_reference,
-        pooled_chain_forward,
         pooled_chain_forward_reference,
     )
     from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
-        sorted_segment_reduce,
         sorted_segment_reduce_reference,
     )
     from pointcloudprocessing_tpu_torch.ops.fps import (
@@ -1395,9 +1390,7 @@ def phase_slice(torch, rng, model) -> dict:
     def feed(count: int):
         return (pool[i % len(pool)] for i in range(count))
 
-    sorted_segment_reduce.launches = 0
-    fps_with_points.launches = 0
-    pooled_chain_forward.launches = 0
+    zero_launches("sorted_segment_sum", "fps_with_points", "pooled_chain_forward")
     # ---- the main path: counted launches start here
     first = fps_pipe(pool[0])  # warm-up (cuBLAS handles, allocator)
     # warm-up of stream() itself: its first side stream builds CUDA's
@@ -1419,9 +1412,8 @@ def phase_slice(torch, rng, model) -> dict:
     stride_out = stride_pipe(stride_batch)
     wide_out = wide_pipe(wide_batch)
     torch.cuda.synchronize()
-    launches = {"seg": sorted_segment_reduce.launches,
-                "fps": fps_with_points.launches,
-                "pooled_fwd": pooled_chain_forward.launches}
+    launches = {"seg": counted("sorted_segment_sum"), "fps": counted("fps_with_points"),
+                "pooled_fwd": counted("pooled_chain_forward")}
     # ---- the main path ends here
     if launches["seg"] == 0 or launches["fps"] == 0 or launches["pooled_fwd"] == 0:
         raise AssertionError(f"a kernel was not launched by the slice: {launches}")
@@ -1830,14 +1822,10 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
     import copy
 
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-        pooled_chain_backward,
-        pooled_chain_forward,
-    )
     from pointcloudprocessing_tpu_torch.train import steps
 
     tag = "[11 bf16]" if dtype is not None else "[6 train]"
-    counter = "launches_bf16" if dtype is not None else "launches"
+    form = "_bf16" if dtype is not None else ""
     b, n = cfg.batch_size, cfg.input_width
     seed = 0
     pristine = model_from_config(cfg, training=True, dropout_rate=0.3,
@@ -1881,16 +1869,15 @@ def train_case(torch, rng, label: str, cfg, freeze, loss_weights, jitter_m,
 
     state, step = runs[0]
     num_steps = 30
-    setattr(pooled_chain_forward, counter, 0)
-    setattr(pooled_chain_backward, counter, 0)
+    zero_launches("pooled_chain_forward" + form, "pooled_chain_backward" + form)
     # ---- the main path: counted launches start here
     losses = []
     for _ in range(num_steps):
         state, logs = step(state, x, targets, seed)
         losses.append(logs["loss"])
     torch.cuda.synchronize()
-    launches = {"fwd": getattr(pooled_chain_forward, counter),
-                "bwd": getattr(pooled_chain_backward, counter)}
+    launches = {"fwd": counted("pooled_chain_forward" + form),
+                "bwd": counted("pooled_chain_backward" + form)}
     # ---- the main path ends here
     losses = [float(v) for v in losses]
     if launches != {"fwd": chains * num_steps, "bwd": chains * num_steps}:
@@ -2073,12 +2060,12 @@ def phase_window_kernel(torch, rng) -> dict:
     results = {"err": 0.0}
     for label, (centered, mask, window, q_block), k in cases:
         args = (centered, mask, k, window, q_block, "bcn")
-        windowed_moment_sums.launches = 0
+        zero_launches("windowed_moment_sums")
         got = torch.stack(windowed_moment_sums(*args))
         torch.cuda.synchronize()
-        if windowed_moment_sums.launches != 1:
+        if counted("windowed_moment_sums") != 1:
             raise AssertionError(f"window moments ({label}): "
-                                 f"{windowed_moment_sums.launches} launches")
+                                 f"{counted('windowed_moment_sums')} launches")
         b, _, n = centered.shape
         # the plain version's memory is b x blocks x Q x C: compare the
         # 65,536-cloud case on its first and last 256 clouds
@@ -2193,6 +2180,7 @@ def phase_gather_kernel(torch, rng, dtype=None) -> dict:
     last row and one past it (``ring_rows(128)``) and the kc46 DGCNN
     stage's 8x8192 at w 64 / 128 / 256; an index outside [0, n) traps."""
     from pointcloudprocessing_tpu_torch.models.dgcnn import knn_graph
+    from pointcloudprocessing_tpu_torch.ops.cuda import build
     from pointcloudprocessing_tpu_torch.ops.cuda import gather_maxmin as gm
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
         gather_maxmin,
@@ -2258,7 +2246,7 @@ def phase_gather_kernel(torch, rng, dtype=None) -> dict:
         # gathered value for the max and one for the min
         bound = roofline(nbytes(q, idx, *got), 2 * cb * cn * ck * w)
         nans = int(torch.isnan(got[0]).sum())
-        plan = gm.gather_plan(cb, cn, w, q.element_size(), gm._sms(dev))
+        plan = gm.gather_plan(cb, cn, w, q.element_size(), build.sms(dev))
         log(f"{tag} gather_maxmin {name} {q.dtype}, {plan_text(gm, plan, cb)}: "
             "bit-identical"
             + (f", NaN at the plain version's {nans} entries" if nans else "")
@@ -2276,7 +2264,7 @@ def phase_gather_kernel(torch, rng, dtype=None) -> dict:
             raise AssertionError(f"{tag} gather_maxmin trap probe: rc {probe.returncode}, "
                                  f"{probe.stdout.strip()} {probe.stderr[-500:]}")
         log(f"{tag} gather_maxmin 4x1024x64 bf16 ("
-            f"{plan_text(gm, gm.gather_plan(4, 1024, 64, 2, gm._sms(dev)), 4)}) with an "
+            f"{plan_text(gm, gm.gather_plan(4, 1024, 64, 2, build.sms(dev)), 4)}) with an "
             f"index outside [0, n), in a child process: {probe.stdout.strip()}")
     return results
 
@@ -2288,9 +2276,6 @@ def phase_normals(torch, rng, model) -> dict:
     voxel_downsample_batch and the windowed normals (Mpts/s), the config-5
     composition of bench.py:470-482 (clouds/s), the normals' quality on the
     card, and kernel 6's launches (one a batch)."""
-    from pointcloudprocessing_tpu_torch.ops.cuda.window_normals import (
-        windowed_moment_sums,
-    )
     from pointcloudprocessing_tpu_torch.ops.fps import (
         farthest_point_sample_and_gather,
     )
@@ -2346,12 +2331,12 @@ def phase_normals(torch, rng, model) -> dict:
             raise AssertionError("config-5 normals: wrong shape or non-finite")
 
         count2, count5 = 60, 8
-        windowed_moment_sums.launches = 0
+        zero_launches("windowed_moment_sums")
         # ---- the normals path: counted launches start here
         rates2 = windows(preprocess, pool2, count2, b2 * n2 / 1e6)
         rates5 = windows(config5, pool5, count5, b5)
         torch.cuda.synchronize()
-        launches = windowed_moment_sums.launches
+        launches = counted("windowed_moment_sums")
         # ---- the normals path ends here
         if launches != 3 * (count2 + count5):
             raise AssertionError(f"kernel 6 launched {launches} times for "
@@ -2613,8 +2598,8 @@ def knn_kernel_checks(torch, model) -> dict:
     dynamic DGCNN ``model``'s four graphs meet at 256 x 1,024 (c 3, 64, 64,
     128) and at 8 x 8,192 normal(0, 1) clouds, and on ``KNN_CASES``
     (:func:`check_knn_graph`), each graph's largest excess off the exact
-    sets at most ``KNN_EXCESS_LIMIT``; ``knn_select.launches`` held to
-    ``knn_graph.calls`` (``KNN_CASES`` through ``knn_graph``, one launch
+    sets at most ``KNN_EXCESS_LIMIT``; ``knn_select`` launches held to the
+    graphs :func:`count_knn` counts (``KNN_CASES`` through ``knn_graph``, one launch
     each at every k); the device memory a graph at 256 x 1,024 x 128 adds
     (under 64 MB); device ms of both beside the kernel's bound at the
     serving shape. Inputs from a generator of its own (``KNN_SEED``)."""
@@ -2629,13 +2614,11 @@ def knn_kernel_checks(torch, model) -> dict:
     largest = []
     for b, n in ((256, 1024), (8, 8192)):
         x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).cuda()
-        knn_select.launches = 0
-        calls = dgcnn_mod.knn_graph.calls
-        with torch.inference_mode(), record_knn() as met:
+        zero_launches("knn_select")
+        with torch.inference_mode(), record_knn() as met, count_knn() as graphs:
             model(x)
         torch.cuda.synchronize()
-        launched = knn_select.launches
-        built = dgcnn_mod.knn_graph.calls - calls
+        launched, built = counted("knn_select"), graphs["cuda"]
         if (launched, built) != (4, 4):
             raise AssertionError(f"[8 knn] {b}x{n}: {launched} kernel launches for "
                                  f"{built} graphs in one dynamic forward (4 each)")
@@ -2649,17 +2632,17 @@ def knn_kernel_checks(torch, model) -> dict:
                 f"model's features: {knn_line(stats)}")
             knn_excess_limit(f"{b}x{n} graph {layer + 1}", stats)
         largest.append(per_graph)
-        log(f"[8 knn] {b}x{n}: knn_select launches {launched} = knn_graph.calls {built}; "
+        log(f"[8 knn] {b}x{n}: knn_select launches {launched} = graphs {built}; "
             "largest excess taken a graph: " + " / ".join(f"{e:.3g}" for e in per_graph))
         del met
     for b, n, c, kk, kind in KNN_CASES:
         f = knn_case(torch, rng, b, n, c, kind)
         label = f"{b}x{n}x{c} k {kk} {kind}"
-        knn_select.launches = 0
+        zero_launches("knn_select")
         got = dgcnn_mod.knn_graph(f, kk)
-        if knn_select.launches != 1:
+        if counted("knn_select") != 1:
             raise AssertionError(f"[8 knn] {label}: knn_graph launched the kernel "
-                                 f"{knn_select.launches} times (once wanted)")
+                                 f"{counted('knn_select')} times (once wanted)")
         stats = check_knn_graph(torch, f"[8 knn] {label}", f, got,
                                 knn_select_reference(f, kk))
         log(f"[8 knn] {label}: {knn_line(stats)}")
@@ -2720,15 +2703,13 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
     from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import (
-        gather_maxmin,
         gather_maxmin_reference,
     )
-    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
 
     dev = torch.device("cuda")
     tag = "[11 bf16]" if dtype is not None else "[8 dgcnn]"
     kind = "bf16" if dtype is not None else "f32"
-    counter = "launches_bf16" if dtype is not None else "launches"
+    form = "_bf16" if dtype is not None else ""
     b, n = 64, 1024
     x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(dev)
     results = {"launches": 0, "knn_launches": 0}
@@ -2753,21 +2734,20 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
         with torch.inference_mode():
             model(x)  # warm-up
             count = 10
-            setattr(gather_maxmin, counter, 0)
-            knn_select.launches = 0
-            graphs_before = dgcnn_mod.knn_graph.calls
+            zero_launches("gather_maxmin" + form, "knn_select")
             # ---- the DGCNN path: counted launches start here
             rates = []
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for _ in range(count):
-                    out = model(x)
-                torch.cuda.synchronize()
-                rates.append(b * count / (time.perf_counter() - t0))
-            launches = getattr(gather_maxmin, counter)
-            graphs_built = dgcnn_mod.knn_graph.calls - graphs_before
-            knn_launches = knn_select.launches
+            with count_knn() as graphs:
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(count):
+                        out = model(x)
+                    torch.cuda.synchronize()
+                    rates.append(b * count / (time.perf_counter() - t0))
+            launches = counted("gather_maxmin" + form)
+            graphs_built = graphs["cuda"]
+            knn_launches = counted("knn_select")
             # ---- the DGCNN path ends here
             if launches != 4 * 3 * count:
                 raise AssertionError(f"DGCNN {graph}: kernel 7 launched {launches} "
@@ -2852,11 +2832,11 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
     # one stream through the pipeline: voxel 0.4 -> FPS -> 1024 -> DGCNN
     pipe = PointCloudPipeline(model, scan_width=2048, model_width=n, voxel_size=0.4)
     batches = [rng.uniform(-20, 20, (b, 2048, 3)).astype(np.float32) for _ in range(3)]
-    gather_maxmin.launches = knn_select.launches = 0
+    zero_launches("gather_maxmin", "knn_select")
     # ---- the DGCNN stream: counted launches
     outs = list(pipe.stream(iter(batches)))
     torch.cuda.synchronize()
-    streamed, knn_streamed = gather_maxmin.launches, knn_select.launches
+    streamed, knn_streamed = counted("gather_maxmin"), counted("knn_select")
     # ---- the DGCNN stream ends here
     results["launches"] += streamed
     results["knn_launches"] += knn_streamed
@@ -3050,15 +3030,10 @@ def phase_wide_scan(torch, model, b: int = 64, device: str = "cuda") -> dict:
     once; a batch of each against the same through the plain versions;
     then ``serve.main --scan-width 8000`` at batch 3, counted too."""
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import (
-        fps_with_points,
-        fps_with_points_reference,
-    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points_reference
     from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
-        segment_reduce,
         segment_reduce_reference,
         segment_sum_form,
-        sorted_segment_reduce,
     )
 
     rng = np.random.default_rng(WIDE_SEED + 1)
@@ -3068,13 +3043,11 @@ def phase_wide_scan(torch, model, b: int = 64, device: str = "cuda") -> dict:
                               voxel_size=0.4)
 
     def counts():
-        return {"any": segment_reduce.launches,
-                "sorted": sorted_segment_reduce.launches,
-                "fps": fps_with_points.launches}
+        return {"any": counted("segment_reduce"), "sorted": counted("sorted_segment_sum"),
+                "fps": counted("fps_with_points")}
 
     def zero_counts():
-        segment_reduce.launches = sorted_segment_reduce.launches = 0
-        fps_with_points.launches = 0
+        zero_launches("segment_reduce", "sorted_segment_sum", "fps_with_points")
 
     results = {"any_launches": 0, "fps_launches": 0}
     for kind in ("uniform", "padded"):
@@ -3178,7 +3151,6 @@ def pointnet2_forward(torch, rng, dtype=None) -> tuple:
         PointNet2,
         pointnet2_for_width,
     )
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
 
     dev = torch.device("cuda")
     tag = "[11 bf16]" if dtype is not None else "[9 pointnet2]"
@@ -3205,7 +3177,7 @@ def pointnet2_forward(torch, rng, dtype=None) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         model(x)  # warm-up
-        fps_with_points.launches = 0
+        zero_launches("fps_with_points")
         # ---- the PointNet++ path: counted launches start here
         rates = []
         for _ in range(3):
@@ -3215,7 +3187,7 @@ def pointnet2_forward(torch, rng, dtype=None) -> tuple:
                 out = model(x)
             torch.cuda.synchronize()
             rates.append(b * count / (time.perf_counter() - t0))
-        launches = fps_with_points.launches
+        launches = counted("fps_with_points")
         # ---- the PointNet++ path ends here
         if launches != 2 * 3 * count:
             raise AssertionError(f"PointNet++: FPS launched {launches} times in "
@@ -3288,10 +3260,7 @@ def phase_pointnet2(torch, rng) -> dict:
     serve CLI over a PointNet++ stage at scan width 2000."""
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
     from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
-    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import (
-        segment_reduce,
-        sorted_segment_reduce,
-    )
+    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import sorted_segment_reduce
     from pointcloudprocessing_tpu_torch.ops.fps import stride_sample_and_gather
     from pointcloudprocessing_tpu_torch.ops.voxel import voxel_downsample_batch
 
@@ -3299,12 +3268,11 @@ def phase_pointnet2(torch, rng) -> dict:
     results = {}
 
     def counts():
-        return {"any": segment_reduce.launches, "sorted": sorted_segment_reduce.launches,
-                "fps": fps_with_points.launches}
+        return {"any": counted("segment_reduce"), "sorted": counted("sorted_segment_sum"),
+                "fps": counted("fps_with_points")}
 
     def zero_counts():
-        segment_reduce.launches = sorted_segment_reduce.launches = 0
-        fps_with_points.launches = 0
+        zero_launches("segment_reduce", "sorted_segment_sum", "fps_with_points")
 
     # (b) the route: a voxel step and a stride sample per width
     for n, want in ((2000, {"any": 2, "sorted": 0}), (2048, {"any": 0, "sorted": 2})):
@@ -3615,13 +3583,6 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         PointCloudSet,
         load_from_file,
     )
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
-    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
-    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-        pooled_chain_backward,
-        pooled_chain_forward,
-    )
     from pointcloudprocessing_tpu_torch.train.callbacks import load_checkpoint
     from pointcloudprocessing_tpu_torch.train.profile import TrainProfile
 
@@ -3635,17 +3596,10 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     stages = list(kc46["info"]["training_profiles"])
     out = {"launches": {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0}}
 
-    def reset():
-        for fn in (pooled_chain_forward, pooled_chain_backward, fps_with_points,
-                   gather_maxmin, knn_select):
-            fn.launches = 0
-
     def read():
-        got = {"fwd": pooled_chain_forward.launches, "bwd": pooled_chain_backward.launches,
-               "fps": fps_with_points.launches, "gather": gather_maxmin.launches,
-               "knn": knn_select.launches}
-        for k, v in got.items():
-            out["launches"][k] += v
+        got = kernel_counts()
+        for k in out["launches"]:
+            out["launches"][k] += got[k]
         return got
 
     # (a) the collects, and ingest alone (the native one-pass path)
@@ -3734,7 +3688,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
 
     seen: list = []
     logger, handler, messages = stage_log(name)
-    reset()
+    zero_launches()
     # ---- the main path (the trainer, killed and resumed): counted launches
     with recording_batches(DeviceLoader, seen):
         tp = TrainProfile(resume_cfg, log_to_file=False)
@@ -3842,7 +3796,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
             contextlib.nullcontext()
         logger, handler, messages = stage_log(name)
         logger.addHandler(handler)
-        reset()
+        zero_launches()
         t0 = time.perf_counter()
         # ---- the main path (a family through the trainer): counted launches
         try:
@@ -3889,7 +3843,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     seen = []
     tp = TrainProfile(stream_cfg, log_to_file=False)
     tp._pc_sets[stages[-1]].max_in_memory_bytes = 1  # every split streams
-    reset()
+    zero_launches()
     # ---- the main path (the trainer on the streaming loader): counted launches
     with recording_batches(StreamingLoader, seen):
         hist = tp.train()[stages[-1]]
@@ -4029,14 +3983,14 @@ SYNTH_DENSE, SYNTH_PAD, SYNTH_FRAMES = 20_000, 8_192, 16
 #: counts start at 0; it prints them after the run
 COUNTED_CLI = """
 import json, runpy, sys
-from pointcloudprocessing_tpu_torch.ops.cuda import pooled_chain
+from pointcloudprocessing_tpu_torch.ops.cuda import build
 code = 0
 try:
     runpy.run_module("pointcloudprocessing_tpu_torch.train.cli", run_name="__main__")
 except SystemExit as exit_:
     code = exit_.code
-print("LAUNCHES " + json.dumps({"fwd": pooled_chain.pooled_chain_forward.launches,
-                                "bwd": pooled_chain.pooled_chain_backward.launches}))
+print("LAUNCHES " + json.dumps({"fwd": build.LAUNCHES["pooled_chain_forward"],
+                                "bwd": build.LAUNCHES["pooled_chain_backward"]}))
 sys.exit(code)
 """
 #: phase 12's device; a CPU rehearsal sets it to "cpu" with smaller sizes
@@ -4360,22 +4314,19 @@ def grid_on_card(torch, b: int = 32, n: int = 1024) -> dict:
     keys, kernels 4 and 5 counted (once a train step each for the one
     chain; eval steps run without autograd on running statistics, where the
     chain takes kernel 4 alone), and HyperTune over it."""
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-        pooled_chain_backward,
-        pooled_chain_forward,
-    )
     from pointcloudprocessing_tpu_torch.train import hypertune
 
     train, val = grid_batches(np.random.default_rng(5), b, n)
     cells = len(hypertune.OPTIMIZERS) * len(hypertune.LEARNING_RATES)
-    pooled_chain_forward.launches = pooled_chain_backward.launches = 0
+    zero_launches("pooled_chain_forward", "pooled_chain_backward")
     t0 = time.perf_counter()
     # ---- the main path (the grid): counted launches
     results = hypertune.run_grid(train, val, NUM_CLASSES, NUM_PARTS, n, epochs=1,
                                  steps_per_epoch=GRID_STEPS, vanilla=True,
                                  print_func=lambda *_: None, device=PHASE12_DEVICE)
     sync(torch)
-    launches = {"fwd": pooled_chain_forward.launches, "bwd": pooled_chain_backward.launches}
+    launches = {"fwd": counted("pooled_chain_forward"),
+                "bwd": counted("pooled_chain_backward")}
     # ---- the main path ends here
     seconds = time.perf_counter() - t0
     keys = {"loss", "val_loss", "val_classification_output_sparse_categorical_accuracy",
@@ -4900,9 +4851,6 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
     on the card. Returns the kernel launches of the eager reference
     forwards."""
     from pointcloudprocessing_tpu_torch.data.pointcloudset import load_from_file
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
-    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
-    from pointcloudprocessing_tpu_torch.ops.cuda.knn_select import knn_select
 
     t_phase = time.perf_counter()
     exports = trainer["export"]
@@ -4927,14 +4875,14 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
     with tempfile.TemporaryDirectory() as work:
         loaded = load_programs(card, exports, points, work)
         for family in ("pointnet", "pointnet2", "dgcnn"):
-            fps_with_points.launches = gather_maxmin.launches = knn_select.launches = 0
+            zero_launches("fps_with_points", "gather_maxmin", "knn_select")
             # ---- the export path (eager references on the card): counted launches
             with count_knn() as graphs:
                 got = export_family(torch, card, family, exports[family], points,
                                     loaded[family])
             torch.cuda.synchronize()
-            counts = {"fps": fps_with_points.launches, "gather": gather_maxmin.launches,
-                      "knn": knn_select.launches}
+            counts = {"fps": counted("fps_with_points"), "gather": counted("gather_maxmin"),
+                      "knn": counted("knn_select")}
             # ---- the export path ends here
             want = {k: per_forward[family].get(k, 0) * got["forwards"]
                     for k in counts}
@@ -4995,55 +4943,34 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch_counters() -> tuple:
-    """(wrapper, attribute, kernel name) of every kernel's launch counter,
-    named as in the kernels JSON line."""
-    from pointcloudprocessing_tpu_torch.ops.cuda import (
-        fps,
-        gather_maxmin,
-        knn_select,
-        pooled_chain,
-        voxel_reduce,
-        window_normals,
-    )
+def counted(name: str) -> int:
+    """The wrapper calls counted under launch counter ``name`` (the kernels
+    JSON line's name) since it was last zeroed (``ops/cuda/build.py``)."""
+    from pointcloudprocessing_tpu_torch.ops.cuda import build
 
-    forward, backward = pooled_chain.pooled_chain_forward, pooled_chain.pooled_chain_backward
-    return (
-        (voxel_reduce.sorted_segment_reduce, "launches", "sorted_segment_sum"),
-        (fps.fps_with_points, "launches", "fps_with_points"),
-        (forward, "launches", "pooled_chain_forward"),
-        (backward, "launches", "pooled_chain_backward"),
-        (window_normals.windowed_moment_sums, "launches", "windowed_moment_sums"),
-        (gather_maxmin.gather_maxmin, "launches", "gather_maxmin"),
-        (voxel_reduce.segment_reduce, "launches", "segment_reduce"),
-        (forward, "launches_bf16", "pooled_chain_forward_bf16"),
-        (backward, "launches_bf16", "pooled_chain_backward_bf16"),
-        (gather_maxmin.gather_maxmin, "launches_bf16", "gather_maxmin_bf16"),
-        (knn_select.knn_select, "launches", "knn_select"),
-    )
+    return build.LAUNCHES[name]
 
 
-def zero_launches() -> None:
-    for fn, attr, _ in launch_counters():
-        setattr(fn, attr, 0)
+def zero_launches(*names: str) -> None:
+    """Zero the named launch counters, every one when none is named."""
+    from pointcloudprocessing_tpu_torch.ops.cuda import build
+
+    build.reset(*names)
 
 
 def read_launches() -> dict:
     """The launches since :func:`zero_launches`, of the kernels that ran."""
-    return {name: getattr(fn, attr) for fn, attr, name in launch_counters()
-            if getattr(fn, attr)}
+    from pointcloudprocessing_tpu_torch.ops.cuda import build
 
-
-#: phase 14's short names of the f32 kernels' counters
-SHORT_NAMES = {"fwd": "pooled_chain_forward", "bwd": "pooled_chain_backward",
-               "fps": "fps_with_points", "gather": "gather_maxmin",
-               "seg": "sorted_segment_sum", "knn": "knn_select"}
+    return {name: n for name, n in build.LAUNCHES.items() if n}
 
 
 def kernel_counts() -> dict:
-    """:func:`read_launches` under phase 14's short names, zeros included."""
-    counts = read_launches()
-    return {short: counts.get(name, 0) for short, name in SHORT_NAMES.items()}
+    """The f32 kernels' launches under phases 10 and 14's short keys."""
+    return {key: counted(name) for key, name in (
+        ("fwd", "pooled_chain_forward"), ("bwd", "pooled_chain_backward"),
+        ("fps", "fps_with_points"), ("gather", "gather_maxmin"),
+        ("seg", "sorted_segment_sum"), ("knn", "knn_select"))}
 
 
 def family_config(model: str, width: int):

@@ -30,9 +30,9 @@ register top-k a row; on the CPU an f32 product with TF32 off and
 Inside a profiler session each graph's search is the span
 ``pcp.model.knn`` and each EdgeConv's edge block (p and q or the literal
 edges, ``gather_maxmin``, BatchNorm, relu, the max) the span
-``pcp.model.edge`` (``utils/profiling.span``); ``knn_graph.calls`` counts
-the graphs built, 4 a dynamic forward and 1 a static one (``chip_smoke.py``
-holds its DGCNN phases to it).
+``pcp.model.edge`` (``utils/profiling.span``): 4 graphs a dynamic forward
+and 1 a static one, each one ``knn_select`` launch on the card
+(``ops/cuda/build.py::LAUNCHES``).
 
 ``dtype=torch.bfloat16`` casts the normalized points to bf16 before the
 trunk and runs every block but the heads' last layers in bf16, as the JAX
@@ -77,15 +77,8 @@ def knn_graph(feats: torch.Tensor, k: int) -> torch.Tensor:
     ``knn_select`` kernel, which writes no (b, n, n) tensor; a CPU tensor
     its plain version, an f32 product with TF32 off and an exact ``topk``
     (``ops/cuda/knn_select.py``)."""
-    _COUNTED.calls += 1
     with span("pcp.model.knn"):
         return knn_select(feats.float().contiguous(), k)
-
-
-#: graphs built in this process, counted on the function itself even while
-#: a recorder stands in for the module's name
-knn_graph.calls = 0
-_COUNTED = knn_graph
 
 
 def edge_features(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

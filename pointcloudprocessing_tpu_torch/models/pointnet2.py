@@ -38,7 +38,7 @@ from pointcloudprocessing_tpu_torch.models.pointnet import (
 )
 from pointcloudprocessing_tpu_torch.ops.fps import farthest_point_sample_batch
 from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
-from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
+from pointcloudprocessing_tpu_torch.ops.knn import pairwise_sq_dists
 from pointcloudprocessing_tpu_torch.ops.normalize import normalize_unit_sphere
 from pointcloudprocessing_tpu_torch.utils.device import require_device
 
@@ -77,21 +77,11 @@ def layer_trainability_pointnet2(freeze: FreezeFlags) -> dict[str, bool]:
     return report
 
 
-def _sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """(b, m, 3), (b, n, 3) -> (b, m, n): ``|q|^2 + |p|^2 - 2 q.p`` clamped
-    at 0, the cross term an f32 product with TF32 off."""
-    q2 = (queries * queries).sum(dim=-1, keepdim=True)
-    p2 = (points * points).sum(dim=-1)
-    with full_f32_matmul():
-        cross = torch.matmul(queries, points.transpose(1, 2))
-    return torch.clamp(q2 + p2[:, None, :] - 2.0 * cross, min=0.0)
-
-
 def _grouping_knn(queries: torch.Tensor, points: torch.Tensor, k: int
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """k nearest points of each query: (b, m, 3) over (b, n, 3) -> indices
     (b, m, k) int32 and squared distances (b, m, k), ascending."""
-    neg, idx = torch.topk(-_sq_dists(queries, points), k, dim=-1)
+    neg, idx = torch.topk(-pairwise_sq_dists(queries, points), k, dim=-1)
     return idx.int(), -neg
 
 
@@ -128,7 +118,7 @@ def _three_nearest(fine_xyz: torch.Tensor, coarse_xyz: torch.Tensor
     passes, each winner then masked to inf: ties go to the lowest index, as
     ``jnp.argmin``'s. Returns indices (b, n, 3) int32 and squared distances
     (b, n, 3)."""
-    d = _sq_dists(fine_xyz, coarse_xyz)
+    d = pairwise_sq_dists(fine_xyz, coarse_xyz)
     idxs, vals = [], []
     for _ in range(3):
         i = d.argmin(dim=-1, keepdim=True)

@@ -7,11 +7,17 @@ at its first use in a process, into ``csrc/build/`` under a name keyed on a
 hash of its source and flags, so a changed source is never served a stale
 library. ``nvcc``'s output, including ``-Xptxas -v``'s register and
 shared-memory report, is kept beside each library as ``<name>.log``.
+
+Every wrapper under ``ops/cuda/`` launches through :func:`launch` and counts
+its calls with :func:`count` in :data:`LAUNCHES`, which the acceptance
+checks on the card read to prove that a kernel ran and not its plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +25,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -68,6 +76,19 @@ _ENTRY = {
             [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "knn_select": {"pcp_knn_select": [_P, _P, _L, _I, _I, _I, _I, _P]},
 }
+#: the library of each C entry point
+_LIBRARY = {entry: name for name, entries in _ENTRY.items() for entry in entries}
+
+#: the launch counters: one a wrapper and form, by the kernel's name in
+#: ``chip_smoke.py``'s kernels JSON line
+COUNTERS = ("sorted_segment_sum", "segment_reduce", "fps_with_points",
+            "pooled_chain_forward", "pooled_chain_backward",
+            "pooled_chain_forward_bf16", "pooled_chain_backward_bf16",
+            "windowed_moment_sums", "gather_maxmin", "gather_maxmin_bf16",
+            "knn_select")
+#: wrapper calls that launched in this process, by counter: one a call,
+#: whatever its plan launches (CPU calls and refusals count nothing)
+LAUNCHES = dict.fromkeys(COUNTERS, 0)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _locks = {name: threading.Lock() for name in KERNELS}  # one build per library
@@ -140,3 +161,37 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.pcp_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call C entry point ``entry`` with ``args`` and PyTorch's current
+    stream of ``device``; raise if it returns a CUDA error."""
+    lib = load(_LIBRARY[entry])
+    with torch.cuda.device(device):
+        code = getattr(lib, entry)(*args, torch.cuda.current_stream().cuda_stream)
+    check(lib, code, f"{entry} launch")
+
+
+def _known(names) -> None:
+    for name in names:
+        if name not in LAUNCHES:
+            raise KeyError(f"no launch counter {name!r}; the counters are {COUNTERS}")
+
+
+def count(name: str) -> None:
+    """Count a wrapper call that launched under counter ``name``."""
+    _known((name,))
+    LAUNCHES[name] += 1
+
+
+def reset(*names: str) -> None:
+    """Zero the named counters, every counter when none is named."""
+    _known(names)
+    for name in names or COUNTERS:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def sms(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

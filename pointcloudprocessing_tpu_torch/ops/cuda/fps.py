@@ -157,26 +157,17 @@ def fps_with_points(
     sampled = torch.empty(
         (b, num_samples, 3), dtype=torch.float32, device=points.device
     )
-    lib = build.load("fps")
     pointers = (points.data_ptr(), valid_mask.data_ptr(), start.data_ptr(),
                 idx.data_ptr(), sampled.data_ptr())
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if form != "global":
-            code = lib.pcp_fps(*pointers, b, n, num_samples,
-                               int(layout == "bcn"), cluster, stream)
-        else:
-            min_dist = torch.empty((b, n), dtype=torch.float32,
-                                   device=points.device)
-            code = lib.pcp_fps_large(*pointers, min_dist.data_ptr(), b, n,
-                                     num_samples, int(layout == "bcn"), stream)
-    build.check(lib, code, "fps launch")
-    fps_with_points.launches += 1
+    if form != "global":
+        build.launch("pcp_fps", points.device, *pointers, b, n,
+                     num_samples, int(layout == "bcn"), cluster)
+    else:
+        min_dist = torch.empty((b, n), dtype=torch.float32, device=points.device)
+        build.launch("pcp_fps_large", points.device, *pointers,
+                     min_dist.data_ptr(), b, n, num_samples, int(layout == "bcn"))
+    build.count("fps_with_points")
     return idx, sampled
-
-
-#: kernel launches in this process (CPU calls and refusals do not count)
-fps_with_points.launches = 0
 
 
 def fps(

@@ -195,20 +195,12 @@ def gather_maxmin(
     if not (q.is_contiguous() and idx.is_contiguous()):
         raise ValueError("q and idx must be contiguous")
     b, n, w = q.shape
-    plan = (gather_plan(b, n, w, q.element_size(), _sms(q.device),
+    plan = (gather_plan(b, n, w, q.element_size(), build.sms(q.device),
                         q.data_ptr() % 16 == 0)
             if q.numel() else (Launch("l2", 0, 0, 0, 1, 0),))
     out = launch(q, idx, plan)
-    if q.dtype == torch.bfloat16:
-        gather_maxmin.launches_bf16 += 1
-    else:
-        gather_maxmin.launches += 1
+    build.count("gather_maxmin_bf16" if q.dtype == torch.bfloat16 else "gather_maxmin")
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def launch(q: torch.Tensor, idx: torch.Tensor,
@@ -220,26 +212,16 @@ def launch(q: torch.Tensor, idx: torch.Tensor,
     k = idx.shape[2]
     qmax = torch.empty_like(q)
     qmin = torch.empty_like(q)
-    lib = build.load("gather_maxmin")
     bf16 = q.dtype == torch.bfloat16
     ptrs = (q.data_ptr(), idx.data_ptr(), qmax.data_ptr(), qmin.data_ptr())
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for step in plan:
-            if step.form == "ring":
-                if not bf16:
-                    raise TypeError("the ring form takes bf16 q only")
-                code = lib.pcp_gather_maxmin_bf16_ring(
-                    *ptrs, b, n, w, k, 2 * step.slice, step.c_begin, step.slices,
-                    step.parts, step.blocks, stream)
-            else:
-                entry = lib.pcp_gather_maxmin_bf16 if bf16 else lib.pcp_gather_maxmin
-                code = entry(*ptrs, b, n, w, k, step.slice, stream)
-            build.check(lib, code, f"gather_maxmin {step.form} launch")
+    for step in plan:
+        if step.form == "ring":
+            if not bf16:
+                raise TypeError("the ring form takes bf16 q only")
+            build.launch("pcp_gather_maxmin_bf16_ring", q.device,
+                         *ptrs, b, n, w, k, 2 * step.slice, step.c_begin,
+                         step.slices, step.parts, step.blocks)
+        else:
+            build.launch("pcp_gather_maxmin_bf16" if bf16 else "pcp_gather_maxmin",
+                         q.device, *ptrs, b, n, w, k, step.slice)
     return qmax, qmin
-
-
-#: kernel launches in this process, f32 and bf16 forms (CPU calls and
-#: refusals do not count)
-gather_maxmin.launches = 0
-gather_maxmin.launches_bf16 = 0

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from pointcloudprocessing_tpu_torch.ops.cuda import build
-from pointcloudprocessing_tpu_torch.ops.knn import full_f32_matmul
+from pointcloudprocessing_tpu_torch.ops.knn import pairwise_sq_dists
 
 #: the largest k the kernel's register lists hold (32 entries a register)
 MAX_K = 256
@@ -33,11 +33,7 @@ def knn_select_reference(feats: torch.Tensor, k: int) -> torch.Tensor:
     see ``ops/knn.py``). feats (b, n, c) -> (b, n, k) int32, ascending by
     distance."""
     f = feats.float()
-    sq = (f * f).sum(dim=-1)
-    with full_f32_matmul():
-        cross = torch.matmul(f, f.transpose(1, 2))
-    d = torch.clamp(sq[:, :, None] + sq[:, None, :] - 2.0 * cross, min=0.0)
-    return torch.topk(-d, k, dim=-1).indices.int()
+    return torch.topk(-pairwise_sq_dists(f, f), k, dim=-1).indices.int()
 
 
 def list_width(k: int) -> int:
@@ -73,15 +69,7 @@ def knn_select(feats: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"no kNN kernel for device {feats.device}")
     width = list_width(k)
     out = torch.empty((b, n, k), dtype=torch.int32, device=feats.device)
-    lib = build.load("knn_select")
-    with torch.cuda.device(feats.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pcp_knn_select(feats.data_ptr(), out.data_ptr(), b, n, c, k, width,
-                                  stream)
-    build.check(lib, code, "knn_select launch")
-    knn_select.launches += 1
+    build.launch("pcp_knn_select", feats.device, feats.data_ptr(),
+                 out.data_ptr(), b, n, c, k, width)
+    build.count("knn_select")
     return out
-
-
-#: kernel launches in this process (CPU calls and refusals do not count)
-knn_select.launches = 0

@@ -244,10 +244,6 @@ def _check_widths(x: torch.Tensor, weight: torch.Tensor) -> tuple[int, ...]:
     return b, n, c_in, c
 
 
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _split_scratch(cols: int, c_in: int, device: torch.device,
                    bf16: bool) -> torch.Tensor:
     """Room for the kernels' tf32 hi and lo copies of the weight operand
@@ -297,9 +293,9 @@ def pooled_chain_forward(
     bf16 = x.dtype == torch.bfloat16
     tma = bf16 and bf16_form(c_in) == "tma"
     if tma:
-        runs, per_run, grid = tma_forward_plan(b, n, c, _sms(x.device))
+        runs, per_run, grid = tma_forward_plan(b, n, c, build.sms(x.device))
     else:
-        runs, per_run = launch_grid(b, n, c, _sms(x.device))
+        runs, per_run = launch_grid(b, n, c, build.sms(x.device))
     pooled = torch.empty((b, c), dtype=torch.float32, device=x.device)
     argmax = torch.empty((b, c), dtype=torch.int32, device=x.device)
     if tma and runs == 1:  # no run's partial best is kept
@@ -307,39 +303,24 @@ def pooled_chain_forward(
     else:
         part_v = torch.empty((b, runs, c), dtype=torch.float32, device=x.device)
         part_i = torch.empty((b, runs, c), dtype=torch.int32, device=x.device)
-    lib = build.load("pooled_chain")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if tma:
-            done = _done_counters(x.device, b * -(-c // TMA_FWD_SLICE))
-            code = lib.pcp_pooled_chain_forward_bf16_tma(
-                x.data_ptr(), weight.data_ptr(), a.data_ptr(), c_row.data_ptr(),
-                part_v.data_ptr(), part_i.data_ptr(), pooled.data_ptr(),
-                argmax.data_ptr(), done.data_ptr(), b, n, c_in, c, runs, per_run,
-                grid, stream,
-            )
-        else:
-            w_split = _split_scratch(c, c_in, x.device, bf16)
-            entry = (lib.pcp_pooled_chain_forward_bf16 if bf16
-                     else lib.pcp_pooled_chain_forward)
-            code = entry(
-                x.data_ptr(), weight.data_ptr(), w_split.data_ptr(), a.data_ptr(),
-                c_row.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-                pooled.data_ptr(), argmax.data_ptr(), b, n, c_in, c, runs,
-                per_run, stream,
-            )
-    build.check(lib, code, "pooled_chain_forward launch")
-    if bf16:
-        pooled_chain_forward.launches_bf16 += 1
+    if tma:
+        done = _done_counters(x.device, b * -(-c // TMA_FWD_SLICE))
+        build.launch(
+            "pcp_pooled_chain_forward_bf16_tma", x.device, x.data_ptr(),
+            weight.data_ptr(), a.data_ptr(), c_row.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), pooled.data_ptr(), argmax.data_ptr(), done.data_ptr(),
+            b, n, c_in, c, runs, per_run, grid,
+        )
     else:
-        pooled_chain_forward.launches += 1
+        w_split = _split_scratch(c, c_in, x.device, bf16)
+        build.launch(
+            "pcp_pooled_chain_forward_bf16" if bf16 else "pcp_pooled_chain_forward",
+            x.device, x.data_ptr(), weight.data_ptr(), w_split.data_ptr(),
+            a.data_ptr(), c_row.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+            pooled.data_ptr(), argmax.data_ptr(), b, n, c_in, c, runs, per_run,
+        )
+    build.count("pooled_chain_forward_bf16" if bf16 else "pooled_chain_forward")
     return pooled, argmax
-
-
-#: kernel launches in this process, f32 and bf16 forms (CPU calls and
-#: refusals do not count)
-pooled_chain_forward.launches = 0
-pooled_chain_forward.launches_bf16 = 0
 
 
 def pooled_chain_backward(
@@ -376,41 +357,27 @@ def pooled_chain_backward(
     bf16 = x.dtype == torch.bfloat16
     dx = torch.empty_like(x)
     dk_t = torch.empty((c, c_in), dtype=torch.float32, device=x.device)
-    lib = build.load("pooled_chain")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if bf16 and bf16_form(c_in) == "tma":
-            _, grid = tma_dx_plan(b, n, _sms(x.device))
-            m_t = torch.empty((c_in, c_in), dtype=torch.bfloat16, device=x.device)
-            win_ch = torch.empty((b, c), dtype=torch.int32, device=x.device)
-            win_coef = torch.empty((b, c), dtype=torch.float32, device=x.device)
-            pt_off = torch.empty((b, n + 1), dtype=torch.int32, device=x.device)
-            code = lib.pcp_pooled_chain_backward_bf16_tma(
-                x.data_ptr(), weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(),
-                m_small.data_ptr(), m_t.data_ptr(), win_ch.data_ptr(),
-                win_coef.data_ptr(), pt_off.data_ptr(), const_row.data_ptr(),
-                dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, grid, stream,
-            )
-        else:
-            runs, per_run = launch_grid(b, n, c_in, _sms(x.device))
-            m_split = _split_scratch(c_in, c_in, x.device, bf16)
-            entry = (lib.pcp_pooled_chain_backward_bf16 if bf16
-                     else lib.pcp_pooled_chain_backward)
-            code = entry(
-                x.data_ptr(), weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(),
-                m_small.data_ptr(), m_split.data_ptr(), const_row.data_ptr(),
-                dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, runs, per_run,
-                stream,
-            )
-    build.check(lib, code, "pooled_chain_backward launch")
-    if bf16:
-        pooled_chain_backward.launches_bf16 += 1
+    if bf16 and bf16_form(c_in) == "tma":
+        _, grid = tma_dx_plan(b, n, build.sms(x.device))
+        m_t = torch.empty((c_in, c_in), dtype=torch.bfloat16, device=x.device)
+        win_ch = torch.empty((b, c), dtype=torch.int32, device=x.device)
+        win_coef = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        pt_off = torch.empty((b, n + 1), dtype=torch.int32, device=x.device)
+        build.launch(
+            "pcp_pooled_chain_backward_bf16_tma", x.device, x.data_ptr(),
+            weight.data_ptr(), coef.data_ptr(), argmax.data_ptr(), m_small.data_ptr(),
+            m_t.data_ptr(), win_ch.data_ptr(), win_coef.data_ptr(), pt_off.data_ptr(),
+            const_row.data_ptr(), dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c, grid,
+        )
     else:
-        pooled_chain_backward.launches += 1
+        runs, per_run = launch_grid(b, n, c_in, build.sms(x.device))
+        m_split = _split_scratch(c_in, c_in, x.device, bf16)
+        build.launch(
+            "pcp_pooled_chain_backward_bf16" if bf16 else "pcp_pooled_chain_backward",
+            x.device, x.data_ptr(), weight.data_ptr(), coef.data_ptr(),
+            argmax.data_ptr(), m_small.data_ptr(), m_split.data_ptr(),
+            const_row.data_ptr(), dx.data_ptr(), dk_t.data_ptr(), b, n, c_in, c,
+            runs, per_run,
+        )
+    build.count("pooled_chain_backward_bf16" if bf16 else "pooled_chain_backward")
     return dx, dk_t.t()
-
-
-#: kernel launches in this process, f32 and bf16 forms (CPU calls and
-#: refusals do not count)
-pooled_chain_backward.launches = 0
-pooled_chain_backward.launches_bf16 = 0

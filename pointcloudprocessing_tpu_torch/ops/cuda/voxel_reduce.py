@@ -255,23 +255,6 @@ def _check(data: torch.Tensor, rank: torch.Tensor, widths) -> None:
                          f"and 2^31 - 1 clouds, got {tuple(data.shape)}")
 
 
-def _launch(entry: str, data: torch.Tensor, rank: torch.Tensor,
-            out: torch.Tensor, *scratch, grid: int) -> None:
-    """Launch ``entry`` on PyTorch's current stream; ``scratch``: the
-    pointers an entry takes between ``out`` and the shapes; ``grid``: the
-    blocks a cloud, which both entries take after the shapes."""
-    b, n, d = data.shape
-    lib = build.load("voxel_reduce")
-    grid = (grid,)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(
-            data.data_ptr(), rank.data_ptr(), out.data_ptr(), *scratch, b, n,
-            d, *grid, stream
-        )
-    build.check(lib, code, f"{entry} launch")
-
-
 def sorted_segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     """Segment sum over a MONOTONE rank (non-decreasing along axis 1).
 
@@ -287,14 +270,12 @@ def sorted_segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tenso
         raise ValueError(f"no segment-sum kernel for device {data.device}")
     _check(data, rank, (4, 5))
     out = torch.empty_like(data)  # the kernel writes every row
-    _launch("pcp_sorted_segment_sum", data, rank, out,
-            grid=sorted_sum_tiles(data.shape[1]))
-    sorted_segment_reduce.launches += 1
+    b, n, d = data.shape
+    build.launch("pcp_sorted_segment_sum", data.device,
+                 data.data_ptr(), rank.data_ptr(), out.data_ptr(), b, n, d,
+                 sorted_sum_tiles(n))
+    build.count("sorted_segment_sum")
     return out
-
-
-#: kernel launches in this process (CPU calls and refusals do not count)
-sorted_segment_reduce.launches = 0
 
 
 def segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
@@ -312,22 +293,19 @@ def segment_reduce(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no segment-sum kernel for device {data.device}")
     _check(data, rank, range(1, 9))
     out = torch.empty_like(data)  # the kernel writes every row
-    b, n, _ = data.shape
+    b, n, d = data.shape
     if b == 0 or n == 0:
         return out
     scratch = None
     if segment_scratch_ints(n):
         scratch = torch.empty((b, segment_scratch_ints(n)), dtype=torch.int32,
                               device=data.device)
-    _launch("pcp_segment_sum", data, rank, out,
-            None if scratch is None else scratch.data_ptr(),
-            grid=segment_sum_form(b, n)[1])
-    segment_reduce.launches += 1
+    build.launch("pcp_segment_sum", data.device, data.data_ptr(),
+                 rank.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), b, n, d,
+                 segment_sum_form(b, n)[1])
+    build.count("segment_reduce")
     return out
-
-
-#: kernel launches in this process (CPU calls and refusals do not count)
-segment_reduce.launches = 0
 
 
 def monotone_segment_sum(data: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:

@@ -302,17 +302,8 @@ def windowed_moment_sums(
     # query block's shift
     scratch = torch.empty((b * n + b * n // 8 + b * (n // q_block), 4),
                           dtype=torch.float32, device=planes.device)
-    lib = build.load("window_normals")
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.pcp_window_moments(
-            planes.data_ptr(), valid_mask.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), b, n, k, window, q_block, kmax, tile, stream,
-        )
-    build.check(lib, code, "window moments launch")
-    windowed_moment_sums.launches += 1
+    build.launch("pcp_window_moments", planes.device,
+                 planes.data_ptr(), valid_mask.data_ptr(), scratch.data_ptr(),
+                 out.data_ptr(), b, n, k, window, q_block, kmax, tile)
+    build.count("windowed_moment_sums")
     return tuple(out.unbind(0))
-
-
-#: kernel launches in this process (CPU calls and refusals do not count)
-windowed_moment_sums.launches = 0

@@ -28,8 +28,9 @@ def full_f32_matmul():
 
 
 def pairwise_sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """(..., nq, 3), (..., np, 3) -> (..., nq, np) squared euclidean
-    distances, clamped at 0 (negative rounding residue)."""
+    """(..., nq, c), (..., np, c) -> (..., nq, np) squared euclidean
+    distances, clamped at 0 (negative rounding residue): the expansion
+    above, the cross term an f32 product with TF32 off."""
     q2 = torch.square(queries).sum(dim=-1, keepdim=True)
     p2 = torch.square(points).sum(dim=-1)
     with full_f32_matmul():

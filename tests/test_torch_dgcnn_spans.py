@@ -1,8 +1,7 @@
-"""DGCNN's spans and counter on the CPU: a forward through
-``PointCloudPipeline`` in a profiler session opens ``pcp.model.knn`` once a
-graph and ``pcp.model.edge`` once an EdgeConv, inside
-``pcp.pipeline.model``; ``knn_graph.calls`` counts the same graphs; a
-session changes no output; and a span stays out of a program being traced
+"""DGCNN's spans on the CPU: a forward through ``PointCloudPipeline`` in a
+profiler session opens ``pcp.model.knn`` once a graph and
+``pcp.model.edge`` once an EdgeConv, inside ``pcp.pipeline.model``, and
+counts no kernel launch; a session changes no output; and a span stays out of a program being traced
 for export or compilation."""
 
 import numpy as np
@@ -14,6 +13,7 @@ from torch.profiler import ProfilerActivity, profile
 from pointcloudprocessing_tpu_torch.models import dgcnn
 from pointcloudprocessing_tpu_torch.models.dgcnn import DGCNN
 from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+from pointcloudprocessing_tpu_torch.ops.cuda import build
 from pointcloudprocessing_tpu_torch.utils import profiling
 
 C, P, SCAN_W, MODEL_W = 5, 3, 256, 64
@@ -48,14 +48,15 @@ def test_a_forward_marks_each_graph_and_edge_block(graph, impl):
     """One batch through the pipeline in a session: ``pcp.model.knn`` once
     a graph built (4 dynamic, 1 static), ``pcp.model.edge`` once an
     EdgeConv, each inside the batch's ``pcp.pipeline.model``, none
-    overlapping another; the counter rises by the graphs built."""
+    overlapping another; the CPU's graphs count no launch
+    (``build.LAUNCHES``)."""
     pipe = PointCloudPipeline(_model(graph, impl), scan_width=SCAN_W, model_width=MODEL_W,
                               voxel_size=0.25)
-    before = dgcnn.knn_graph.calls
+    before = dict(build.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         out = pipe(_scans())
     assert out["segmentation_output"].shape == (2, MODEL_W, P)
-    assert dgcnn.knn_graph.calls - before == GRAPHS[graph]
+    assert build.LAUNCHES == before
     (model,) = _spans(prof, "pcp.pipeline.model")
     knn, edge = _spans(prof, "pcp.model.knn"), _spans(prof, "pcp.model.edge")
     assert (len(knn), len(edge)) == (GRAPHS[graph], 4)
@@ -80,7 +81,8 @@ def test_a_session_changes_no_output(graph):
 
 def test_the_counter_survives_a_recorder_on_the_name(monkeypatch):
     """A stand-in for ``models.dgcnn.knn_graph`` (a recorder, as a replay
-    uses) calls the real function, which still counts on itself."""
+    uses) calls the real function, whose ``pcp.model.knn`` spans still
+    count the graphs."""
     real, seen = dgcnn.knn_graph, []
 
     def recording(feats, k):
@@ -89,10 +91,9 @@ def test_the_counter_survives_a_recorder_on_the_name(monkeypatch):
         return idx
 
     monkeypatch.setattr(dgcnn, "knn_graph", recording)
-    before = real.calls
-    with torch.inference_mode():
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]) as prof:
         _model("dynamic")(torch.randn(2, 32, 3))
-    assert len(seen) == 4 and real.calls - before == 4
+    assert len(seen) == 4 and len(_spans(prof, "pcp.model.knn")) == 4
 
 
 def test_a_span_while_compiling_is_the_null_context(monkeypatch):

@@ -208,15 +208,6 @@ def test_reference_coordinates_are_the_picked_rows(rng):
     assert torch.equal(sampled, pts.gather(1, idx.long()[..., None].expand(-1, -1, 3)))
 
 
-def test_no_silent_fallback_off_cpu():
-    pts = torch.zeros((1, 8, 3), device="meta")
-    mask = torch.ones((1, 8), dtype=torch.bool, device="meta")
-    start = torch.zeros((1,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no FPS kernel"):
-        fps_with_points(pts, 4, mask, start)
-    assert fps_with_points.launches == 0
-
-
 def _scans(rng, kind: str, b: int, n: int) -> np.ndarray:
     """Scans as chip_smoke.py draws them: 'uniform' in [-20, 20) (nearly a
     voxel a point at 0.4) or 'dense' (LiDAR-like: range log-uniform in

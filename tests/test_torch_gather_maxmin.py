@@ -145,17 +145,6 @@ def test_cloud_past_the_shared_memory_matches_jax_gather_fallback():
             np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
 
 
-def test_no_silent_fallback_off_cpu():
-    """Only a CPU tensor takes the plain version; any other device goes to
-    the kernel or raises (here the meta device, which has no kernel)."""
-    q = torch.zeros((1, 8, 4), device="meta")
-    idx = torch.zeros((1, 8, 2), dtype=torch.int32, device="meta")
-    before = gather_maxmin.launches
-    with pytest.raises(ValueError, match="no gather-max/min kernel"):
-        gather_maxmin(q, idx)
-    assert gather_maxmin.launches == before
-
-
 # --------------------------------------------------------------- gather_plan
 
 from pointcloudprocessing_tpu_torch.ops.cuda import gather_maxmin as gm  # noqa: E402

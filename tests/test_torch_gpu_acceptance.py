@@ -13,6 +13,8 @@ import os
 import pytest
 import torch
 
+from pointcloudprocessing_tpu_torch.ops.cuda import build
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -120,22 +122,22 @@ def test_precision_contexts_restore():
 
 
 def test_a_kernel_check_fails_on_the_card_unless_its_kernel_launched():
-    """``launching`` raises on a CUDA device when a named counter did not
-    rise in the block (the check would hold the plain version against
-    itself), and asserts nothing on the CPU."""
-    def wrapper():
-        pass
-
-    wrapper.launches = 0
-    with pytest.raises(AssertionError, match=r"did not launch.*wrapper\.launches"):
-        with acceptance.launching("cuda", (wrapper, "launches")):
+    """``launching`` raises on a CUDA device when a named counter of
+    ``build.LAUNCHES`` did not rise in the block (the check would hold the
+    plain version against itself), and asserts nothing on the CPU."""
+    with pytest.raises(AssertionError, match=r"did not launch.*'knn_select'"):
+        with acceptance.launching("cuda", "knn_select"):
             pass
-    with acceptance.launching("cuda", (wrapper, "launches")):
-        wrapper.launches += 1
-    with acceptance.launching("cpu", (wrapper, "launches")):
+    saved = build.LAUNCHES["knn_select"]
+    try:
+        with acceptance.launching("cuda", "knn_select"):
+            build.count("knn_select")
+    finally:
+        build.LAUNCHES["knn_select"] = saved
+    with acceptance.launching("cpu", "knn_select"):
         pass
     with pytest.raises(ValueError):  # the block's own error passes through
-        with acceptance.launching("cuda", (wrapper, "launches")):
+        with acceptance.launching("cuda", "knn_select"):
             raise ValueError
 
 

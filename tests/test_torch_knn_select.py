@@ -5,7 +5,7 @@ The kernel (``csrc/knn_select.cu``) runs only on the card, where
 ``chip_smoke.py`` phase 8 holds it to its plain version. Here: the route
 (every tensor through the wrapper, CUDA to the kernel, the CPU to the plain
 version), the kernel's list width by k, ``knn_graph`` on the CPU bit for bit
-today's graph, no launch counted on the CPU, a stand-in for
+today's graph, no launch counted on the CPU (``build.LAUNCHES``), a stand-in for
 ``models.dgcnn.knn_graph`` seeing every graph, the wrapper's refusals, and
 an emulation of the kernel's selection (the first 32 candidates sorted,
 then 32 at a time against the row's k-th distance, the insert across the
@@ -17,6 +17,7 @@ import torch
 
 from pointcloudprocessing_tpu_torch.models import dgcnn
 from pointcloudprocessing_tpu_torch.models.dgcnn import DGCNN
+from pointcloudprocessing_tpu_torch.ops.cuda import build
 from pointcloudprocessing_tpu_torch.ops.cuda import knn_select as ks
 
 EDGES = (1, 20, 32, 33)
@@ -85,23 +86,23 @@ def test_knn_graph_on_the_cpu_is_todays_graph(dtype, k):
 
 
 def test_a_cpu_call_launches_nothing():
-    """``knn_select.launches`` counts kernel launches only: CPU calls of
-    ``knn_graph`` and of the wrapper leave it where it was."""
-    before = ks.knn_select.launches
+    """``build.LAUNCHES["knn_select"]`` counts kernel launches only: CPU
+    calls of ``knn_graph`` and of the wrapper leave it where it was."""
+    before = build.LAUNCHES["knn_select"]
     feats = _feats(2, 64, 16)
     dgcnn.knn_graph(feats, 20)
     dgcnn.knn_graph(feats, 33)
     dgcnn.knn_graph(feats, 64)
     got = ks.knn_select(feats, 20)
     assert torch.equal(got, _todays_graph(feats, 20))
-    assert ks.knn_select.launches == before
+    assert build.LAUNCHES["knn_select"] == before
 
 
 @pytest.mark.parametrize("graph, calls", [("dynamic", 4), ("static", 1)])
 def test_a_stand_in_for_knn_graph_sees_every_graph(monkeypatch, graph, calls):
     """The benchmark's replay stands in for ``models.dgcnn.knn_graph`` by
-    name: it sees 4 graphs a dynamic forward and 1 a static one, and the
-    real function still counts them."""
+    name: it sees 4 graphs a dynamic forward and 1 a static one, each
+    built by the real function, and the CPU counts no launch."""
     real, seen = dgcnn.knn_graph, []
 
     def recording(feats, k):
@@ -112,10 +113,10 @@ def test_a_stand_in_for_knn_graph_sees_every_graph(monkeypatch, graph, calls):
     monkeypatch.setattr(dgcnn, "knn_graph", recording)
     model = DGCNN(5, 3, k=8, edge_widths=(16, 16, 32, 32), emb_width=64, graph=graph,
                   generator=torch.Generator().manual_seed(3), device="cpu").eval()
-    before = real.calls
+    before = dict(build.LAUNCHES)
     with torch.inference_mode():
         model(torch.randn(2, 48, 3))
-    assert len(seen) == calls and real.calls - before == calls
+    assert len(seen) == calls and build.LAUNCHES == before
     assert all(idx.shape == (2, 48, 8) and idx.dtype == torch.int32 for idx in seen)
 
 
@@ -133,10 +134,10 @@ def test_a_stand_in_for_knn_graph_sees_every_graph(monkeypatch, graph, calls):
 def test_the_wrapper_refuses_what_it_cannot_read(feats, k, error):
     """A non-f32, non-contiguous or misshapen input, a k outside [1, n]
     and a device with no kernel raise before any launch."""
-    before = ks.knn_select.launches
+    before = build.LAUNCHES["knn_select"]
     with pytest.raises(error):
         ks.knn_select(feats, k)
-    assert ks.knn_select.launches == before
+    assert build.LAUNCHES["knn_select"] == before
 
 
 # ---- the kernel's selection, emulated

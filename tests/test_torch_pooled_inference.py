@@ -17,9 +17,8 @@ import torch
 from pointcloudprocessing_tpu_torch.core.constants import KERAS_BN_EPSILON
 from pointcloudprocessing_tpu_torch.models import PointNet, fused_pool
 from pointcloudprocessing_tpu_torch.models.layers import BatchNorm
+from pointcloudprocessing_tpu_torch.ops.cuda import build
 from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-    pooled_chain_backward,
-    pooled_chain_forward,
     pooled_chain_forward_reference,
 )
 
@@ -212,13 +211,13 @@ def test_card_chain_matches_the_plain_chain_at_serving_shape(card):
     x[3, 100, 7] = float("nan")
     x[9, 512:] = x[9, :512]
     var[[10, 600]] = float("nan")
-    launched = pooled_chain_forward.launches
+    launched = build.LAUNCHES["pooled_chain_forward"]
     with torch.no_grad():
         got, _, _ = fused_pool.dense_bn_relu_max(x, weight, scale, bias, mean, var,
                                                  KERAS_BN_EPSILON)
         want = plain_chain(x, weight, scale, bias, mean, var)
     torch.cuda.synchronize()
-    assert pooled_chain_forward.launches - launched == 1
+    assert build.LAUNCHES["pooled_chain_forward"] - launched == 1
     assert torch.equal(torch.isnan(got), torch.isnan(want))
     assert torch.isnan(got[3]).all() and torch.isnan(got[:, [10, 600]]).all()
     finite = ~torch.isnan(want)
@@ -231,12 +230,13 @@ def test_card_pointnet_eval_launches_once_a_chain(card):
     times; a bf16 one launches no f32 form; a frozen chain under a trained
     parameter keeps its winner bookkeeping and launches no forward."""
     points = torch.randn(4, 1024, 3, device=card)
-    counters = (pooled_chain_forward.launches, pooled_chain_forward.launches_bf16)
 
     def launched():
         torch.cuda.synchronize()
-        return (pooled_chain_forward.launches - counters[0],
-                pooled_chain_forward.launches_bf16 - counters[1])
+        return (build.LAUNCHES["pooled_chain_forward"],
+                build.LAUNCHES["pooled_chain_forward_bf16"])
+
+    build.reset()
 
     model = PointNet(23, 12, generator=torch.Generator().manual_seed(0), device=card)
     with torch.no_grad():
@@ -244,18 +244,17 @@ def test_card_pointnet_eval_launches_once_a_chain(card):
     assert launched() == (3, 0)
     assert all(bool(torch.isfinite(v).all()) for v in f32_out.values())
 
-    counters = (pooled_chain_forward.launches, pooled_chain_forward.launches_bf16)
+    build.reset()
     bf16 = PointNet(23, 12, generator=torch.Generator().manual_seed(0), device=card,
                     dtype=torch.bfloat16)
     with torch.no_grad():
         bf16.eval()(points)
     assert launched() == (0, 0)
 
-    counters = (pooled_chain_forward.launches, pooled_chain_forward.launches_bf16)
-    backward = pooled_chain_backward.launches
+    build.reset()
     x, weight, scale, bias, mean, var = chain_args(4, 1024, card)
     leaves = [t.requires_grad_() for t in (x, weight, scale, bias)]
     pooled, _, _ = fused_pool.dense_bn_relu_max(*leaves, mean, var, KERAS_BN_EPSILON)
     pooled.sum().backward()
     assert launched() == (0, 0)
-    assert pooled_chain_backward.launches - backward == 1
+    assert build.LAUNCHES["pooled_chain_backward"] == 1

@@ -244,18 +244,6 @@ def test_route_matches_the_jax_package():
     assert port_dense == jax_dense
 
 
-def test_no_silent_fallback_off_cpu():
-    """Only a CPU tensor takes the plain version; any other device goes to
-    the kernel or raises (here the meta device, which has no kernel)."""
-    data = torch.zeros((1, 200, 4), device="meta")
-    rank = torch.zeros((1, 200), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no segment-sum kernel"):
-        voxel_reduce.segment_reduce(data, rank)
-    with pytest.raises(ValueError, match="no segment-sum kernel"):
-        voxel_reduce.monotone_segment_sum(data, rank)
-    assert voxel_reduce.segment_reduce.launches == 0
-
-
 @pytest.mark.parametrize("n", [490, 2000, 5121, 8000])
 @pytest.mark.parametrize("reduction", ["centroid", "first"])
 def test_voxel_downsample_at_widths_that_do_not_tile(n, reduction):

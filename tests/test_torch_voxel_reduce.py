@@ -61,16 +61,6 @@ def test_matches_float64_sum(rng):
     assert got.dtype == np.float32
 
 
-def test_no_silent_fallback_off_cpu():
-    """Only a CPU tensor takes the plain version; any other device goes to
-    the kernel or raises (here the meta device, which has no kernel)."""
-    data = torch.zeros((1, 8, 4), device="meta")
-    rank = torch.zeros((1, 8), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="no segment-sum kernel"):
-        sorted_segment_reduce(data, rank)
-    assert sorted_segment_reduce.launches == 0
-
-
 def test_reference_is_scatter_add():
     data = torch.arange(12, dtype=torch.float32).reshape(1, 3, 4)
     rank = torch.tensor([[0, 0, 2]], dtype=torch.int32)

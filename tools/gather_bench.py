@@ -159,6 +159,7 @@ def bf16_cases(torch, rng, dev, plans: bool) -> None:
 
     k = 20
     graphs = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for b, n, w in BF16_SHAPES:
         if n not in graphs:
             graphs = {n: _graph(torch, rng, dev, max(s[0] for s in BF16_SHAPES
@@ -175,15 +176,13 @@ def bf16_cases(torch, rng, dev, plans: bool) -> None:
                 f"{s.form} S {s.slice}" + (f" from c {s.c_begin}, {s.tiles(b)} tiles "
                                            f"({s.parts} a slab) on {s.blocks} blocks"
                                            if s.form == "ring" else "")
-                for s in gm.gather_plan(b, n, w, 2,
-                                        gm._sms(q.device)))
+                for s in gm.gather_plan(b, n, w, 2, sms))
         elif hasattr(gm, "gather_form"):
             form = gm.gather_form(b, n, w, 2)
             note += f"; form {form[0]} {form[1]}"
         _timed_identical(torch, f"7-bf16 {b}x{n}x{w} k{k}, gather_maxmin",
                          lambda: gm.gather_maxmin(q, idx), want, note)
         if plans and hasattr(gm, "gather_plan"):
-            sms = gm._sms(q.device)
             chosen = gm.gather_plan(b, n, w, 2, sms)
             others = []
             for parts in (1, 2, 4, 8, 16):

@@ -165,7 +165,7 @@ def main() -> int:
     n, k = 1024, 20
     pts = torch.from_numpy(rng.normal(size=(64, n, 3)).astype(np.float32)).to(dev)
     graph = knn_graph(pts, k)
-    sms = gm._sms(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for w in (64, 128, 256):
         q = torch.from_numpy(rng.normal(size=(64, n, w)).astype(np.float32)).to(
             dev).to(torch.bfloat16)

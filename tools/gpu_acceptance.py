@@ -15,7 +15,7 @@ Every check runs at PyTorch's default float32 settings (matmul precision
 takes ``device`` (CUDA unless the caller asks for the CPU, as the CPU tests
 do) and returns its results; :func:`main` runs them all on the card. On
 the card a check that holds a kernel fails unless the kernel's launch
-counter rose in it (:func:`launching`).
+counter (``build.LAUNCHES``) rose in it (:func:`launching`).
 
 Run: ``python tools/gpu_acceptance.py``. Prints one PASS/FAIL line per
 check (a crashed check is a FAIL); exit code 1 if any check fails.
@@ -36,6 +36,8 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
+
+from pointcloudprocessing_tpu_torch.ops.cuda import build  # noqa: E402
 
 
 class Result(NamedTuple):
@@ -95,17 +97,16 @@ def plain_pooled_chain():
 
 @contextlib.contextmanager
 def launching(device, *counters):
-    """On the card, the block must launch each kernel named by a (wrapper,
-    counter attribute) pair at least once; else the check would hold the
-    plain version against itself, and it fails. On the CPU the wrappers
-    run their plain versions, and nothing is asserted."""
+    """On the card, the block must launch each kernel named by a counter of
+    ``build.LAUNCHES`` at least once; else the check would hold the plain
+    version against itself, and it fails. On the CPU the wrappers run their
+    plain versions, and nothing is asserted."""
     if torch.device(device).type != "cuda":
         yield
         return
-    before = [getattr(fn, attr) for fn, attr in counters]
+    before = [build.LAUNCHES[name] for name in counters]
     yield
-    idle = [f"{fn.__name__}.{attr}" for (fn, attr), n in zip(counters, before)
-            if getattr(fn, attr) <= n]
+    idle = [name for name, n in zip(counters, before) if build.LAUNCHES[name] <= n]
     if idle:
         raise AssertionError(f"kernels that did not launch on the card: {idle}")
 
@@ -120,11 +121,10 @@ def check_voxel_centroids(device="cuda") -> list[Result]:
     plain version on the CPU: <= 1 mm at a 30 m uniform scene (the bound
     on the segment sum's precision)."""
     from pointcloudprocessing_tpu_torch.ops import voxel_downsample_batch
-    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import sorted_segment_reduce
 
     rng = np.random.default_rng(5)
     pts = torch.from_numpy(rng.uniform(-30, 30, (4, 2048, 3)).astype(np.float32))
-    with launching(device, (sorted_segment_reduce, "launches")):
+    with launching(device, "sorted_segment_sum"):
         vox_d, mask_d = voxel_downsample_batch(pts.to(device), 0.4)
     vox_c, mask_c = voxel_downsample_batch(pts, 0.4)
     err = float("inf")
@@ -166,12 +166,9 @@ def check_normals(device="cuda", n: int = 8192, b: int = 4) -> list[Result]:
         estimate_normals_batch,
         voxel_downsample_batch,
     )
-    from pointcloudprocessing_tpu_torch.ops.cuda.window_normals import (
-        windowed_moment_sums,
-    )
 
     vox, mask = voxel_downsample_batch(_sphere_scene(n, b).to(device), 0.25)
-    with launching(device, (windowed_moment_sums, "launches")):
+    with launching(device, "windowed_moment_sums"):
         nw = estimate_normals_batch(vox, k=16, valid_mask=mask, method="window")
     ne = estimate_normals_batch(vox, k=16, valid_mask=mask, method="exact")
     with matmul_precision("high"):
@@ -214,11 +211,10 @@ def check_fps_selection(device="cuda") -> list[Result]:
     """FPS (kernel 2 on the card) must select the same points as the plain
     'stream' version (both use exact squared differences)."""
     from pointcloudprocessing_tpu_torch.ops import farthest_point_sample_batch
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
 
     rng = np.random.default_rng(2)
     pts = torch.from_numpy(rng.normal(size=(4, 512, 3)).astype(np.float32)).to(device)
-    with launching(device, (fps_with_points, "launches")):
+    with launching(device, "fps_with_points"):
         got = farthest_point_sample_batch(pts, 64)
     ref = farthest_point_sample_batch(pts, 64, method="stream")
     return [Result("kernel-vs-stream FPS selection mismatches",
@@ -232,13 +228,12 @@ def check_inference_precision_drift(device="cuda", b: int = 16,
     tolerance, 1e-2 on the softmax outputs. Its three pooled chains take
     kernel 4 (3xTF32 in either mode) on the card."""
     from pointcloudprocessing_tpu_torch.models import PointNet
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import pooled_chain_forward
 
     model = PointNet(23, 12, generator=torch.Generator().manual_seed(0),
                      device=device).eval()
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(device)
-    with torch.no_grad(), launching(device, (pooled_chain_forward, "launches")):
+    with torch.no_grad(), launching(device, "pooled_chain_forward"):
         with matmul_precision("high"):
             o_high = model(x)
         with matmul_precision("highest"):
@@ -260,8 +255,8 @@ def check_gather_maxmin_kernel(device="cuda") -> list[Result]:
         q = torch.from_numpy(
             rng.normal(size=(4, 512, 64)).astype(np.float32) * 17.0
         ).to(device, dtype)
-        counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
-        with launching(device, (gather_maxmin, counter)):
+        counter = "gather_maxmin_bf16" if dtype == torch.bfloat16 else "gather_maxmin"
+        with launching(device, counter):
             got_mx, got_mn = gather_maxmin(q, idx)
         g = torch.take_along_dim(
             q.float(), idx.reshape(4, -1)[..., None].long(), dim=1
@@ -279,7 +274,6 @@ def check_dgcnn_factored_edge(device="cuda", b: int = 8, n: int = 256) -> list[R
     against the literal edge-tensor dataflow, bf16 (the serving
     configuration), exact kNN, the same weights: <= 5e-3 on each head."""
     from pointcloudprocessing_tpu_torch.models.dgcnn import dgcnn_for_width
-    from pointcloudprocessing_tpu_torch.ops.cuda.gather_maxmin import gather_maxmin
 
     rng = np.random.default_rng(11)
     pts = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).to(device)
@@ -288,7 +282,7 @@ def check_dgcnn_factored_edge(device="cuda", b: int = 8, n: int = 256) -> list[R
         model = dgcnn_for_width(23, 12, n, dtype=torch.bfloat16, edge_impl=impl,
                                 generator=torch.Generator().manual_seed(0),
                                 device=device).eval()
-        counters = [(gather_maxmin, "launches_bf16")] if impl == "factored" else []
+        counters = ["gather_maxmin_bf16"] if impl == "factored" else []
         with torch.no_grad(), launching(device, *counters):
             outs[impl] = model(pts)
     return [Result(f"dgcnn factored {head} max |d|",
@@ -302,9 +296,6 @@ def check_shardmap_pipeline(device="cuda") -> list[Result]:
     on the card) over a one-device mesh must match the plain pipeline bit
     for bit (one shard: there is nothing to gather)."""
     from pointcloudprocessing_tpu_torch.models import PointCloudPipeline, PointNet
-    from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import pooled_chain_forward
-    from pointcloudprocessing_tpu_torch.ops.cuda.voxel_reduce import sorted_segment_reduce
 
     model = PointNet(23, 12, generator=torch.Generator().manual_seed(0),
                      device=device).eval()
@@ -313,8 +304,7 @@ def check_shardmap_pipeline(device="cuda") -> list[Result]:
     kwargs = dict(scan_width=2048, model_width=1024, voxel_size=0.4, sampler="fps")
     plain = PointCloudPipeline(model, **kwargs)
     sharded = PointCloudPipeline(model, mesh=[device], **kwargs)
-    kernels = ((sorted_segment_reduce, "launches"), (fps_with_points, "launches"),
-               (pooled_chain_forward, "launches"))
+    kernels = ("sorted_segment_sum", "fps_with_points", "pooled_chain_forward")
     with launching(device, *kernels):
         want = plain(scans)
     with launching(device, *kernels):
@@ -332,10 +322,6 @@ def check_pooled_chain_training(device="cuda", b: int = 8,
     within 0.25 of it (the bf16 rounding of the winners)."""
     from pointcloudprocessing_tpu_torch.core.constants import KERAS_BN_EPSILON
     from pointcloudprocessing_tpu_torch.models.fused_pool import dense_bn_relu_max
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-        pooled_chain_backward,
-        pooled_chain_forward,
-    )
 
     rng = np.random.default_rng(3)
     cin, c = 128, 1024
@@ -353,8 +339,7 @@ def check_pooled_chain_training(device="cuda", b: int = 8,
         torch.square(out).mean().backward()
         return [p.grad.cpu().double() for p in params]
 
-    with launching(device, (pooled_chain_forward, "launches_bf16"),
-                   (pooled_chain_backward, "launches_bf16")):
+    with launching(device, "pooled_chain_forward_bf16", "pooled_chain_backward_bf16"):
         got = grads(torch.bfloat16)
     with plain_pooled_chain():
         ref = grads(torch.bfloat16)
@@ -388,10 +373,6 @@ def check_shardmap_training(device="cuda", b: int = 8, w: int = 1024) -> list[Re
 
     from pointcloudprocessing_tpu_torch.core.config import LearningConfig
     from pointcloudprocessing_tpu_torch.models import FreezeFlags, PointNet
-    from pointcloudprocessing_tpu_torch.ops.cuda.pooled_chain import (
-        pooled_chain_backward,
-        pooled_chain_forward,
-    )
     from pointcloudprocessing_tpu_torch.parallel import (
         data_parallel_mesh,
         initialize_multihost,
@@ -423,8 +404,8 @@ def check_shardmap_training(device="cuda", b: int = 8, w: int = 1024) -> list[Re
             else:
                 step = steps.make_shardmap_train_step(model, optimizer, weights,
                                                       freeze, jitter, mesh)
-            with launching(device, (pooled_chain_forward, "launches_bf16"),
-                           (pooled_chain_backward, "launches_bf16")):
+            with launching(device, "pooled_chain_forward_bf16",
+                           "pooled_chain_backward_bf16"):
                 losses[kind] = float(step(state, x, targets, 3)[1]["loss"])
     finally:
         dist.destroy_process_group()
@@ -461,8 +442,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("gpu_acceptance checks the port on an NVIDIA GPU, and "
                            "CUDA is not available")
-    from pointcloudprocessing_tpu_torch.ops.cuda import build
-
     print(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}",
           flush=True)
     build.build_all()

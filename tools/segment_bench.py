@@ -125,7 +125,7 @@ def time_cases(torch, rng, smoke) -> None:
 def serve_path(torch, rng, smoke) -> None:
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
     from pointcloudprocessing_tpu_torch.models.pointnet import PointNet
-    from pointcloudprocessing_tpu_torch.ops.cuda import voxel_reduce as vr
+    from pointcloudprocessing_tpu_torch.ops.cuda import build
 
     model = PointNet(smoke.NUM_CLASSES, smoke.NUM_PARTS,
                      generator=torch.Generator().manual_seed(0), device="cuda")
@@ -142,7 +142,7 @@ def serve_path(torch, rng, smoke) -> None:
             return (pool[i % len(pool)] for i in range(count))
 
         list(pipe.stream(feed(2)))
-        vr.segment_reduce.launches = vr.sorted_segment_reduce.launches = 0
+        build.reset("segment_reduce", "sorted_segment_sum")
         rates = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -155,8 +155,8 @@ def serve_path(torch, rng, smoke) -> None:
         print(f"64x8000 {kind} -> voxel 0.4 -> fps -> 1024 -> PointNet 23/12: "
               f"clouds/s " + ", ".join(f"{r:.1f}" for r in rates)
               + f"; median {float(np.median(rates)):.1f}; kernel 3 launches a "
-              f"batch {vr.segment_reduce.launches / batches:.2f}, kernel 1 "
-              f"{vr.sorted_segment_reduce.launches / batches:.2f}", flush=True)
+              f"batch {build.LAUNCHES['segment_reduce'] / batches:.2f}, kernel 1 "
+              f"{build.LAUNCHES['sorted_segment_sum'] / batches:.2f}", flush=True)
 
 
 def run_checkout(root: str) -> None:
