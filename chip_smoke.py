@@ -129,7 +129,11 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    ``"model": "pointnet2"`` on 256x1024 normal(0, 1) clouds: through the
    FPS kernel against its plain version (picks identical), a CPU twin on 2
    clouds, clouds/s over three windows, busy share, device ms by kind; FPS
-   launches twice a forward. (d) ``PointCloudPipeline`` at 256x2000 ->
+   and the SA kernel launch twice a forward. The SA kernel
+   (``sa_kernel_checks``, its own generator ``SA_SEED``): a forward with
+   randomized BatchNorms, its heads within 1e-5 of the plain path's, each
+   level within 2e-6 of its plain version, device ms beside the plain path
+   and the 3xTF32 bound. (d) ``PointCloudPipeline`` at 256x2000 ->
    voxel 0.4 -> FPS or stride -> 1024 -> PointNet++ through ``stream()``:
    clouds/s, busy share, launches a batch. (e) ``serve.main`` over a
    PointNet++ stage at scan width 2000.
@@ -154,7 +158,8 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    (the export's seconds beside it); ``serve.main --model
    <stage>`` answers scans from the trainer's checkpoint. PointNet++ and
    DGCNN train one stage of 2 epochs at 8x8192 through the same trainer
-   (FPS twice a forward; kernel 7 four times a DGCNN val forward, counted;
+   (FPS twice a forward, the SA kernel twice a PointNet++ val forward and
+   never in a train step; kernel 7 four times a DGCNN val forward, counted;
    the first val forward's four kernel-7 calls, 8x8192 in the S 4 slice,
    held bit for bit against the plain version on their own inputs),
    and a stage with ``max_in_memory_bytes`` 1 trains on
@@ -212,7 +217,7 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    differs is counted and must be a float64 tie (``TIE_REL``), and only
    then may segmentation rows pass 1e-4 (at most 1e-3 of them); the FPS
    picks equal kernel 2's. Kernels 2 and 7 launch 2 and 4 times an eager
-   forward (counted). ``python -m pointcloudprocessing_tpu_torch.export.cli``
+   forward, the SA kernel twice a PointNet++ one (counted). ``python -m pointcloudprocessing_tpu_torch.export.cli``
    on the PointNet stage: exit 0, its ``.onnx`` byte-equal to the
    trainer's. (b) The toolkit on the card: ``solve_kabsch`` against a numpy
    float64 SVD (R within 1e-5), the radar-truth calibration, the reflector
@@ -235,8 +240,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    DGCNN and PointNet++ (23/12, 8x1024) one global step each within the
    same bars (each DGCNN kNN row whose set differs from the ranks' a proven
    float64 tie, the single-device steps taking the ranks' sets there),
-   DGCNN's global eval step (kernel 7 and the kNN kernel four times a rank) within
-   1e-5 of the single-device one, PointNet++'s FPS twice a rank. (c)
+   each family's global eval step within 1e-5 of the single-device one
+   (DGCNN: kernel 7 and the kNN kernel four times a rank; PointNet++: FPS
+   and the SA kernel twice a rank), PointNet++'s train step FPS twice a rank
+   and the SA kernel never. (c)
    ``PointCloudPipeline(mesh=[cuda] * 2)`` at 256x2048 -> voxel 0.4 -> FPS
    -> 1024: FPS picks identical to the single-device pipeline's, heads
    within 1e-4, kernels 1 and 2 once a shard. (d) ``chains=4`` on the
@@ -2853,7 +2860,8 @@ def phase_dgcnn(torch, rng, dtype=None) -> dict:
 
 # ------------------------------------- phase 9: PointNet++ and kernel 3
 
-PN2_KINDS = (("fps", ("fps_kernel",)), ("topk", ("topk", "sort", "radix")),
+PN2_KINDS = (("sa_group_mlp", ("sa_group_mlp",)), ("fps", ("fps_kernel",)),
+             ("topk", ("topk", "sort", "radix")),
              ("gather", ("gather", "scatter", "index")), ("gemm", ("gemm",)),
              ("argmin/reduce", ("reduce", "argmin")),
              ("elementwise", ("elementwise",)))
@@ -3105,6 +3113,111 @@ def phase_wide_scan(torch, model, b: int = 64, device: str = "cuda") -> dict:
     return results
 
 
+#: phase 9's SA kernel checks draw from a generator of their own
+SA_SEED = 28
+SA_SRC = "pointcloudprocessing_tpu_torch/csrc/sa_group_mlp.cu"
+SA_TPU = "none (the JAX package's PointNet++ leaves the grouped MLP to XLA)"
+
+
+def sa_bound(b: int, m: int, k: int, c_in: int, widths) -> tuple[float, str]:
+    """A set-abstraction level's least time on the card in ms: its products
+    on the tensor cores in 3xTF32 (three a multiply-add), or its gathered
+    rows read and its output written once."""
+    c1, c2, c3 = widths
+    products = 2.0 * b * m * k * (c_in * c1 + c1 * c2 + c2 * c3)
+    return roofline(4.0 * b * m * (k * c_in + c3), 0.0, tf32_operations=3 * products)
+
+
+def sa_kernel_checks(torch, model) -> dict:
+    """Phase 9's SA kernel (``ops/cuda/sa_group_mlp.py``) on what the f32
+    canonical PointNet++ ``model``'s two levels meet at 256 x 1,024
+    normal(0, 1) clouds, on a copy with its BatchNorms randomized: two
+    launches a forward; the heads within 1e-5 of the same forward through
+    the plain path; each level within 2e-6 (of its largest output) of the
+    kernel's plain version; each level's device ms beside the plain path's
+    (the gather, the blocks' products, BatchNorm and relu passes, amax) and
+    the kernel's bound. Inputs from a generator of its own (``SA_SEED``).
+    ``launches``: the recorded forward's two (the timing calls are not a
+    path's own)."""
+    import copy
+
+    from pointcloudprocessing_tpu_torch.models import pointnet2 as pn2_mod
+    from pointcloudprocessing_tpu_torch.models.layers import BatchNorm
+    from pointcloudprocessing_tpu_torch.ops.cuda import sa_group_mlp as sa_mod
+    from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
+
+    rng = np.random.default_rng(SA_SEED)
+    model = copy.deepcopy(model).eval()
+    gen = torch.Generator().manual_seed(SA_SEED)
+    with torch.no_grad():
+        for bn in (mod for mod in model.modules() if isinstance(mod, BatchNorm)):
+            c = bn.running_mean.numel()
+            bn.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+            bn.bias.copy_(torch.randn(c, generator=gen) * 0.2)
+            bn.running_mean.copy_(torch.randn(c, generator=gen) * 0.3)
+            bn.running_var.copy_(torch.rand(c, generator=gen) * 1.5 + 0.5)
+    x = torch.from_numpy(rng.normal(size=(256, 1024, 3)).astype(np.float32)).cuda()
+    real, met = pn2_mod.sa_group_mlp, []
+
+    def recording(*args):
+        out = real(*args)
+        met.append((args, out))
+        return out
+
+    zero_launches("sa_group_mlp")
+    with torch.inference_mode(), patched(pn2_mod, "sa_group_mlp", recording):
+        got = model(x)
+    torch.cuda.synchronize()
+    launches = counted("sa_group_mlp")
+    if launches != 2 or len(met) != 2:
+        raise AssertionError(f"[9 sa] an f32 PointNet++ inference forward launched the SA "
+                             f"kernel {launches} times (2 wanted)")
+    with torch.inference_mode(), patched(pn2_mod, "_level_kernel", lambda *_: False):
+        want = model(x)
+    diffs = {k: (got[k] - want[k]).abs().max().item() for k in got}
+    if max(diffs.values()) > 1e-5:
+        raise AssertionError(f"[9 sa] heads through the SA kernel against the plain path: "
+                             f"{diffs}")
+    log("[9 sa] PointNet++ 256x1024 f32 inference, BatchNorms randomized: 2 SA kernel "
+        "launches a forward; heads against the plain path's: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
+    out = {"ms": 0.0, "plain_ms": 0.0, "bound": 0.0, "err": 0.0, "launches": launches}
+    for name, level, (args, kernel_out) in zip(("sa1", "sa2"), (model.sa1, model.sa2), met):
+        xyz, feats, centers, idx, layers, eps = args
+        with torch.inference_mode():
+            plain = sa_mod.sa_group_mlp_reference(*args)
+        err = ((kernel_out - plain).abs().max() / plain.abs().max()).item()
+        if not err <= 2e-6:
+            raise AssertionError(f"[9 sa] {name}: the kernel is {err:.3e} (of the largest "
+                                 "output) off its plain version")
+
+        def plain_path(xyz=xyz, feats=feats, centers=centers, idx=idx, level=level):
+            grouped = gather_rows(xyz, idx) - centers[:, :, None, :]
+            if feats is not None:
+                grouped = torch.cat([grouped, gather_rows(feats, idx)], dim=-1)
+            return level.mlp(grouped, train=False, frozen=False).amax(dim=2)
+
+        with torch.inference_mode():
+            ms = device_ms(torch, lambda args=args: real(*args), 5)
+            plain_ms = device_ms(torch, plain_path, 3)
+        b, m, k = idx.shape
+        widths = [layer[0].shape[0] for layer in layers]
+        bound = sa_bound(b, m, k, xyz.shape[-1] + (0 if feats is None else feats.shape[-1]),
+                         widths)
+        log(f"[9 sa] {name} {b}x{m}x{k}, {'-'.join(map(str, widths))}: kernel {fmt(ms)} "
+            f"device ms, plain path {fmt(plain_ms)}, bound {bound[0]:.4f} ({bound[1]}); "
+            f"kernel against its plain version {err:.3e} of the largest output")
+        traced = ms is not None and plain_ms is not None and out["ms"] is not None
+        out["ms"] = out["ms"] + ms if traced else None
+        out["plain_ms"] = out["plain_ms"] + plain_ms if traced else None
+        out["bound"] += bound[0]
+        out["err"] = max(out["err"], err)
+    out["bound"] = (out["bound"], "operations")
+    log(f"[9 sa] both levels a forward at 256x1024: kernel {fmt(out['ms'])} device ms, "
+        f"plain path {fmt(out['plain_ms'])}, bound {out['bound'][0]:.4f}")
+    return out
+
+
 @contextlib.contextmanager
 def pointnet2_fps(method: str, picks: list):
     """Route PointNet++'s FPS through ``farthest_point_sample_batch(...,
@@ -3177,7 +3290,7 @@ def pointnet2_forward(torch, rng, dtype=None) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         model(x)  # warm-up
-        zero_launches("fps_with_points")
+        zero_launches("fps_with_points", "sa_group_mlp")
         # ---- the PointNet++ path: counted launches start here
         rates = []
         for _ in range(3):
@@ -3188,11 +3301,17 @@ def pointnet2_forward(torch, rng, dtype=None) -> tuple:
             torch.cuda.synchronize()
             rates.append(b * count / (time.perf_counter() - t0))
         launches = counted("fps_with_points")
+        sa_launches = counted("sa_group_mlp")
         # ---- the PointNet++ path ends here
         if launches != 2 * 3 * count:
             raise AssertionError(f"PointNet++: FPS launched {launches} times in "
                                  f"{3 * count} forwards (2 each)")
+        if sa_launches != (0 if dtype is not None else 2 * 3 * count):
+            raise AssertionError(f"PointNet++ {precision}: the SA kernel launched "
+                                 f"{sa_launches} times in {3 * count} forwards (2 each in "
+                                 "f32, none in bf16)")
         results["fps_launches"] = launches
+        results["sa_launches"] = sa_launches
         check_outputs(torch, out, b, n)
         picks_k, picks_p = [], []
         with pointnet2_fps("auto", picks_k):
@@ -3235,7 +3354,7 @@ def pointnet2_forward(torch, rng, dtype=None) -> tuple:
         + ", ".join(f"{r:.1f}" for r in rates)
         + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}; "
         f"busy share {share} over 3 forwards; FPS launches {launches} (2 a "
-        f"forward); peak allocated {peak:.2f} GiB")
+        f"forward), SA kernel {sa_launches}; peak allocated {peak:.2f} GiB")
     log(f"{tag} through the FPS kernel vs its plain version: picks "
         f"identical, heads {'bit-identical' if bitwise else 'max abs diff ' + str(diffs)}"
         + ("" if dtype is not None else "; card vs CPU twin on 2 clouds: " + ", ".join(
@@ -3255,8 +3374,9 @@ def phase_pointnet2(torch, rng) -> dict:
     "model": "pointnet2": (b) the segment-sum route at 256x2000 and
     256x2048; (c) 256x1024 normal(0, 1) clouds (bench.py:118-120) through
     the FPS kernel against the same through its plain version, and a CPU
-    twin on 2 clouds; rates, busy share, device ms by kind; (d) the serving
-    pipeline at 256x2000 (no multiple of 128) with both samplers; (e) the
+    twin on 2 clouds; rates, busy share, device ms by kind; the SA kernel
+    (:func:`sa_kernel_checks`); (d) the serving pipeline at 256x2000 (no
+    multiple of 128) with both samplers, two SA launches a batch; (e) the
     serve CLI over a PointNet++ stage at scan width 2000."""
     from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
     from pointcloudprocessing_tpu_torch.ops.cuda.fps import fps_with_points
@@ -3269,10 +3389,11 @@ def phase_pointnet2(torch, rng) -> dict:
 
     def counts():
         return {"any": counted("segment_reduce"), "sorted": counted("sorted_segment_sum"),
-                "fps": counted("fps_with_points")}
+                "fps": counted("fps_with_points"), "sa": counted("sa_group_mlp")}
 
     def zero_counts():
-        zero_launches("segment_reduce", "sorted_segment_sum", "fps_with_points")
+        zero_launches("segment_reduce", "sorted_segment_sum", "fps_with_points",
+                      "sa_group_mlp")
 
     # (b) the route: a voxel step and a stride sample per width
     for n, want in ((2000, {"any": 2, "sorted": 0}), (2048, {"any": 0, "sorted": 2})):
@@ -3281,7 +3402,7 @@ def phase_pointnet2(torch, rng) -> dict:
         vox, vmask = voxel_downsample_batch(x, 0.4)
         stride_sample_and_gather(vox, 1024, vmask)
         torch.cuda.synchronize()
-        got = {k: v for k, v in counts().items() if k != "fps"}
+        got = {k: v for k, v in counts().items() if k not in ("fps", "sa")}
         if got != want:
             raise AssertionError(f"route at 256x{n}: launches {got}, want {want}")
         if n == 2000:
@@ -3299,6 +3420,8 @@ def phase_pointnet2(torch, rng) -> dict:
     # (c) PointNet++ at 256x1024
     model, forward = pointnet2_forward(torch, rng)
     results.update(forward)
+    results["sa"] = sa_kernel_checks(torch, model)
+    results["sa_launches"] += results["sa"]["launches"]
     b, n = 256, 1024  # the forward's clouds, served below
 
     # (d) serving at a width that does not tile: 2000 = 15 * 128 + 80
@@ -3311,8 +3434,8 @@ def phase_pointnet2(torch, rng) -> dict:
         return (pool[i % len(pool)] for i in range(count))
 
     any_launches = 0
-    for sampler, per_batch in (("fps", {"any": 1, "sorted": 0, "fps": 3}),
-                               ("stride", {"any": 2, "sorted": 0, "fps": 2})):
+    for sampler, per_batch in (("fps", {"any": 1, "sorted": 0, "fps": 3, "sa": 2}),
+                               ("stride", {"any": 2, "sorted": 0, "fps": 2, "sa": 2})):
         pipe = PointCloudPipeline(model, scan_width=scan, model_width=n,
                                   voxel_size=0.4, sampler=sampler)
         warm = list(pipe.stream(feed(2)))
@@ -3334,6 +3457,7 @@ def phase_pointnet2(torch, rng) -> dict:
                                  f"{launched} over {len(outs)} batches, want {want}")
         any_launches += launched["any"]
         results["fps_launches"] += launched["fps"]
+        results["sa_launches"] += launched["sa"]
         for o in [*warm, *outs]:
             check_outputs(torch, o, b, n)
         share = busy_share(torch, lambda: list(pipe.stream(feed(4))))
@@ -3344,7 +3468,8 @@ def phase_pointnet2(torch, rng) -> dict:
             f"windows of {window} batches: " + ", ".join(f"{r:.1f}" for r in rates)
             + f"; median {rate:.1f}, spread {(max(rates) - min(rates)) / rate:.4f}"
             f"; busy share {share} over 4 batches; launches a batch: kernel 3 "
-            f"{per_batch['any']}, kernel 1 0, FPS {per_batch['fps']}")
+            f"{per_batch['any']}, kernel 1 0, FPS {per_batch['fps']}, SA kernel "
+            f"{per_batch['sa']}")
     results["any_launches"] = any_launches
 
     # (e) the serve CLI over a PointNet++ stage at scan width 2000
@@ -3594,7 +3719,7 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     classes = list(kc46["info"]["class_labels"].values())
     parts = list(kc46["info"]["part_labels"].values())
     stages = list(kc46["info"]["training_profiles"])
-    out = {"launches": {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0}}
+    out = {"launches": {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0, "sa": 0}}
 
     def read():
         got = kernel_counts()
@@ -3823,13 +3948,21 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         if got["knn"] != graphs["cuda"] or (family == "dgcnn") != (got["knn"] > 0):
             raise AssertionError(f"trainer {family}: {got['knn']} kNN kernel launches "
                                  f"for {graphs['cuda']} kNN graphs on the card")
+        # the SA kernel: twice a val forward (f32, running statistics, no
+        # gradient), never in a train step (the stage trains both levels)
+        want_sa = 2 * 2 * val_steps if family == "pointnet2" else 0
+        if got["sa"] != want_sa:
+            raise AssertionError(f"trainer {family}: SA kernel launches {got['sa']}, "
+                                 f"want {want_sa} (2 x {2 * val_steps} val forwards)")
         log(f"[10 trainer] {family} 23/12 at {batch}x{width} (stage {stages[-1]}, "
             f"2 epochs) in {seconds:.1f} s (its export apart): loss {hist['loss'][0]:.4f} -> "
             f"{hist['loss'][-1]:.4f}; kernel {'2 (FPS)' if kernel == 'fps' else '7'} "
             f"launches {got[kernel]} = {per_forward} x {forwards} "
             f"{'forwards (train and val)' if kernel == 'fps' else 'val forwards'}"
             + (f"; kNN kernel launches {got['knn']} = kNN graphs on the card "
-               f"(and {graphs['cpu']} on the CPU)" if got["knn"] else ""))
+               f"(and {graphs['cpu']} on the CPU)" if got["knn"] else "")
+            + (f"; SA kernel launches {got['sa']} = 2 x {2 * val_steps} val forwards, "
+               "none in a train step" if family == "pointnet2" else ""))
         if family == "dgcnn":
             if [q.shape[2] for q, _, _ in gathers] != [64, 64, 128, 256]:
                 raise AssertionError("trainer dgcnn: recorded gathers of widths "
@@ -4870,19 +5003,19 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
     log(f"[13 export] {len(written)} artifacts (.pt2 and .onnx) in every stage phases "
         f"10 and 11 trained (f32 and bf16 compute); held on the {len(points)} test clouds of stage {stage}")
 
-    per_forward = {"pointnet": {}, "pointnet2": {"fps": 2}, "dgcnn": {"gather": 4}}
-    launches = {"fps": 0, "gather": 0, "knn": 0}
+    per_forward = {"pointnet": {}, "pointnet2": {"fps": 2, "sa": 2}, "dgcnn": {"gather": 4}}
+    launches = {"fps": 0, "gather": 0, "knn": 0, "sa": 0}
     with tempfile.TemporaryDirectory() as work:
         loaded = load_programs(card, exports, points, work)
         for family in ("pointnet", "pointnet2", "dgcnn"):
-            zero_launches("fps_with_points", "gather_maxmin", "knn_select")
+            zero_launches("fps_with_points", "gather_maxmin", "knn_select", "sa_group_mlp")
             # ---- the export path (eager references on the card): counted launches
             with count_knn() as graphs:
                 got = export_family(torch, card, family, exports[family], points,
                                     loaded[family])
             torch.cuda.synchronize()
             counts = {"fps": counted("fps_with_points"), "gather": counted("gather_maxmin"),
-                      "knn": counted("knn_select")}
+                      "knn": counted("knn_select"), "sa": counted("sa_group_mlp")}
             # ---- the export path ends here
             want = {k: per_forward[family].get(k, 0) * got["forwards"]
                     for k in counts}
@@ -4970,7 +5103,7 @@ def kernel_counts() -> dict:
     return {key: counted(name) for key, name in (
         ("fwd", "pooled_chain_forward"), ("bwd", "pooled_chain_backward"),
         ("fps", "fps_with_points"), ("gather", "gather_maxmin"),
-        ("seg", "sorted_segment_sum"), ("knn", "knn_select"))}
+        ("seg", "sorted_segment_sum"), ("knn", "knn_select"), ("sa", "sa_group_mlp"))}
 
 
 def family_config(model: str, width: int):
@@ -5341,8 +5474,9 @@ def gloo_ranks_on_card(torch) -> dict:
     (16/16) and 3 ranks (10/11/11) within phase 6's bars of the 32-row single
     step, with its tie rule; parameters equal across ranks; DGCNN and
     PointNet++ one global step each at 8x1024 within the same bars of the
-    single-device step, DGCNN's global eval step (kernel 7), PointNet++'s
-    FPS (kernel 2) counted."""
+    single-device step, and each family's global eval step against the
+    single-device eval step, their kernels counted (DGCNN: kernel 7 and the
+    kNN kernel; PointNet++: FPS and the SA kernel)."""
     import copy
 
     from pointcloudprocessing_tpu_torch.models.factory import model_from_config
@@ -5383,8 +5517,8 @@ def gloo_ranks_on_card(torch) -> dict:
                               worlds=(2,), mode="global", rows="split", dropout=0.3,
                               jitter=jitter_b, x=cpu(fx),
                               targets={k: cpu(v) for k, v in ft.items()},
-                              eval=family == "dgcnn")
-    counts = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0}
+                              eval=True)
+    counts = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "knn": 0, "sa": 0}
     with tempfile.TemporaryDirectory() as work:
         torch.save(inputs, os.path.join(work, "inputs.pt"))
         t0 = time.perf_counter()
@@ -5435,29 +5569,34 @@ def gloo_ranks_on_card(torch) -> dict:
                                      fx.to(dev), {k: v.to(dev) for k, v in ft.items()},
                                      0.3)
         launches = [r[family]["counts"] for r in two]
-        extra = ""
+        # a rank's eval forward: DGCNN four kernel-7 and four kNN launches,
+        # PointNet++ two FPS and two SA kernel launches (f32, running
+        # statistics); its train step takes the SA kernel nowhere (case B
+        # freezes nothing)
+        per_eval = {"dgcnn": {"gather": 4, "knn": 4},
+                    "pointnet2": {"fps": 2, "sa": 2}}[family]
+        evals = {k: [r[family]["eval_counts"][k] for r in two] for k in per_eval}
+        if any(v != [per_eval[k]] * 2 for k, v in evals.items()):
+            raise AssertionError(f"[14 multi-device] {family} eval launches {evals}, "
+                                 f"want {per_eval} a rank")
+        st, _ = steps.init_train_state(model, cfg.learning, freeze_b)
+        want = steps.make_eval_step(model, weights_b, jitter_b)(
+            st, fx.to(dev), {k: v.to(dev) for k, v in ft.items()}, 5)
+        rel = max(abs(float(two[0][family]["eval"][k]) - float(v))
+                  / max(abs(float(v)), 1e-30) for k, v in want.items())
+        if rel > 1e-5:
+            raise AssertionError(f"[14 multi-device] {family} global eval logs {rel:.3e} "
+                                 "from the single-device eval step")
+        extra = (f"; global eval step: launches {evals} (a forward a rank), logs within "
+                 f"{rel:.2e} of the single-device eval step")
         if family == "pointnet2":
             fps = [c["fps"] for c in launches]
-            if fps != [2, 2]:
-                raise AssertionError(f"[14 multi-device] pointnet2 FPS launches {fps}")
-            extra = f"; FPS launches {fps} (twice a forward a rank)"
-        else:
-            ev = [r[family]["eval_counts"]["gather"] for r in two]
-            knn = [r[family]["eval_counts"]["knn"] for r in two]
-            if ev != [4, 4] or knn != [4, 4]:
-                raise AssertionError(f"[14 multi-device] dgcnn eval launches: kernel 7 "
-                                     f"{ev}, the kNN kernel {knn}")
-            st, _ = steps.init_train_state(model, cfg.learning, freeze_b)
-            want = steps.make_eval_step(model, weights_b, jitter_b)(
-                st, fx.to(dev), {k: v.to(dev) for k, v in ft.items()}, 5)
-            rel = max(abs(float(two[0][family]["eval"][k]) - float(v))
-                      / max(abs(float(v)), 1e-30) for k, v in want.items())
-            if rel > 1e-5:
-                raise AssertionError(f"[14 multi-device] dgcnn global eval logs {rel:.3e} "
-                                     "from the single-device eval step")
-            extra = (f"; global eval step: kernel 7 launches {ev}, kNN kernel {knn} "
-                     f"(four each a forward a rank), logs within {rel:.2e} of the "
-                     "single-device eval step")
+            sa = [c["sa"] for c in launches]
+            if fps != [2, 2] or sa != [0, 0]:
+                raise AssertionError(f"[14 multi-device] pointnet2 train step launches: "
+                                     f"FPS {fps}, the SA kernel {sa}")
+            extra += (f"; train step: FPS launches {fps} (twice a forward a rank), "
+                      f"SA kernel {sa}")
         if family == "dgcnn":
             extra += (f"; kNN rows flipped {worst['knn']}, each a proven tie, the "
                       "single-device steps taking the ranks' sets there")
@@ -5572,7 +5711,7 @@ def phase_multidevice(torch, trained: dict, model) -> dict:
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(PHASE14_SEED + 2)
-    launches = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "seg": 0, "knn": 0}
+    launches = {"fwd": 0, "bwd": 0, "fps": 0, "gather": 0, "seg": 0, "knn": 0, "sa": 0}
     for part in (one_rank_group(torch, trained), gloo_ranks_on_card(torch),
                  sharded_serving(torch, rng, model), fps_forms(torch, rng)):
         for k, v in part.items():
@@ -6137,6 +6276,13 @@ def main() -> int:
               + exported["knn"] + multi["knn"],
               dgcnn["knn"]["err"], dgcnn["knn"]["ms"], dgcnn["knn"]["plain_ms"],
               dgcnn["knn"]["bound"]),
+        # ms, plain_ms and bound: both levels of a forward at 256x1024;
+        # max_abs_err: the largest gap off the plain version, over the
+        # level's largest output
+        entry("sa_group_mlp", SA_SRC, SA_TPU,
+              pn2["sa_launches"] + trainer["launches"]["sa"] + exported["sa"]
+              + multi["sa"],
+              pn2["sa"]["err"], pn2["sa"]["ms"], pn2["sa"]["plain_ms"], pn2["sa"]["bound"]),
     ]
     for row in rows:  # phase 15's main path, the flagship
         row["launches"] += flagship["launches"].get(row["name"], 0)

@@ -7,12 +7,16 @@ segmentation head through a feature-propagation decoder (inverse-distance
 3-NN interpolation back to the input points). The head contract is
 PointNet's; ``se3`` is the identity (the family regresses no rotation).
 
-On a CUDA tensor FPS runs the hand-written kernel (``ops/cuda/fps``); the
-rest is plain PyTorch. Distances are f32 products with TF32 off, as the JAX
-package's ``precision=HIGHEST``, since the radius mask and the kNN sets
-flip on a rounding. kNN is the exact ``torch.topk``: the JAX package's
-approximate TPU search (its default ``exact_knn=False``) is not ported, and
-on the CPU it returns the exact set.
+On a CUDA tensor FPS runs the hand-written kernel (``ops/cuda/fps``). A
+set-abstraction level in f32 inference on CUDA (running statistics, no
+gradient to keep) runs its grouped MLP and group max as one launch of the
+SA kernel (``ops/cuda/sa_group_mlp``), BatchNorm folded in, from the
+grouping's masked neighbour indices; the CPU, bf16 and training keep the
+plain path. The rest is plain PyTorch. Distances are f32 products with TF32
+off, as the JAX package's ``precision=HIGHEST``, since the radius mask and
+the kNN sets flip on a rounding. kNN is the exact ``torch.topk``: the JAX
+package's approximate TPU search (its default ``exact_knn=False``) is not
+ported, and on the CPU it returns the exact set.
 
 ``dtype=torch.bfloat16`` runs the SA, FP and head blocks in bf16 as the JAX
 package does (FPS, grouping and interpolation weights stay on the f32
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from pointcloudprocessing_tpu_torch.core.constants import KERAS_BN_EPSILON
 from pointcloudprocessing_tpu_torch.models.layers import (
     DenseBlock,
     PointwiseBlock,
@@ -36,6 +41,7 @@ from pointcloudprocessing_tpu_torch.models.pointnet import (
     FreezeFlags,
     dropout,
 )
+from pointcloudprocessing_tpu_torch.ops.cuda.sa_group_mlp import sa_group_mlp
 from pointcloudprocessing_tpu_torch.ops.fps import farthest_point_sample_batch
 from pointcloudprocessing_tpu_torch.ops.gather import gather_rows
 from pointcloudprocessing_tpu_torch.ops.knn import pairwise_sq_dists
@@ -85,6 +91,20 @@ def _grouping_knn(queries: torch.Tensor, points: torch.Tensor, k: int
     return idx.int(), -neg
 
 
+def group_indices(xyz: torch.Tensor, num_centroids: int, k: int, radius: float
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """FPS centroids + radius-masked kNN: xyz (b, n, 3) -> (new_xyz (b, m,
+    3), neighbour indices (b, m, k) int32). kNN hits beyond ``radius`` are
+    replaced by the nearest neighbour (for a centroid drawn from the cloud,
+    itself), the classic ball-query padding with fixed shapes."""
+    centroid_idx = farthest_point_sample_batch(xyz, num_centroids)
+    new_xyz = gather_rows(xyz, centroid_idx)
+    nbr_idx, sq_d = _grouping_knn(new_xyz, xyz, k)
+    # r * r rounded once to f32, as the JAX package's weakly typed product
+    r2 = torch.tensor(radius * radius, dtype=sq_d.dtype, device=sq_d.device)
+    return new_xyz, torch.where(sq_d <= r2, nbr_idx, nbr_idx[..., :1])
+
+
 def sample_and_group(
     xyz: torch.Tensor,
     feats: Optional[torch.Tensor],
@@ -92,20 +112,12 @@ def sample_and_group(
     k: int,
     radius: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One set-abstraction grouping: FPS centroids + radius-masked kNN.
-
-    xyz (b, n, 3), feats optional (b, n, c). kNN hits beyond ``radius`` are
-    replaced by the nearest neighbour (for a centroid drawn from the cloud,
-    itself), the classic ball-query padding with fixed shapes. Returns
-    (new_xyz (b, m, 3), grouped (b, m, k, 3 + c)): centered neighbour
-    coordinates ++ neighbour features.
+    """One set-abstraction grouping: :func:`group_indices`, then the
+    gather. xyz (b, n, 3), feats optional (b, n, c). Returns (new_xyz (b,
+    m, 3), grouped (b, m, k, 3 + c)): centered neighbour coordinates ++
+    neighbour features.
     """
-    centroid_idx = farthest_point_sample_batch(xyz, num_centroids)
-    new_xyz = gather_rows(xyz, centroid_idx)
-    nbr_idx, sq_d = _grouping_knn(new_xyz, xyz, k)
-    # r * r rounded once to f32, as the JAX package's weakly typed product
-    r2 = torch.tensor(radius * radius, dtype=sq_d.dtype, device=sq_d.device)
-    nbr_idx = torch.where(sq_d <= r2, nbr_idx, nbr_idx[..., :1])
+    new_xyz, nbr_idx = group_indices(xyz, num_centroids, k, radius)
     grouped = gather_rows(xyz, nbr_idx) - new_xyz[:, :, None, :]
     if feats is not None:
         grouped = torch.cat([grouped, gather_rows(feats, nbr_idx)], dim=-1)
@@ -165,8 +177,23 @@ class _GlobalAbstraction(nn.Module):
         return self.mlp(x, train=train, frozen=frozen).amax(dim=1)  # (b, mlp[-1])
 
 
+def _level_kernel(device: torch.device, dtype: torch.dtype | None,
+                  x_dtypes: tuple[torch.dtype, ...], running: bool,
+                  keeps_grad: bool) -> bool:
+    """Whether a set-abstraction level runs as the SA kernel: on CUDA,
+    computed in f32 (``dtype`` None, f32 inputs), with running statistics
+    (inference or a frozen level) and no gradient to keep; the pooled
+    chain's inference test (``fused_pool._inference_kernel``)."""
+    return (device.type == "cuda" and dtype is None
+            and all(d == torch.float32 for d in x_dtypes) and running
+            and not keeps_grad)
+
+
 class _SetAbstraction(_GlobalAbstraction):
-    """FPS + group + the same pointwise MLP + max over each group."""
+    """FPS + group + the same pointwise MLP + max over each group; in f32
+    inference on CUDA one launch of the SA kernel after the grouping's
+    indices (:func:`_level_kernel`), whose every width but the kernel's
+    raises."""
 
     def __init__(self, in_features: int, num_centroids: int, k: int,
                  radius: float, mlp: tuple[int, ...], *,
@@ -175,8 +202,21 @@ class _SetAbstraction(_GlobalAbstraction):
         super().__init__(in_features, mlp, generator=generator, device=device,
                          dtype=dtype)
         self.num_centroids, self.k, self.radius = num_centroids, k, radius
+        self.dtype = dtype
 
     def forward(self, xyz, feats, *, train: bool, frozen: bool = False):
+        inputs = (xyz,) if feats is None else (xyz, feats)
+        keeps_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*inputs, *self.parameters()))
+        if _level_kernel(xyz.device, self.dtype, tuple(t.dtype for t in inputs),
+                         not train or frozen, keeps_grad):
+            new_xyz, nbr_idx = group_indices(xyz, self.num_centroids, self.k,
+                                             self.radius)
+            blocks = [getattr(self, f"l{i + 1}") for i in range(self.depth)]
+            layers = [(blk.conv.weight, blk.bn.weight, blk.bn.bias,
+                       blk.bn.running_mean, blk.bn.running_var) for blk in blocks]
+            return new_xyz, sa_group_mlp(xyz, feats, new_xyz, nbr_idx, layers,
+                                         KERAS_BN_EPSILON)
         new_xyz, x = sample_and_group(xyz, feats, self.num_centroids, self.k,
                                       self.radius)
         # (b, m, 3), (b, m, mlp[-1])

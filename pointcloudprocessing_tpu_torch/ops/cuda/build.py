@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 KERNELS = ("voxel_reduce", "fps", "pooled_chain", "window_normals",
-           "gather_maxmin", "knn_select")
+           "gather_maxmin", "knn_select", "sa_group_mlp")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -46,6 +46,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of each library's entry points: {name: argtypes}
 _ENTRY = {
     "voxel_reduce": {"pcp_sorted_segment_sum": [_P, _P, _P, _L, _L, _I, _I, _P],
@@ -75,6 +76,7 @@ _ENTRY = {
         "pcp_gather_maxmin_bf16_ring":
             [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P]},
     "knn_select": {"pcp_knn_select": [_P, _P, _L, _I, _I, _I, _I, _P]},
+    "sa_group_mlp": {"pcp_sa_group_mlp": [_P] * 21 + [_I] * 10 + [_F, _P]},
 }
 #: the library of each C entry point
 _LIBRARY = {entry: name for name, entries in _ENTRY.items() for entry in entries}
@@ -85,7 +87,7 @@ COUNTERS = ("sorted_segment_sum", "segment_reduce", "fps_with_points",
             "pooled_chain_forward", "pooled_chain_backward",
             "pooled_chain_forward_bf16", "pooled_chain_backward_bf16",
             "windowed_moment_sums", "gather_maxmin", "gather_maxmin_bf16",
-            "knn_select")
+            "knn_select", "sa_group_mlp")
 #: wrapper calls that launched in this process, by counter: one a call,
 #: whatever its plan launches (CPU calls and refusals count nothing)
 LAUNCHES = dict.fromkeys(COUNTERS, 0)

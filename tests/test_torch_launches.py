@@ -14,6 +14,7 @@ from pointcloudprocessing_tpu_torch.ops.cuda import (
     gather_maxmin,
     knn_select,
     pooled_chain,
+    sa_group_mlp,
     voxel_reduce,
     window_normals,
 )
@@ -43,6 +44,10 @@ CALLS = {
     "gather_maxmin": lambda: gather_maxmin.gather_maxmin(
         _meta(1, 8, 4), _meta(1, 8, 2, dtype=I32)),
     "knn_select": lambda: knn_select.knn_select(_meta(2, 64, 8), 20),
+    "sa_group_mlp": lambda: sa_group_mlp.sa_group_mlp(
+        _meta(1, 8, 3), None, _meta(1, 4, 3), _meta(1, 4, 2, dtype=I32),
+        [(_meta(c, c_in), *(_meta(c) for _ in range(4)))
+         for c_in, c in ((3, 64), (64, 64), (64, 128))], 1e-3),
 }
 
 
@@ -65,7 +70,7 @@ def test_the_counters_are_the_kernels_line_names():
         "sorted_segment_sum", "segment_reduce", "fps_with_points",
         "pooled_chain_forward", "pooled_chain_backward", "pooled_chain_forward_bf16",
         "pooled_chain_backward_bf16", "windowed_moment_sums", "gather_maxmin",
-        "gather_maxmin_bf16", "knn_select"])
+        "gather_maxmin_bf16", "knn_select", "sa_group_mlp"])
 
 
 @pytest.mark.parametrize("name", ["knn_graph", "gather_maxmin_f32", ""])
@@ -84,7 +89,8 @@ def test_only_build_launches():
     """No module under ``ops/cuda/`` but ``build.py`` loads a library or
     reads a stream: every launch goes through ``build.launch``."""
     wrappers = [p for p in Path(build.__file__).parent.glob("*.py") if p.name != "build.py"]
-    assert {"fps.py", "knn_select.py", "pooled_chain.py"} <= {p.name for p in wrappers}
+    assert {"fps.py", "knn_select.py", "pooled_chain.py", "sa_group_mlp.py"} <= {
+        p.name for p in wrappers}
     for path in wrappers:
         source = path.read_text()
         assert "cuda_stream" not in source, path.name
