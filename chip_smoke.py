@@ -137,6 +137,15 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    voxel 0.4 -> FPS or stride -> 1024 -> PointNet++ through ``stream()``:
    clouds/s, busy share, launches a batch. (e) ``serve.main`` over a
    PointNet++ stage at scan width 2000.
+9b. point transformer: Point Transformer 23/12 at its published widths
+   (f32, seeded) from a config with ``"model": "point_transformer"`` on
+   64x1024 normal(0, 1) clouds of its own generator (``PT_SEED``): five
+   ``knn_select`` and four FPS launches a forward; 4 clouds against the CPU
+   forward on the same weights and the card's graphs (every row where the
+   CPU's own graphs differ a proven tie), within ``PT_CPU_BAR``; clouds/s
+   over three windows, busy share; one ``PointCloudPipeline.stream()`` over
+   3 batches of 64x2048 (voxel 0.4 -> FPS -> 1024), FPS once a batch beyond
+   the model's four; the phase's time.
 
 10. trainer: the staged trainer end to end. Four synthetic collects (four
    of the kc46 config's classes, each a shape of its own, 18 frames of
@@ -156,10 +165,12 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    steps/s beside phase 6's bare step, val steps/s, the seconds an epoch
    takes, and the busy share over one epoch and its stage-end export
    (the export's seconds beside it); ``serve.main --model
-   <stage>`` answers scans from the trainer's checkpoint. PointNet++ and
-   DGCNN train one stage of 2 epochs at 8x8192 through the same trainer
-   (FPS twice a forward, the SA kernel twice a PointNet++ val forward and
-   never in a train step; kernel 7 four times a DGCNN val forward, counted;
+   <stage>`` answers scans from the trainer's checkpoint. PointNet++,
+   DGCNN and Point Transformer train one stage of 2 epochs at 8x8192
+   through the same trainer (FPS twice a PointNet++ forward and four times
+   a Point Transformer one, the kNN kernel once a graph, the SA kernel
+   twice a PointNet++ val forward and never in a train step; kernel 7 four
+   times a DGCNN val forward, counted;
    the first val forward's four kernel-7 calls, 8x8192 in the S 4 slice,
    held bit for bit against the plain version on their own inputs),
    and a stage with ``max_in_memory_bytes`` 1 trains on
@@ -205,8 +216,10 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
 13. export and toolkit: (a) every stage phases 10 and 11 trained to its end
    (phase 12 checks its own) holds ``{name}_{stage}.pt2`` and ``.onnx``
    (the trainer's end-of-stage export, PointNet++'s FPS a ``while_loop`` in
-   the program; its seconds from the trainer's log). For the PointNet (CLI), PointNet++
-   and DGCNN stages (23/12, 8,192 points), on the stage's 8 test clouds:
+   the program; its seconds from the trainer's log; Point Transformer's
+   stage the ``.pt2`` alone, which the port's ONNX writer does not cover).
+   For the PointNet (CLI), PointNet++, DGCNN and Point Transformer stages
+   (23/12, 8,192 points), on the stage's 8 test clouds:
    the ``.pt2`` programs in one fresh process that imports no port module
    (checked in its ``sys.modules``), each on the card at batch 1 and 8 with its kNN sets
    recorded (``aten.topk``), timed at batch 8 (clouds/s beside the eager
@@ -215,9 +228,11 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    extra outputs. Both against the eager forward of ``best/model.pt`` on
    the card: classification and se3 within 1e-4; a kNN row whose set
    differs is counted and must be a float64 tie (``TIE_REL``), and only
-   then may segmentation rows pass 1e-4 (at most 1e-3 of them); the FPS
-   picks equal kernel 2's. Kernels 2 and 7 launch 2 and 4 times an eager
-   forward, the SA kernel twice a PointNet++ one (counted). ``python -m pointcloudprocessing_tpu_torch.export.cli``
+   then may segmentation rows pass 1e-4 (at most 1e-3 of them; Point
+   Transformer's eager forward instead runs again on the ``.pt2``'s sets
+   and is held without that allowance); the FPS picks equal kernel 2's.
+   Kernels 2 and 7 launch 2 and 4 times an eager forward, the SA kernel
+   twice a PointNet++ one, FPS four times a Point Transformer one (counted). ``python -m pointcloudprocessing_tpu_torch.export.cli``
    on the PointNet stage: exit 0, its ``.onnx`` byte-equal to the
    trainer's. (b) The toolkit on the card: ``solve_kabsch`` against a numpy
    float64 SVD (R within 1e-5), the radar-truth calibration, the reflector
@@ -237,13 +252,15 @@ Phases, one line each (any failure exits non-zero, and no result is printed):
    reverse order, which sums the batch in another order, as the ranks do),
    the ranks' pooled calls joined into whole-batch calls for the tie rule;
    parameters equal across ranks;
-   DGCNN and PointNet++ (23/12, 8x1024) one global step each within the
-   same bars (each DGCNN kNN row whose set differs from the ranks' a proven
-   float64 tie, the single-device steps taking the ranks' sets there),
-   each family's global eval step within 1e-5 of the single-device one
-   (DGCNN: kernel 7 and the kNN kernel four times a rank; PointNet++: FPS
-   and the SA kernel twice a rank), PointNet++'s train step FPS twice a rank
-   and the SA kernel never. (c)
+   DGCNN, PointNet++ and Point Transformer (23/12, 8x1024) one global step
+   each within the same bars (each DGCNN kNN row whose set differs from the
+   ranks' a proven float64 tie, the single-device steps taking the ranks'
+   sets there), each family's global eval step within 1e-5 of the
+   single-device one (DGCNN: kernel 7 and the kNN kernel four times a rank;
+   PointNet++: FPS and the SA kernel twice a rank; Point Transformer: FPS
+   four times and the kNN kernel five a rank), PointNet++'s train step FPS
+   twice a rank and the SA kernel never, Point Transformer's FPS four times
+   and the kNN kernel five a rank. (c)
    ``PointCloudPipeline(mesh=[cuda] * 2)`` at 256x2048 -> voxel 0.4 -> FPS
    -> 1024: FPS picks identical to the single-device pipeline's, heads
    within 1e-4, kernels 1 and 2 once a shard. (d) ``chains=4`` on the
@@ -2444,12 +2461,19 @@ def record_knn():
         dgcnn_mod.knn_graph = real
 
 
+#: the families whose graphs go through ``models.dgcnn.knn_graph`` and so
+#: through the kNN kernel on the card
+KNN_FAMILIES = ("dgcnn", "point_transformer")
+
+
 @contextlib.contextmanager
 def count_knn():
-    """Count the DGCNN kNN graphs built in the block by device type (a
-    stand-in for ``models.dgcnn.knn_graph``): the card's take the kernel,
-    the CPU copies that export traces do not."""
+    """Count the kNN graphs of DGCNN and Point Transformer built in the
+    block by device type (a stand-in for ``knn_graph`` in both models'
+    modules): the card's take the kernel, the CPU copies that export traces
+    do not."""
     from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+    from pointcloudprocessing_tpu_torch.models import point_transformer as pt_mod
 
     real, graphs = dgcnn_mod.knn_graph, {"cuda": 0, "cpu": 0}
 
@@ -2457,11 +2481,11 @@ def count_knn():
         graphs[feats.device.type] = graphs.get(feats.device.type, 0) + 1
         return real(feats, k)
 
-    dgcnn_mod.knn_graph = counting
+    dgcnn_mod.knn_graph = pt_mod.knn_graph = counting
     try:
         yield graphs
     finally:
-        dgcnn_mod.knn_graph = real
+        dgcnn_mod.knn_graph = pt_mod.knn_graph = real
 
 
 #: tau's constant of the kNN tie rule, in units of 2^-23 (|x_i|^2 + max_j
@@ -3477,6 +3501,126 @@ def phase_pointnet2(torch, rng) -> dict:
     return results
 
 
+# ------------------------------------------- phase 9b: Point Transformer
+
+#: the generator of phase 9b's clouds, so that later phases draw as before
+PT_SEED = 2929
+#: the largest gap of a head between the card's forward and the CPU's on the
+#: same weights and self-graphs: the transitions' groupings and 3-NN searches
+#: are each device's own, on an f32 distance expansion that cuBLAS and the CPU
+#: round otherwise (4.25e-5 on a probability at 4 x 1,024 on an H100, no graph
+#: row flipped, PERF.md)
+PT_CPU_BAR = 1e-4
+
+
+def phase_point_transformer(torch) -> dict:
+    """Point Transformer 23/12 at its published widths (f32, seeded) from a
+    config with "model": "point_transformer", on 64x1024 normal(0, 1) clouds
+    of its own generator (``PT_SEED``): five ``knn_select`` launches and
+    four FPS launches a forward (one graph a stage, one FPS a transition
+    down); 4 clouds against the CPU forward on the same weights (FPS in the
+    kernel's arithmetic, its plain version), which takes the card's graphs
+    once every row where they differ is proven a tie (``knn_ties``), within
+    ``PT_CPU_BAR``; clouds/s over three windows, busy share; one
+    ``PointCloudPipeline.stream()`` over 3 batches of 64x2048 (voxel 0.4 ->
+    FPS -> 1024), FPS launching once a batch beyond the model's four."""
+    from pointcloudprocessing_tpu_torch.models import point_transformer as pt
+    from pointcloudprocessing_tpu_torch.models.factory import model_from_config
+    from pointcloudprocessing_tpu_torch.models.pipeline import PointCloudPipeline
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(PT_SEED)
+    b, n = 64, 1024
+    cfg = family_config("point_transformer", n)
+    model = model_from_config(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    if not isinstance(model, pt.PointTransformer) or \
+            next(model.parameters()).device.type != "cuda":
+        raise AssertionError("model_from_config did not build Point Transformer on the card")
+    x = torch.from_numpy(rng.normal(size=(b, n, 3)).astype(np.float32)).cuda()
+    results = {}
+    with torch.inference_mode():
+        model(x)  # warm-up
+        count = 5
+        zero_launches("knn_select", "fps_with_points")
+        # ---- the Point Transformer path: counted launches start here
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(count):
+                out = model(x)
+            torch.cuda.synchronize()
+            rates.append(b * count / (time.perf_counter() - t0))
+        knn, fps = counted("knn_select"), counted("fps_with_points")
+        # ---- the Point Transformer path ends here
+        forwards = 3 * count
+        if (knn, fps) != (5 * forwards, 4 * forwards):
+            raise AssertionError(f"Point Transformer: {knn} kNN kernel and {fps} FPS "
+                                 f"launches in {forwards} forwards (5 and 4 each)")
+        results["knn_launches"], results["fps_launches"] = knn, fps
+        check_outputs(torch, out, b, n)
+        share = busy_share(torch, lambda: [model(x) for _ in range(3)])
+
+        # the CPU forward on the same weights, taking the card's graphs
+        few = x[:4].contiguous()
+        cpu = model_from_config(cfg, device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        real, real_fps = pt.knn_graph, pt.farthest_point_sample_batch
+
+        def graphs(met):  # the self-graphs: queries and points one tensor
+            return [m[:3] for m in met if m[0] is m[1]]
+
+        try:
+            with record_eager_knn("point_transformer") as met:
+                got = model(few)
+            card_graphs = graphs(met)
+            # the CPU's FPS in the kernel's arithmetic (its plain version)
+            pt.farthest_point_sample_batch = lambda p, m: real_fps(p, m, method="stream")
+            with record_eager_knn("point_transformer") as met:
+                cpu(few.cpu())
+            flips = knn_ties(torch, "Point Transformer graphs", card_graphs,
+                             [tuple(t.cuda() for t in g) for g in graphs(met)])
+            given = iter(g[2].cpu() for g in card_graphs)
+            pt.knn_graph = lambda feats, k: next(given)
+            want = cpu(few.cpu())
+        finally:
+            pt.knn_graph, pt.farthest_point_sample_batch = real, real_fps
+        gap = max((got[k].cpu() - want[k]).abs().max().item() for k in got)
+        if gap > PT_CPU_BAR:
+            raise AssertionError(f"Point Transformer: the card's heads {gap:.3e} from the "
+                                 f"CPU's on the same weights and graphs (bar {PT_CPU_BAR})")
+    rate = float(np.median(rates))
+    log(f"[9b point transformer] 23/12 at the published widths, {b}x{n} normal(0, 1): "
+        f"clouds/s over 3 windows of {count} forwards: "
+        + ", ".join(f"{r:.1f}" for r in rates)
+        + f"; median {rate:.1f}; busy share {share} over 3 forwards; kNN kernel "
+        f"launches {knn} (5 a forward), FPS launches {fps} (4 a forward); 4 clouds "
+        f"against the CPU forward on the same weights and the card's graphs: largest "
+        f"head gap {gap:.3e} (bar {PT_CPU_BAR}), {flips} graph rows flipped, each a tie")
+
+    # one stream through the pipeline: voxel 0.4 -> FPS -> 1024 -> Point Transformer
+    pipe = PointCloudPipeline(model, scan_width=2048, model_width=n, voxel_size=0.4)
+    batches = [scan_batch(rng, "uniform", b, 2048) for _ in range(3)]
+    zero_launches("knn_select", "fps_with_points")
+    # ---- the Point Transformer stream: counted launches
+    outs = list(pipe.stream(iter(batches)))
+    torch.cuda.synchronize()
+    knn, fps = counted("knn_select"), counted("fps_with_points")
+    # ---- the Point Transformer stream ends here
+    if len(outs) != 3 or (knn, fps) != (15, 15):
+        raise AssertionError(f"Point Transformer stream: {len(outs)} batches, {knn} kNN "
+                             f"kernel and {fps} FPS launches (15 and 15)")
+    for o in outs:
+        check_outputs(torch, o, b, n)
+    results["knn_launches"] += knn
+    results["fps_launches"] += fps
+    log(f"[9b point transformer] PointCloudPipeline.stream over 3 batches of {b}x2048 "
+        f"(voxel 0.4 -> FPS -> {n} -> Point Transformer): outputs ok, kNN kernel launches "
+        f"{knn} (5 a batch), FPS launches {fps} (1 + 4 a batch); phase 9b took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 # ------------------------------------------------- phase 10: staged trainer
 
 #: four of the kc46 config's classes, each a shape of its own: per-axis
@@ -3680,16 +3824,16 @@ def stage_log(name: str):
     return logging.getLogger(f"train.{name}"), handler, messages
 
 
-def stage_artifacts(run_dir: str, name: str) -> list:
-    """The ``.pt2`` and ``.onnx`` files of every stage under a trainer run's
-    directory; fails if a stage lacks either (the trainer logs a failed
-    export and goes on, so this is where such a fault shows)."""
+def stage_artifacts(run_dir: str, name: str, exts=(".pt2", ".onnx")) -> list:
+    """The files of ``exts`` (the ``.pt2`` and ``.onnx``) of every stage
+    under a trainer run's directory; fails if a stage lacks one (the trainer
+    logs a failed export and goes on, so this is where such a fault shows)."""
     written = []
     for stage in sorted(os.listdir(run_dir)):
         stage_dir = os.path.join(run_dir, stage)
         if not os.path.isdir(stage_dir):
             continue
-        for ext in (".pt2", ".onnx"):
+        for ext in exts:
             path = os.path.join(stage_dir, f"{name}_{stage}{ext}")
             if not os.path.isfile(path) or os.path.getsize(path) == 0:
                 raise AssertionError(f"export: {path} missing after its stage")
@@ -3911,9 +4055,11 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
     log(f"[10 trainer] serve.main --model {stages[-1]}/ (best/model.pt, the "
         f"trainer's checkpoint): {len(records)} scans answered")
 
-    # (g) PointNet++ and DGCNN through the same step, one stage of 2 epochs
+    # (g) PointNet++, DGCNN and Point Transformer through the same step, one
+    # stage of 2 epochs
     for family, kernel, per_forward in (("pointnet2", "fps", 2),
-                                        ("dgcnn", "gather", 4)):
+                                        ("dgcnn", "gather", 4),
+                                        ("point_transformer", "fps", 4)):
         fam_cfg = trainer_config(root, datasets, f"models_{family}", epochs=2,
                                 stages=[stages[-1]], model=family)
         gathers: list = []
@@ -3940,12 +4086,12 @@ def phase_trainer(torch, rng, trained: dict, root: str) -> dict:
         seconds = (time.perf_counter() - t0
                    - sum(out["export"][family]["seconds"].values()))
         check_histories(family, hist, None, 2, {})
-        forwards = 2 * (steps_per_epoch + val_steps) if family == "pointnet2" \
-            else 2 * val_steps  # DGCNN's train forward gathers rows instead
+        forwards = 2 * val_steps if family == "dgcnn" \
+            else 2 * (steps_per_epoch + val_steps)  # DGCNN's train forward gathers rows
         if got[kernel] != per_forward * forwards:
             raise AssertionError(f"trainer {family}: {kernel} launches "
                                  f"{got[kernel]}, want {per_forward} x {forwards}")
-        if got["knn"] != graphs["cuda"] or (family == "dgcnn") != (got["knn"] > 0):
+        if got["knn"] != graphs["cuda"] or (family in KNN_FAMILIES) != (got["knn"] > 0):
             raise AssertionError(f"trainer {family}: {got['knn']} kNN kernel launches "
                                  f"for {graphs['cuda']} kNN graphs on the card")
         # the SA kernel: twice a val forward (f32, running statistics, no
@@ -4617,11 +4763,13 @@ def export_seconds(lines) -> dict:
 @contextlib.contextmanager
 def record_eager_knn(family: str):
     """Record (queries, points, neighbour indices, kind) of every kNN set
-    the eager model builds in the block: DGCNN's graphs and PointNet++'s
-    groupings (kind "topk", as the ``.pt2`` program records them) and
-    PointNet++'s 3-NN interpolations (kind "three"; the program builds them
+    the eager model builds in the block: DGCNN's graphs, PointNet++'s
+    groupings and Point Transformer's graphs (queries and points the same
+    tensor) and groupings (kind "topk", as the ``.pt2`` program records
+    them) and the 3-NN interpolations (kind "three"; the program builds them
     by argmin, the ONNX graph by TopK)."""
     from pointcloudprocessing_tpu_torch.models import dgcnn as dgcnn_mod
+    from pointcloudprocessing_tpu_torch.models import point_transformer as pt_mod
     from pointcloudprocessing_tpu_torch.models import pointnet2 as pn2_mod
 
     met: list = []
@@ -4647,11 +4795,42 @@ def record_eager_knn(family: str):
         dgcnn_mod.knn_graph = graph
     elif family == "pointnet2":
         pn2_mod._grouping_knn, pn2_mod._three_nearest = group, three
+    elif family == "point_transformer":
+        pt_mod.knn_graph, pt_mod._grouping_knn, pt_mod._three_nearest = graph, group, three
     try:
         yield met
     finally:
-        dgcnn_mod.knn_graph = real_graph
-        pn2_mod._grouping_knn, pn2_mod._three_nearest = real_group, real_three
+        dgcnn_mod.knn_graph = pt_mod.knn_graph = real_graph
+        pn2_mod._grouping_knn = pt_mod._grouping_knn = real_group
+        pn2_mod._three_nearest = pt_mod._three_nearest = real_three
+
+
+@contextlib.contextmanager
+def following_sets(sets: list):
+    """Point Transformer's graphs and groupings in the block take the sets
+    ``sets`` (numpy (b, m, k) indices, in the order the forward searches)
+    in place of its own searches."""
+    import torch
+
+    from pointcloudprocessing_tpu_torch.models import point_transformer as pt_mod
+
+    real_graph, real_group, given = pt_mod.knn_graph, pt_mod._grouping_knn, iter(sets)
+
+    def taken(like):
+        return torch.from_numpy(np.asarray(next(given))).to(like.device, like.dtype)
+
+    def graph(feats, k):
+        return taken(real_graph(feats, k))
+
+    def group(queries, points, k):
+        idx, sq = real_group(queries, points, k)
+        return taken(idx), sq
+
+    pt_mod.knn_graph, pt_mod._grouping_knn = graph, group
+    try:
+        yield
+    finally:
+        pt_mod.knn_graph, pt_mod._grouping_knn = real_graph, real_group
 
 
 def tied_set(torch, q, p, idx, row) -> tuple[float, float]:
@@ -4777,7 +4956,7 @@ def load_programs(card: str, exports: dict, points: np.ndarray, work: str) -> di
                 [got[f"b{b}_head{i}"] for i in range(3)],
                 [(got[f"b{b}_q{i}"], got[f"b{b}_p{i}"], got[f"b{b}_knn{i}"])
                  for i in range(report[family]["knn_sets"])]) for b in (1, 8)}
-    log(f"[13 export] the three .pt2 programs in one process that imports no port "
+    log(f"[13 export] the {len(jobs)} .pt2 programs in one process that imports no port "
         f"module ({card}): {process_s:.1f} s in all (process start, torch and CUDA "
         f"start, each program loaded, run at b1 and b8 with its kNN sets recorded, "
         f"timed at b8); torch.export.load "
@@ -4833,7 +5012,32 @@ def export_family(torch, card: str, family: str, info: dict, points: np.ndarray,
         heads, knn = loaded["out"][b]
         flips = knn_ties(torch, f"export {family} .pt2 b{b}",
                          [m for m in met if m[3] == "topk"], knn)
+        if family == "point_transformer" and flips:
+            # a flipped neighbour moves a row's attention and, through the
+            # transitions, the heads of its cloud: the eager forward again
+            # on the .pt2's sets, each flip a proven tie, held without one
+            with torch.inference_mode(), following_sets([s[2] for s in knn]):
+                want = model(x[:b])
+            forwards += 1
+            lines[b] = held_heads(f"export {family} .pt2 b{b}", heads, want, 0) + (
+                f", against the eager forward run again on the .pt2's kNN sets, "
+                f"where {flips} rows had flipped, each a proven tie")
+            continue
         lines[b] = held_heads(f"export {family} .pt2 b{b}", heads, want, flips)
+
+    if family == "point_transformer":
+        sizes = {".pt2": os.path.getsize(prefix + ".pt2") / 2**20}
+        eager_rate, pt2_rate = float(np.median(rates)), float(np.median(loaded["rates"]))
+        log(f"[13 export] {family} 23/12 at {cfg.input_width} points (stage "
+            f"{info['stage']}, {card}): the trainer wrote {prefix}.pt2 "
+            f"({sizes['.pt2']:.1f} MiB) and no .onnx (the port's ONNX writer does not "
+            f"cover the family); .pt2 in the process that imports no port module "
+            f"(torch.export.load {loaded['load_s']:.2f} s): b1 {lines[1]}; b8 {lines[8]}")
+        log(f"[13 export] {family} clouds/s at 8x{cfg.input_width} ({card}): .pt2 "
+            + ", ".join(f"{r:.1f}" for r in loaded["rates"]) + f" (median {pt2_rate:.1f});"
+            f" eager " + ", ".join(f"{r:.1f}" for r in rates)
+            + f" (median {eager_rate:.1f}); .pt2 / eager {pt2_rate / eager_rate:.3f}")
+        return {"forwards": forwards, "pt2_rate": pt2_rate, "eager_rate": eager_rate}
 
     # the ONNX file through the port's interpreter, with its kNN sets and
     # (PointNet++) its FPS picks as extra outputs
@@ -4994,6 +5198,10 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
         "models", "models_resume", "models_busy", "models_pointnet2", "models_dgcnn",
         "models_stream", "models_bf16") for path in stage_artifacts(
             os.path.join(root, model_dir, name), name)]
+    # the port's ONNX writer does not cover Point Transformer: its stage
+    # writes the .pt2 alone
+    written += stage_artifacts(os.path.join(root, "models_point_transformer", name), name,
+                               (".pt2",))
     stage = exports["pointnet"]["stage"]
     test = load_from_file(os.path.join(root, "data", f"{name}_{stage}", "pc_set.joblib")
                           ).load_split_arrays("test")["observations"]
@@ -5003,11 +5211,12 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
     log(f"[13 export] {len(written)} artifacts (.pt2 and .onnx) in every stage phases "
         f"10 and 11 trained (f32 and bf16 compute); held on the {len(points)} test clouds of stage {stage}")
 
-    per_forward = {"pointnet": {}, "pointnet2": {"fps": 2, "sa": 2}, "dgcnn": {"gather": 4}}
+    per_forward = {"pointnet": {}, "pointnet2": {"fps": 2, "sa": 2}, "dgcnn": {"gather": 4},
+                   "point_transformer": {"fps": 4}}
     launches = {"fps": 0, "gather": 0, "knn": 0, "sa": 0}
     with tempfile.TemporaryDirectory() as work:
         loaded = load_programs(card, exports, points, work)
-        for family in ("pointnet", "pointnet2", "dgcnn"):
+        for family in ("pointnet", "pointnet2", "dgcnn", "point_transformer"):
             zero_launches("fps_with_points", "gather_maxmin", "knn_select", "sa_group_mlp")
             # ---- the export path (eager references on the card): counted launches
             with count_knn() as graphs:
@@ -5021,7 +5230,7 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
                     for k in counts}
             # the eager forwards' kNN graphs on the card take the kernel
             want["knn"] = graphs["cuda"]
-            if (family == "dgcnn") != (want["knn"] > 0):
+            if (family in KNN_FAMILIES) != (want["knn"] > 0):
                 raise AssertionError(f"export {family}: {want['knn']} kNN graphs on the card")
             if counts != want:
                 raise AssertionError(f"export {family}: launches {counts}, want {want}")
@@ -5054,7 +5263,7 @@ def phase_export(torch, card: str, root: str, trainer: dict) -> dict:
 
 # ------------------------------------- phase 14: multi-device and FPS forms
 
-PHASE14_FAMILY = (8, 1024)  # DGCNN's and PointNet++'s global steps: b, n
+PHASE14_FAMILY = (8, 1024)  # the families' global steps: b, n
 PHASE14_SCAN = (256, 2048, 1024)  # sharded serving and chains=: b, scan, k
 PHASE14_SINGLE = 65536  # the single cloud's points
 PHASE14_TIMED = 10  # steps a timed window in (a)
@@ -5107,7 +5316,8 @@ def kernel_counts() -> dict:
 
 
 def family_config(model: str, width: int):
-    """A 23/12 config of ``model`` ("dgcnn", "pointnet2") at ``width``."""
+    """A 23/12 config of ``model`` ("dgcnn", "pointnet2",
+    "point_transformer") at ``width``."""
     from pointcloudprocessing_tpu_torch.core.config import parse_config
 
     return parse_config({
@@ -5131,8 +5341,8 @@ def copy_result(torch, model, logs, calls=None, counts=None) -> dict:
 def phase14_rank(rank: int, world: int, port: int, work: str) -> None:
     """One gloo rank of phase 14 (b), sharing the card: the shard_map step
     on identical halves (world 2), case B's global step on its rows, and
-    (world 2) DGCNN's and PointNet++'s global steps and DGCNN's global eval
-    step; writes ``rank<r>.pt`` in ``work``."""
+    (world 2) DGCNN's, PointNet++'s and Point Transformer's global eval and
+    train steps; writes ``rank<r>.pt`` in ``work``."""
     import torch
     import torch.distributed as dist
 
@@ -5505,7 +5715,7 @@ def gloo_ranks_on_card(torch) -> dict:
     }
     families = {}
     fb, fn = PHASE14_FAMILY
-    for family in ("dgcnn", "pointnet2"):
+    for family in ("dgcnn", "pointnet2", "point_transformer"):
         cfg = family_config(family, fn)
         model = model_from_config(cfg, training=True, dropout_rate=0.3,
                                   generator=torch.Generator().manual_seed(0),
@@ -5571,10 +5781,11 @@ def gloo_ranks_on_card(torch) -> dict:
         launches = [r[family]["counts"] for r in two]
         # a rank's eval forward: DGCNN four kernel-7 and four kNN launches,
         # PointNet++ two FPS and two SA kernel launches (f32, running
-        # statistics); its train step takes the SA kernel nowhere (case B
-        # freezes nothing)
+        # statistics), Point Transformer four FPS and five kNN launches; its
+        # train step takes the SA kernel nowhere (case B freezes nothing)
         per_eval = {"dgcnn": {"gather": 4, "knn": 4},
-                    "pointnet2": {"fps": 2, "sa": 2}}[family]
+                    "pointnet2": {"fps": 2, "sa": 2},
+                    "point_transformer": {"fps": 4, "knn": 5}}[family]
         evals = {k: [r[family]["eval_counts"][k] for r in two] for k in per_eval}
         if any(v != [per_eval[k]] * 2 for k, v in evals.items()):
             raise AssertionError(f"[14 multi-device] {family} eval launches {evals}, "
@@ -5597,6 +5808,14 @@ def gloo_ranks_on_card(torch) -> dict:
                                      f"FPS {fps}, the SA kernel {sa}")
             extra += (f"; train step: FPS launches {fps} (twice a forward a rank), "
                       f"SA kernel {sa}")
+        if family == "point_transformer":
+            fps = [c["fps"] for c in launches]
+            knn = [c["knn"] for c in launches]
+            if fps != [4, 4] or knn != [5, 5]:
+                raise AssertionError(f"[14 multi-device] point_transformer train step "
+                                     f"launches: FPS {fps}, kNN kernel {knn}")
+            extra += (f"; train step: FPS launches {fps}, kNN kernel launches {knn} "
+                      "(4 and 5 a forward a rank)")
         if family == "dgcnn":
             extra += (f"; kNN rows flipped {worst['knn']}, each a proven tie, the "
                       "single-device steps taking the ranks' sets there")
@@ -6192,6 +6411,7 @@ def main() -> int:
     any_rank = phase_any_rank_kernel(torch, rng)
     wide = phase_wide_scan(torch, model)
     pn2 = phase_pointnet2(torch, rng)
+    point_transformer = phase_point_transformer(torch)
     with tempfile.TemporaryDirectory() as trainer_root:
         trainer = phase_trainer(torch, rng, trained, trainer_root)
         log(f"chip_smoke: phases 1-10 took {time.perf_counter() - t_start:.1f} s")
@@ -6237,6 +6457,7 @@ def main() -> int:
               kernels["seg_library_ms"]),
         entry("fps_with_points", FPS_SRC, FPS_TPU,
               sliced["launches"]["fps"] + pn2["fps_launches"] + wide["fps_launches"]
+              + point_transformer["fps_launches"]
               + trainer["launches"]["fps"] + exported["fps"] + multi["fps"],
               kernels["fps_err"], kernels["fps_ms"], kernels["fps_plain_ms"],
               kernels["fps_bound"]),
@@ -6272,7 +6493,8 @@ def main() -> int:
         # max_abs_err: the largest excess of a graph's rows off the exact
         # float64 sets, in units of 2^-23 (|x_i|^2 + max_j |x_j|^2)
         entry("knn_select", KNN_SRC, KNN_TPU,
-              dgcnn["knn_launches"] + bf16["launches"]["knn"] + trainer["launches"]["knn"]
+              dgcnn["knn_launches"] + point_transformer["knn_launches"]
+              + bf16["launches"]["knn"] + trainer["launches"]["knn"]
               + exported["knn"] + multi["knn"],
               dgcnn["knn"]["err"], dgcnn["knn"]["ms"], dgcnn["knn"]["plain_ms"],
               dgcnn["knn"]["bound"]),

@@ -11,6 +11,7 @@ from pointcloudprocessing_tpu_torch.models.pointnet import (
 )
 from pointcloudprocessing_tpu_torch.models.pointnet2 import PointNet2
 from pointcloudprocessing_tpu_torch.models.dgcnn import DGCNN
+from pointcloudprocessing_tpu_torch.models.point_transformer import PointTransformer
 from pointcloudprocessing_tpu_torch.models.classifier import (
     PointNetClassifier,
     TNetRegressor,
@@ -24,6 +25,7 @@ __all__ = [
     "PointNet",
     "PointNet2",
     "DGCNN",
+    "PointTransformer",
     "FreezeFlags",
     "NOTHING_FROZEN",
     "freeze_flags_from_trainable",

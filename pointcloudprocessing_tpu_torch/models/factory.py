@@ -8,10 +8,13 @@ from torch import nn
 
 from pointcloudprocessing_tpu_torch.models.dgcnn import dgcnn_for_width
 from pointcloudprocessing_tpu_torch.models.pointnet import PointNet
+from pointcloudprocessing_tpu_torch.models.point_transformer import (
+    point_transformer_for_width,
+)
 from pointcloudprocessing_tpu_torch.models.pointnet2 import pointnet2_for_width
 from pointcloudprocessing_tpu_torch.utils.device import require_device
 
-MODEL_FAMILIES = ("pointnet", "pointnet2", "dgcnn")
+MODEL_FAMILIES = ("pointnet", "pointnet2", "dgcnn", "point_transformer")
 
 
 def _dtype_of(value: str, key: str) -> torch.dtype | None:
@@ -40,7 +43,8 @@ def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
                       device="cuda", dtype: torch.dtype | None = None
                       ) -> nn.Module:
     """Build the configured model family (``cfg`` is a
-    ``core.config.TrainConfig``): PointNet, PointNet++ or DGCNN, on
+    ``core.config.TrainConfig``): PointNet, PointNet++, DGCNN or Point
+    Transformer (f32 only: a bf16 ``dtype`` raises), on
     ``device``, which is CUDA unless the caller asks for the CPU (without
     CUDA the default raises), computing in ``dtype`` (None = f32; the
     training driver passes :func:`compute_dtype_of`). ``training=True``
@@ -54,6 +58,12 @@ def model_from_config(cfg, *, training: bool = False, dropout_rate: float = 0.3,
         )
     if cfg.model == "pointnet2":
         return pointnet2_for_width(
+            cfg.num_classes, cfg.num_parts, cfg.input_width,
+            dropout_rate=dropout_rate, generator=generator, device=device,
+            dtype=dtype,
+        )
+    if cfg.model == "point_transformer":
+        return point_transformer_for_width(
             cfg.num_classes, cfg.num_parts, cfg.input_width,
             dropout_rate=dropout_rate, generator=generator, device=device,
             dtype=dtype,

@@ -422,6 +422,13 @@ class TrainProfile:
 
                     self._log.info("DGCNN Build")
                     report = layer_trainability_dgcnn(freeze)
+                elif cfg.model == "point_transformer":
+                    from pointcloudprocessing_tpu_torch.models.point_transformer import (
+                        layer_trainability_point_transformer,
+                    )
+
+                    self._log.info("Point Transformer Build")
+                    report = layer_trainability_point_transformer(freeze)
                 else:
                     self._log.info("PointNet Build")
                     report = layer_trainability(freeze, cfg.vanilla)
